@@ -1,0 +1,37 @@
+"""quantum_basis_tpu_torch — the PyTorch/CUDA port of quantum_basis_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100. It keeps the JAX
+package's module layout and API names, uses native complex128/float64 device
+tensors (complex64/float32 in the bulk tier), and replaces each Pallas TPU
+kernel with a kernel written by hand for Hopper. It imports neither jax nor
+quantum_basis_tpu.
+
+Ported so far: the momentum-sector ground-state route
+(``Model.enumerate_basis_repr`` -> ``locate_E0_lanczos(which="repr")`` ->
+``measure_repr_static``) with the CUDA BSR SpMV kernel (ops/bsr.py,
+csrc/bsr_spmv.cu).
+"""
+
+from quantum_basis_tpu_torch import config as config
+from quantum_basis_tpu_torch.config import initialize
+
+from quantum_basis_tpu_torch.basis.site_basis import SiteBasis
+from quantum_basis_tpu_torch.basis.state import StateSpace
+from quantum_basis_tpu_torch.ops.operators import Opr, OprProd, Mopr
+from quantum_basis_tpu_torch.lattice.lattice import Lattice
+from quantum_basis_tpu_torch.models.model import Model
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "config",
+    "initialize",
+    "SiteBasis",
+    "StateSpace",
+    "Opr",
+    "OprProd",
+    "Mopr",
+    "Lattice",
+    "Model",
+    "__version__",
+]

@@ -1,0 +1,63 @@
+"""Global configuration: tolerances, BSR routing bounds, matmul precision.
+
+Port of ``quantum_basis_tpu.config`` for the momentum-sector ground-state
+slice. Importing this module turns TF32 off for float32 matrix products and
+convolutions: the f32 bulk tier (Krylov basis products, the RQI inner CG)
+needs true float32, the way the JAX package forces ``Precision.HIGHEST``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# Numerical tolerances (reference: src/miscellaneous.cc:44-47).
+opr_precision = 1e-12       # for comparing operator matrix elements
+sparse_precision = 1e-14    # entries below this are dropped from sparse H
+lanczos_precision = 2e-12   # Lanczos convergence tolerance
+
+# Crash-consistent checkpointing is not ported yet: setting this (or
+# initialize(enable_checkpoint=True)) makes every solve raise.
+enable_ckpt = False
+
+# f32-stage convergence target (residual, relative to |E|); the f64 polish
+# stage then runs to the caller's tolerance from this warm start.
+mixed_precision_f32_tol = 1e-5
+
+# Label spaces up to this size get an O(1) direct position-lookup table on
+# device; larger spaces use binary search. Calibrated on a 16 GB TPU and
+# not yet re-measured on the GPU.
+direct_lookup_max = 1 << 26
+
+# --------------------------------------------------------- BSR engine routing
+# Explicit momentum-sector solves on a CUDA device run their f32 bulk Krylov
+# stage on the hand-written BSR SpMV kernel (ops/bsr.py) when the block
+# fill-in blowup (stored / nnz, bsr_fill_stats) is at most bsr_blowup_max
+# and the stored f32 block bytes (x2 when complex) at most
+# bsr_stored_max_bytes. Both bounds are the JAX package's TPU calibrations
+# (measured break-even blowup ~690 on a v5e; 2 GiB sized for a 16 GB chip)
+# and have not been re-measured on the H100. prefer_bsr = True/False
+# overrides the routing on any device (the CPU tests force True).
+bsr_blowup_max = 400.0
+prefer_bsr = None
+bsr_stored_max_bytes = 2 << 30
+
+
+def initialize(enable_checkpoint: bool = False, quiet: bool = False) -> None:
+    """Set up the library and print an environment banner."""
+    if enable_checkpoint:
+        raise NotImplementedError(
+            "checkpointing is not ported to quantum_basis_tpu_torch yet")
+    if quiet:
+        return
+    print("=" * 64)
+    print("quantum_basis_tpu_torch")
+    print(f"torch      : {torch.__version__} (cuda {torch.version.cuda})")
+    if torch.cuda.is_available():
+        print(f"device     : {torch.cuda.get_device_name(0)} "
+              f"x{torch.cuda.device_count()}")
+    else:
+        print("device     : no CUDA device")
+    print("=" * 64)

@@ -1,0 +1,132 @@
+"""Matrix-free apply in translational-symmetry (momentum) sectors.
+
+Port of ``quantum_basis_tpu.ops.apply_repr`` (``ReprBasis``, ``MatvecRepr``)
+with native complex128 vectors in place of split (re, im) pairs. Basis
+vectors are |r,k> = P_k|r>/sqrt(nu_r) over representatives r (orbit minima)
+with nu_r > 0 (cf. generate_Ham_sparse_repr / repr MultMv2,
+src/model.cc:687-836, 941-1121).
+
+Row kernel (Hermitian row-gather, no scatters): apply H to the product state
+|r_i>; for every image |m> with amplitude A (JW sign included) compute all G
+translated labels of m, take the orbit minimum r_j = min_g T_g(m) and the
+minimizing element g*; then
+
+    y_i += sqrt(nu_j / nu_i) * conj(A) * sigma_{g*} * e^{-i k.R_{g*}} * x_j
+
+Images whose representative has nu = 0, or lies outside the quantum-number
+sector, are dropped.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from quantum_basis_tpu_torch.basis.index import BasisIndex
+from quantum_basis_tpu_torch.basis.translation import (
+    TranslationSet,
+    enumerate_reps,
+    sector_norms,
+)
+from quantum_basis_tpu_torch.ops.apply import (
+    DeviceBasis,
+    _block_images,
+    _group_device,
+)
+from quantum_basis_tpu_torch.ops.compile import CompiledOperator, compile_diagonal
+
+_NU_TOL = 1e-10
+_BLOCK_BUDGET = 1 << 22  # elements of each (B, T, K, G) intermediate
+
+
+class ReprBasis(DeviceBasis):
+    """Momentum-sector basis: representatives + norms, blocked on the device.
+
+    Built from the quantum-number-sector labels (cf. enumerate_basis_repr,
+    src/model.cc:274-487): reps = orbit minima, nu = <r|P_k|r>, keep nu > 0.
+    """
+
+    def __init__(self, space, tset: TranslationSet, sector_labels: np.ndarray,
+                 momentum, work_per_row: int = 16,
+                 reps_all: np.ndarray | None = None):
+        self.tset = tset
+        self.momentum = tuple(int(x) for x in np.atleast_1d(momentum))
+        if reps_all is None:
+            reps_all = enumerate_reps(tset, sector_labels)
+        nus = sector_norms(tset, reps_all, momentum)
+        keep = nus > _NU_TOL
+        labels = reps_all[keep]
+        self.nus = nus[keep]
+        if labels.size == 0:
+            raise ValueError(
+                f"momentum sector k={self.momentum} is empty (all norms zero)")
+        per_row = max(work_per_row, 1) * max(tset.G, 1)
+        block_rows = 1 << int(math.floor(math.log2(
+            max(256, _BLOCK_BUDGET // per_row))))
+        index = BasisIndex(labels, space.label_space, device=tset.device)
+        super().__init__(space, labels, index, block_rows, device=tset.device)
+        nu_pad = np.concatenate([self.nus, np.ones(self.pad)])
+        dev = self.device
+        self.inv_sqrt_nu_b = torch.as_tensor(
+            (1.0 / np.sqrt(nu_pad)).reshape(self.n_blocks, self.block_rows),
+            device=dev)
+        # entry n is the padding slot for images that leave the sector
+        self.sqrt_nu = torch.as_tensor(
+            np.sqrt(np.concatenate([self.nus, [1.0]])), device=dev)
+        row_id = np.arange(self.n_blocks * self.block_rows)
+        self.mask_b = torch.as_tensor(
+            (row_id < self.n).reshape(self.n_blocks, self.block_rows),
+            device=dev)
+
+
+class MatvecRepr:
+    """y = H x in a momentum sector; complex128, matrix-free."""
+
+    def __init__(self, compiled: CompiledOperator, rbasis: ReprBasis):
+        self.compiled = compiled
+        self.basis = rbasis
+        self.n = rbasis.n
+        self.device = rbasis.device
+        self.dtype = torch.float64
+        self.is_complex = True
+        self.groups = [_group_device(g, self.device) for g in compiled.groups]
+        if compiled.diag_terms.q_zero():
+            self.diag_b = torch.zeros(rbasis.labels_b.shape,
+                                      dtype=torch.float64, device=self.device)
+        else:
+            self.diag_b = compile_diagonal(compiled.diag_terms,
+                                           compiled.space)(rbasis.V_b)
+        cos, sin = rbasis.tset.phases(rbasis.momentum)
+        self.phase = torch.as_tensor(cos + 1j * sin, device=self.device)
+
+    def images(self, b: int):
+        """Off-diagonal entries of row block ``b``, one triple per term group:
+        (j, valid, coef), each (B, T, K), with H[i, j] = coef where valid."""
+        rb = self.basis
+        tset = rb.tset
+        labels, V, F = rb.labels_b[b], rb.V_b[b], rb.F_b[b]
+        isn = (rb.inv_sqrt_nu_b[b] * rb.mask_b[b])[:, None, None]
+        out = []
+        for g in self.groups:
+            sign, amp, tgt = _block_images(g, labels, V, F)
+            Vm = rb.space.decode(tgt)                            # (B,T,K,S)
+            Fm = tset.fermion_counts(Vm) if tset.fermionic else None
+            tl, tsign = tset.transform_all(Vm, Fm)               # (B,T,K,G)
+            rmin, gstar = tl.min(dim=-1)
+            sig = tsign.gather(-1, gstar[..., None])[..., 0]
+            j, valid = rb.index.lookup_checked(rmin)
+            w = (sign[..., None] * sig * rb.sqrt_nu[torch.where(valid, j, self.n)]
+                 * isn * valid)
+            out.append((j, valid, w * amp.conj() * self.phase[gstar]))
+        return out
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.complex128)
+        rb = self.basis
+        y = rb.pad_vec(x) * self.diag_b
+        for b in range(rb.n_blocks):
+            for j, valid, coef in self.images(b):
+                y[b] += (coef * x[torch.where(valid, j, 0)]).sum(dim=(1, 2))
+        return (y * rb.mask_b).reshape(-1)[: self.n]

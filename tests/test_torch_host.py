@@ -1,0 +1,103 @@
+"""Port host layer (quantum_basis_tpu_torch) against the JAX package.
+
+The numpy host code — operator algebra, lattices, state codec, term
+compiler, Lehmer starts — is carried into the port; the compiled term tables
+of each model must be array-equal to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import models_zoo as jz
+import torch_zoo as tz
+from quantum_basis_tpu.ops.compile import compile_diagonal as jax_compile_diagonal
+from quantum_basis_tpu.utils.rng import vec_randomize as jax_vec_randomize
+from quantum_basis_tpu_torch.ops.compile import compile_diagonal
+from quantum_basis_tpu_torch.utils.rng import vec_randomize
+
+MODELS = {
+    "chain8": (lambda z: z.heisenberg_chain(8)),
+    "kagome_tj_1x2": (lambda z: z.kagome_tj(1, 2)),
+    "honeycomb_3x2": (lambda z: z.spinless_fermion_honeycomb(3, 2)),
+    "kondo4": (lambda z: z.kondo_chain(4, 4.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_compiled_term_tables_equal(name):
+    mj, _ = MODELS[name](jz)
+    mt, _ = MODELS[name](tz)
+    cj, ct = mj.compiled_Ham, mt.compiled_Ham
+    assert ct.nnz_per_row == cj.nnz_per_row
+    assert len(ct.groups) == len(cj.groups)
+    for gj, gt in zip(cj.groups, ct.groups):
+        assert gt.arity == gj.arity
+        for attr in ("slots", "jstrides", "dlt", "amp_re", "W"):
+            np.testing.assert_array_equal(getattr(gt, attr), getattr(gj, attr))
+        assert (gt.amp_im is None) == (gj.amp_im is None)
+        if gj.amp_im is not None:
+            np.testing.assert_array_equal(gt.amp_im, gj.amp_im)
+    # the diagonal part, evaluated on every label of the space
+    space = mt.space
+    labels = np.arange(space.label_space, dtype=np.int64)
+    V = space.decode(labels)
+    np.testing.assert_array_equal(V, mj.space.decode(labels))
+    dj = jax_compile_diagonal(cj.diag_terms, mj.space)(V)
+    np.testing.assert_array_equal(
+        compile_diagonal(ct.diag_terms, space)(V), dj)
+    # the torch path of the same evaluator and of the codec
+    Vt = space.decode(torch.as_tensor(labels))
+    np.testing.assert_array_equal(Vt.numpy(), V)
+    np.testing.assert_array_equal(space.encode(Vt).numpy(), labels)
+    np.testing.assert_array_equal(
+        compile_diagonal(ct.diag_terms, space)(Vt).numpy(), dj)
+
+
+@pytest.mark.parametrize("name", ["kagome_tj_1x2", "honeycomb_3x2"])
+def test_translation_plans_equal(name):
+    mj, _ = MODELS[name](jz)
+    mt, _ = MODELS[name](tz)
+    dj, pj = mj.lattice.translation_group()
+    dt, pt = mt.lattice.translation_group()
+    np.testing.assert_array_equal(dt, dj)
+    np.testing.assert_array_equal(pt, pj)
+    for plan in pt:
+        for a, b in zip(mt.space.permutation_arrays(plan),
+                        mj.space.permutation_arrays(plan)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("complex_valued", [False, True])
+def test_random_start_equal(complex_valued):
+    for a, b in zip(vec_randomize(1000, seed=3, complex_valued=complex_valued),
+                    jax_vec_randomize(1000, seed=3,
+                                      complex_valued=complex_valued)):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, quantum_basis_tpu_torch, quantum_basis_tpu_torch.interop; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
+
+
+def test_unported_options_raise():
+    from quantum_basis_tpu_torch import config
+
+    with pytest.raises(NotImplementedError):
+        config.initialize(enable_checkpoint=True)
+    m, _ = tz.heisenberg_chain(4)
+    with pytest.raises(NotImplementedError):
+        m.locate_E0_lanczos(which="full")

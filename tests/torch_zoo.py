@@ -1,0 +1,154 @@
+"""Model builders for the PyTorch port (quantum_basis_tpu_torch).
+
+The same Hamiltonians as tests/models_zoo.py (which builds them with the JAX
+package's classes), built with the port's classes on a chosen device, so a
+test can run one model through both packages. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from quantum_basis_tpu_torch import Lattice, Model, Mopr, Opr
+
+SP_HALF = {
+    "Sz": np.array([0.5, -0.5]),
+    "Sp": np.array([[0.0, 1.0], [0.0, 0.0]]),
+    "Sm": np.array([[0.0, 0.0], [1.0, 0.0]]),
+}
+# electron: |0>, |up>, |dn>, |up dn>
+C_UP = np.array([[0, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 1], [0, 0, 0, 0.0]])
+C_DN = np.array([[0, 0, 1, 0], [0, 0, 0, -1], [0, 0, 0, 0], [0, 0, 0, 0.0]])
+# tJ: |0>, |up>, |dn>
+TJ_C_UP = np.array([[0, 1, 0], [0, 0, 0], [0, 0, 0.0]])
+TJ_C_DN = np.array([[0, 0, 1], [0, 0, 0], [0, 0, 0.0]])
+# spinless fermion: |0>, |1>
+C_SPINLESS = np.array([[0.0, 1.0], [0.0, 0.0]])
+
+_KAGOME_BONDS = [
+    (0, 2, (1, 0)), (0, 2, (0, 0)),
+    (1, 0, (0, 1)), (1, 0, (0, 0)),
+    (2, 1, (-1, -1)), (2, 1, (0, 0)),
+]
+
+
+def _heis_bond(m, i, j, ops, J=1.0):
+    m.add_Ham(0.5 * J * (Opr(i, 0, False, ops["Sp"]) * Opr(j, 0, False, ops["Sm"])
+                         + Opr(i, 0, False, ops["Sm"]) * Opr(j, 0, False, ops["Sp"])))
+    m.add_Ham(J * (Opr(i, 0, False, ops["Sz"]) * Opr(j, 0, False, ops["Sz"])))
+
+
+def sz_pair(i=0, j=1):
+    """Sz_i Sz_j on a spin-1/2 orbital 0."""
+    return Opr(i, 0, False, SP_HALF["Sz"]) * Opr(j, 0, False, SP_HALF["Sz"])
+
+
+def heisenberg_chain(L, device="cpu"):
+    """Spin-1/2 Heisenberg chain (reference:
+    examples/*/latt_chain/chain_Heisenberg_spin_half.cc)."""
+    m = Model(Lattice("chain", [L], ["pbc"]), device=device)
+    m.add_orbital(L, "spin-1/2")
+    for x in range(L):
+        _heis_bond(m, x, (x + 1) % L, SP_HALF)
+    sz = Mopr()
+    for x in range(L):
+        sz += Opr(x, 0, False, SP_HALF["Sz"])
+    return m, {"Sz": sz}
+
+
+def tj_sz(s):
+    """Sz on site s of a t-J orbital 0."""
+    cu, cd = Opr(s, 0, True, TJ_C_UP), Opr(s, 0, True, TJ_C_DN)
+    return 0.5 * (cu.dagger() * cu) - 0.5 * (cd.dagger() * cd)
+
+
+def kagome_tj(Lx, Ly, t=1.0, J=1.0, device="cpu"):
+    """Kagome t-J model (reference: examples/*/latt_kagome/kagome_tJ.cc)."""
+    lat = Lattice("kagome", [Lx, Ly], ["pbc", "pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "tJ")
+    N_tot, Sz_tot = Mopr(), Mopr()
+
+    def site_ops(s):
+        cu, cd = Opr(s, 0, True, TJ_C_UP), Opr(s, 0, True, TJ_C_DN)
+        return {
+            "cu": cu, "cd": cd,
+            "Sp": cu.dagger() * cd, "Sm": cd.dagger() * cu,
+            "Sz": 0.5 * (cu.dagger() * cu) - 0.5 * (cd.dagger() * cd),
+            "N": cu.dagger() * cu + cd.dagger() * cd,
+        }
+
+    for x in range(Lx):
+        for y in range(Ly):
+            for si, sj, (dx, dy) in _KAGOME_BONDS:
+                i = lat.coor2site([x, y], si)
+                j = lat.coor2site([x + dx, y + dy], sj)
+                oi, oj = site_ops(i), site_ops(j)
+                m.add_Ham((-t) * (oi["cu"].dagger() * oj["cu"]))
+                m.add_Ham((-t) * (oj["cu"].dagger() * oi["cu"]))
+                m.add_Ham((-t) * (oi["cd"].dagger() * oj["cd"]))
+                m.add_Ham((-t) * (oj["cd"].dagger() * oi["cd"]))
+                m.add_Ham((0.5 * J) * (oi["Sp"] * oj["Sm"] + oi["Sm"] * oj["Sp"]))
+                m.add_Ham(J * (oi["Sz"] * oj["Sz"]))
+                m.add_Ham((-0.25 * J) * (oi["N"] * oj["N"]))
+    for s in range(lat.n_sites):
+        o = site_ops(s)
+        N_tot += o["N"]
+        Sz_tot += o["Sz"]
+    return m, {"N": N_tot, "Sz": Sz_tot}
+
+
+def spinless_fermion_honeycomb(Lx, Ly, t=1.0, V1=4.0, device="cpu"):
+    """Spinless fermions on the honeycomb lattice (reference:
+    examples/*/latt_honeycomb/honeycomb_Spinless_Fermion.cc)."""
+    lat = Lattice("honeycomb", [Lx, Ly], ["pbc", "pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "spinless-fermion")
+    Nf = Mopr()
+    n_diag = np.array([0.0, 1.0])
+    for x in range(Lx):
+        for y in range(Ly):
+            i = lat.coor2site([x, y], 0)
+            c_i = Opr(i, 0, True, C_SPINLESS)
+            n_i = Opr(i, 0, False, n_diag)
+            for cx, cy in ((x, y), (x - 1, y), (x, y - 1)):
+                j = lat.coor2site([cx, cy], 1)
+                c_j = Opr(j, 0, True, C_SPINLESS)
+                n_j = Opr(j, 0, False, n_diag)
+                m.add_Ham((-t) * (c_i.dagger() * c_j))
+                m.add_Ham((-t) * (c_j.dagger() * c_i))
+                m.add_Ham(V1 * (n_i * n_j))
+                m.add_Ham((-0.5 * V1) * n_i)
+                m.add_Ham((-0.5 * V1) * n_j)
+            Nf += n_i + Opr(lat.coor2site([x, y], 1), 0, False, n_diag)
+    return m, {"N": Nf}
+
+
+def kondo_chain(L, J_Kondo, t=1.0, device="cpu"):
+    """Kondo chain: electron orbital 0, local spin-1/2 orbital 1 (reference:
+    examples/*/latt_chain/chain_Kondo.cc)."""
+    m = Model(Lattice("chain", [L], ["pbc"]), device=device)
+    m.add_orbital(L, "electron")
+    m.add_orbital(L, "spin-1/2")
+    N_tot, Sz_tot = Mopr(), Mopr()
+    for x in range(L):
+        j = (x + 1) % L
+        cu_i, cd_i = Opr(x, 0, True, C_UP), Opr(x, 0, True, C_DN)
+        cu_j, cd_j = Opr(j, 0, True, C_UP), Opr(j, 0, True, C_DN)
+        n_up = cu_i.dagger() * cu_i
+        n_dn = cd_i.dagger() * cd_i
+        splus_i = cu_i.dagger() * cd_i
+        sminus_i = cd_i.dagger() * cu_i
+        sz_i = 0.5 * (cu_i.dagger() * cu_i) - 0.5 * (cd_i.dagger() * cd_i)
+        Splus_i = Opr(x, 1, False, SP_HALF["Sp"])
+        Sminus_i = Opr(x, 1, False, SP_HALF["Sm"])
+        Sz_i = Opr(x, 1, False, SP_HALF["Sz"])
+        m.add_Ham((-t) * (cu_i.dagger() * cu_j))
+        m.add_Ham((-t) * (cu_j.dagger() * cu_i))
+        m.add_Ham((-t) * (cd_i.dagger() * cd_j))
+        m.add_Ham((-t) * (cd_j.dagger() * cd_i))
+        m.add_Ham((0.5 * J_Kondo) * (Splus_i * sminus_i + Sminus_i * splus_i))
+        m.add_Ham(J_Kondo * (Sz_i * sz_i))
+        N_tot += n_up + n_dn
+        Sz_tot += Sz_i + sz_i
+    return m, {"N": N_tot, "Sz": Sz_tot}
