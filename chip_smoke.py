@@ -10,16 +10,32 @@ Phases (any failure raises, so the exit code is nonzero):
    chain-20 k=0 and kagome t-J k=(0,1) momentum-sector matrices (f32, f64),
    chain-22 k=0 (f32), a matrix with empty row tiles and a diagonal-only
    one; tolerance 1e-12 * max|y| (f64), 1e-5 * max|y| (f32); times both
-   (CUDA events, median of 25 samples);
+   (CUDA events, median of 25 samples), times the one PyTorch call that
+   computes the same product (``torch.sparse_bsr_tensor(...) @ x``, used
+   nowhere in the package) and computes the least time the card could take
+   (bytes over 3.35 TB/s against operations over the peak rate);
 4. drives the momentum-sector ground-state route through Model(...,
    device="cuda"): kagome t-J 2x2 N=8 Sz=0 at all four momenta against the
    reference goldens (1e-8), chain-20 k=0 Sz=0 against the port's pure-f64
    ELL Lanczos (1e-9); asserts that the solves launched the kernel and that
    each f32 bulk engine is a float32 BsrMatrix;
-5. prints the kernel record, the card line, and as the last line
+5. drives the full-sector route (enumerate_basis_full -> locate_E0_lanczos /
+   locate_E0_iram -> measure_full_static) on the card: the self-test goldens
+   (chain-16: E0 and three correlators; t-J chain-12: the degenerate pair;
+   1e-8), then at dim 2,704,156 the chain L=24 Sz=0 (matrix-free and ELL,
+   E0 equal to 1e-10, H x equal to 1e-12 * max|y|, the residual under the
+   gate, <Sz0 Sz1> = E0/72 to 1e-9) and the 24-site kagome Heisenberg Sz=0
+   sector on the ELL (E0 = -10.759897248084 to 1e-8), and the f64 BSR kernel
+   through locate_E0_iram(which="repr") with config.prefer_bsr; prints the
+   set-up, per-apply and solve times and the peak device memory;
+6. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-Imports nothing of JAX.
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-6, four
+windows under ``torch.profiler`` (the matrix-free solve of chain-16; a
+matrix-free apply, 20 ELL applies and the ELL solve at dim 2,704,156) and
+prints each window's wall time, device-busy time and idle share, then times
+the matrix-free apply at three row-block budgets; it prints no result line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +49,15 @@ import time
 import numpy as np
 import torch
 
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, published peak
+PEAK_FLOPS = {torch.float32: 67e12,       # outside the tensor cores
+              torch.float64: 33.5e12}     # half the float32 rate
+E0_CHAIN16 = -7.142296361
+CHAIN16_CORR = {"Sz0Sz1": -0.1487978408, "Sz0Sz2": 0.0617414604,
+                "Sp0Sm1": -0.2975956817}
+E0_TJ12 = -9.762087307
+E0_KAGOME24 = -10.759897248084
+DIM_24 = 2704156
 KAGOME_GOLDEN = {(0, 0): -15.41931496, (0, 1): -14.40277723,
                  (1, 0): -14.40277723, (1, 1): -14.40277723}
 
@@ -59,6 +84,39 @@ def cuda_ms(fn, samples=25, per_sample=5):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / per_sample)
     return float(np.median(times))
+
+
+def bsr_bound(bsr, C):
+    """Least time of one BSR apply on this card in ms, and which bound it is:
+    every stored block, index and x entry read once and y written once over
+    the memory rate, against 2 operations per stored value and vector
+    component (x2 for a complex matrix) over the peak rate of the type."""
+    item = bsr.blocks_re.element_size()
+    planes = 2 if bsr.is_complex else 1
+    nbytes = (bsr.nb * 128 * 128 * item * planes + 2 * bsr.n_pad * C * item
+              + 4 * (bsr.nb + bsr.row_ptr.numel()))
+    flops = 2 * bsr.nb * 128 * 128 * planes * C
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[bsr.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_bsr_ms(bsr, x2d):
+    """Time of ``torch.sparse_bsr_tensor(...) @ x`` on the same matrix and
+    vector, or (None, first line of the error) where this PyTorch has no
+    such product. Timed only: nothing in the package calls it."""
+    try:
+        vals = bsr.blocks_re if not bsr.is_complex else torch.complex(
+            bsr.blocks_re, bsr.blocks_im)
+        x = torch.view_as_complex(x2d)[:, None] if bsr.is_complex else x2d
+        A = torch.sparse_bsr_tensor(bsr.row_ptr.long(), bsr.bj.long(), vals,
+                                    size=(bsr.n_pad, bsr.n_pad))
+        y = A @ x
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, str(e).splitlines()[0]
+    y2d = torch.view_as_real(y[:, 0]) if bsr.is_complex else y
+    return cuda_ms(lambda: A @ x), y2d, None
 
 
 def sector_ell(model, momentum, conserve, vals):
@@ -126,12 +184,27 @@ def kernel_checks(bsr_mod, dev):
             ms = cuda_ms(lambda: bsr_mod.bsr_spmv(*args))
             plain_ms = cuda_ms(lambda: bsr_mod._bsr_matvec_plain(
                 bsr.blocks_re, bsr.blocks_im, bsr.bi, bsr.bj, x2d))
+            bound_ms, bound_by = bsr_bound(bsr, C)
+            # the f64 ELL apply on the same matrix and vector kind: what
+            # the BSR routing bounds (config.bsr_blowup_max) weigh against
+            xe = torch.as_tensor(
+                rng.standard_normal(ell.n) + (1j * rng.standard_normal(ell.n)
+                                              if C == 2 else 0.0), device=dev)
+            ell_ms = cuda_ms(lambda: ell(xe))
+            lib_ms, ylib, lib_err = library_bsr_ms(bsr, x2d)
+            if ylib is not None:
+                lib_diff = float((ylib - yp).abs().max())
+                if not lib_diff <= 10 * tol:
+                    raise AssertionError(f"{tag} {dt} C={C}: the library "
+                                         f"product differs by {lib_diff:.3e}")
             row = {"case": tag, "dtype": str(dt).replace("torch.", ""),
                    "vector": "complex" if C == 2 else "real",
                    "matrix": "complex" if bsr.is_complex else "real",
                    "n": bsr.n, "n_blocks": bsr.nb,
                    "max_abs_err": err, "max_rel_err": err / scale,
-                   "ms": ms, "plain_ms": plain_ms,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib_ms,
+                   "library_error": lib_err, "ell_f64_ms": ell_ms,
                    "stored_GB_per_s": bsr.nb * 128 * 128
                    * torch.finfo(dt).bits / 8
                    * (2 if bsr.is_complex else 1) / (ms * 1e-3) / 1e9}
@@ -198,7 +271,247 @@ def slice_run(bsr_mod, dev):
     if launches <= 0:
         raise AssertionError("the slice never launched the BSR kernel")
     print("bsr_spmv launches in the slice:", launches, flush=True)
+    return launches, results[-1]["E0"]
+
+
+def _timed(fn):
+    """(result, seconds) of fn(), the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check(name, got, want, tol):
+    print(f"check {name}: {got!r} vs {want!r} (tol {tol:g})", flush=True)
+    if not abs(got - want) <= tol:
+        raise AssertionError(f"{name}: {got!r} vs {want!r}, off by "
+                             f"{abs(got - want):.3e} > {tol:g}")
+
+
+def full_goldens(dev):
+    """Phase 5a: the reference's self-test workloads (src/main_test.cc)."""
+    from torch_zoo import SP_HALF, heisenberg_chain, sz_pair, tj_chain
+    from quantum_basis_tpu_torch import Opr
+
+    m, _ = heisenberg_chain(16, device=dev)
+    dim, t_enum = _timed(lambda: m.enumerate_basis_full([], []))
+    if dim != 65536:
+        raise AssertionError(f"chain-16 full dim {dim}")
+    mv = m.sec_full[0].matvec
+    _, t_solve = _timed(lambda: m.locate_E0_lanczos("full", nev=1, ncv=1))
+    _check("chain16 E0", m.eigenvals_full[0], E0_CHAIN16, 1e-8)
+    ops = {"Sz0Sz1": sz_pair(0, 1), "Sz0Sz2": sz_pair(0, 2),
+           "Sp0Sm1": Opr(0, 0, False, SP_HALF["Sp"])
+           * Opr(1, 0, False, SP_HALF["Sm"])}
+    for name, op in ops.items():
+        _check(f"chain16 {name}", m.measure_full_static(op, 0, 0).real,
+               CHAIN16_CORR[name], 1e-8)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(dim),
+                        device=dev)
+    print("full", json.dumps({
+        "model": "chain16_full", "dim": dim, "E0": m.eigenvals_full[0],
+        "setup_s": t_enum, "solve_s": t_solve, "matvecs": mv.n_applies,
+        "matvec_free_ms": cuda_ms(lambda: mv(x), samples=5, per_sample=2)}),
+        flush=True)
+
+    m, c = tj_chain(12, device=dev)
+    dim, t_enum = _timed(lambda: m.enumerate_basis_full(
+        [c["Sz"], c["N"]], [0.0, 8.0]))
+    if dim != 34650:
+        raise AssertionError(f"t-J chain-12 dim {dim}")
+    mv = m.sec_full[0].matvec
+    _, t_solve = _timed(lambda: m.locate_E0_iram("full", nev=4, ncv=12))
+    _check("tJ12 E0", m.eigenvals_full[0], E0_TJ12, 1e-8)
+    _check("tJ12 E1", m.eigenvals_full[1], E0_TJ12, 1e-8)
+    print("full", json.dumps({
+        "model": "tJ12_N8_Sz0", "dim": dim, "evals": m.eigenvals_full,
+        "setup_s": t_enum, "solve_s": t_solve, "matvecs": mv.n_applies}),
+        flush=True)
+
+
+def full_width(dev, tag, model, sz, matrix_free, maxit):
+    """One dim-2,704,156 case. Returns its record; the model keeps E0 and
+    the eigenvector of the last solve (on the ELL)."""
+    from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"model": tag, "card": card_line()}
+    _, rec["enumerate_s"] = _timed(
+        lambda: enumerate_basis(model.space, [sz], [0.0], device=dev))
+    dim, t_full = _timed(lambda: model.enumerate_basis_full([sz], [0.0]))
+    if dim != DIM_24:
+        raise AssertionError(f"{tag}: dim {dim} != {DIM_24}")
+    rec["dim"] = dim
+    rec["device_basis_s"] = t_full - rec["enumerate_s"]
+    sec = model.sec_full[0]
+    rec["index_mode"] = sec.dbasis.index.mode
+    rec["block_rows"] = sec.dbasis.block_rows
+    mv = sec.matvec
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(dim),
+                        device=dev)
+    if matrix_free:
+        _, rec["solve_free_s"] = _timed(
+            lambda: model.locate_E0_lanczos("full", maxit=maxit))
+        rec["E0_free"] = model.eigenvals_full[0]
+        rec["matvecs_free"] = mv.n_applies
+    y_free = mv(x)
+    rec["matvec_free_ms"] = cuda_ms(lambda: mv(x), samples=5, per_sample=2)
+    ell, rec["ell_build_s"] = _timed(
+        lambda: model.generate_Ham_sparse_full(check="probe"))
+    rec["ell_width"] = ell.width
+    rec["ell_bytes"] = (ell.cols.numel() * ell.cols.element_size()
+                        + ell.vals.numel() * ell.vals.element_size())
+    y_ell = ell(x)
+    diff = float((y_free - y_ell).abs().max())
+    scale = float(y_ell.abs().max())
+    print(f"check {tag} H x, matrix-free vs ELL: {diff:.3e} "
+          f"(max|y| {scale:.3e})", flush=True)
+    if not diff <= 1e-12 * scale:
+        raise AssertionError(f"{tag}: matrix-free and ELL H x differ by "
+                             f"{diff:.3e}")
+    rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=10, per_sample=3)
+    n0 = ell.n_applies
+    _, rec["solve_ell_s"] = _timed(
+        lambda: model.locate_E0_lanczos("full", maxit=maxit))
+    rec["E0_ell"] = e0 = model.eigenvals_full[0]
+    rec["matvecs_ell"] = ell.n_applies - n0
+    v = model.eigenvecs_full[0]
+    rec["residual"] = float(torch.linalg.vector_norm(ell(v) - e0 * v))
+    rec["residual_gate"] = max(1e3 * 2e-12 * abs(e0), 5e-10)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print("full", json.dumps(rec), flush=True)
+    if not rec["residual"] < rec["residual_gate"]:
+        raise AssertionError(f"{tag}: residual {rec['residual']:.3e} over "
+                             f"the gate {rec['residual_gate']:.3e}")
+    return rec
+
+
+def full_sector_run(bsr_mod, dev, e0_chain20):
+    """Phase 5: the full-sector route through the public Model API."""
+    from quantum_basis_tpu_torch import config
+    from torch_zoo import (heisenberg_chain, kagome_heisenberg, sz_pair)
+
+    bsr_mod.launch_count = 0
+    full_goldens(dev)
+
+    m, ops = heisenberg_chain(24, device=dev)
+    rec = full_width(dev, "chain24_Sz0", m, ops["Sz"], True, 4000)
+    _check("chain24 E0, matrix-free vs ELL", rec["E0_free"], rec["E0_ell"],
+           1e-10)
+    (szsz, t_meas) = _timed(
+        lambda: m.measure_full_static(sz_pair(0, 1), 0, 0).real)
+    print(f"chain24 measure_full_static: {t_meas:.4f} s", flush=True)
+    _check("chain24 <Sz0 Sz1> = E0 / 72", szsz, rec["E0_ell"] / 72.0, 1e-9)
+    del m
+
+    m, ops = kagome_heisenberg(2, 4, device=dev)
+    rec = full_width(dev, "kagome24_Sz0", m, ops["Sz"], False, 40000)
+    _check("kagome24 E0", rec["E0_ell"], E0_KAGOME24, 1e-8)
+    del m
+
+    # the f64 BSR kernel through this route's entry point
+    mc, opc = heisenberg_chain(20, device=dev)
+    mc.enumerate_basis_repr([0], [opc["Sz"]], [0.0])
+    before = bsr_mod.launch_count
+    old = config.prefer_bsr
+    config.prefer_bsr = True
+    try:
+        _, t_solve = _timed(lambda: mc.locate_E0_iram(which="repr", nev=2))
+    finally:
+        config.prefer_bsr = old
+    spmv = mc.sec_repr[0].spmv
+    if spmv.dtype != torch.float64 or not hasattr(spmv, "blocks_re"):
+        raise AssertionError("locate_E0_iram(which='repr') with prefer_bsr "
+                             "did not run on the float64 BsrMatrix")
+    if bsr_mod.launch_count <= before:
+        raise AssertionError("locate_E0_iram(which='repr') never launched "
+                             "the BSR kernel")
+    print(f"chain20 k=0 iram on the f64 BSR kernel: {t_solve:.4f} s, "
+          f"{bsr_mod.launch_count - before} launches, evals "
+          f"{mc.eigenvals_repr}", flush=True)
+    _check("chain20 k=0 E0, f64 BSR iram vs mixed route",
+           mc.eigenvals_repr[0], e0_chain20, 1e-9)
+    launches = bsr_mod.launch_count
+    if launches <= 0:
+        raise AssertionError("the full-sector phase never launched the "
+                             "BSR kernel")
+    print("bsr_spmv launches in the full-sector phase:", launches,
+          flush=True)
     return launches
+
+
+def device_busy(tag, fn):
+    """Trace fn() with torch.profiler: wall ms (tracing included, so above
+    the untraced time), device-busy ms (the sum of every kernel's and copy's
+    device time) and the idle share of the traced window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: a host op's entry repeats its kernels' time
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU]
+    busy_us = sum(e.self_device_time_total for e in dev_events)
+    if busy_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    rec = {"window": tag, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+           "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+           "device_ops": sum(e.count for e in dev_events)}
+    print("profile", json.dumps(rec), flush=True)
+    return rec
+
+
+def profile_windows(dev):
+    """--profile: where the device waits for the host on the full route."""
+    from torch_zoo import heisenberg_chain
+
+    m, _ = heisenberg_chain(16, device=dev)
+    m.enumerate_basis_full([], [])
+    device_busy("chain16 matrix-free solve (dim 65,536)",
+                lambda: m.locate_E0_lanczos("full"))
+    m, ops = heisenberg_chain(24, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    mv = m.sec_full[0].matvec
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(mv.n),
+                        device=dev)
+    device_busy("chain24 matrix-free apply (dim 2,704,156)", lambda: mv(x))
+    ell = m.generate_Ham_sparse_full(check=False)
+    device_busy("chain24 ELL apply x20",
+                lambda: [ell(x) for _ in range(20)])
+    device_busy("chain24 ELL solve", lambda: m.locate_E0_lanczos("full"))
+    del m, mv, ell
+
+    # the matrix-free apply against the row-block budget (config.py carries
+    # the JAX package's value, 1 << 24)
+    from quantum_basis_tpu_torch import config
+
+    old = config.apply_block_budget
+    try:
+        for shift in (24, 27, 30):
+            config.apply_block_budget = 1 << shift
+            m, ops = heisenberg_chain(24, device=dev)
+            m.enumerate_basis_full([ops["Sz"]], [0.0])
+            mv = m.sec_full[0].matvec
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: mv(x), samples=5, per_sample=2)
+            print("budget", json.dumps({
+                "apply_block_budget": f"1<<{shift}",
+                "block_rows": mv.basis.block_rows,
+                "n_blocks": mv.basis.n_blocks, "matvec_free_ms": ms,
+                "peak_bytes": torch.cuda.max_memory_allocated()}),
+                flush=True)
+            del m, mv
+    finally:
+        config.apply_block_budget = old
 
 
 def main() -> int:
@@ -213,6 +526,9 @@ def main() -> int:
     # the model builders live beside the tests (tests/torch_zoo.py)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tests"))
+    if "--profile" in sys.argv[1:]:
+        profile_windows("cuda")
+        return 0
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     t0 = time.perf_counter()
@@ -221,7 +537,8 @@ def main() -> int:
 
     dev = "cuda"
     rows = kernel_checks(bsr_mod, dev)
-    launches = slice_run(bsr_mod, dev)
+    launches, e0_chain20 = slice_run(bsr_mod, dev)
+    launches += full_sector_run(bsr_mod, dev, e0_chain20)
 
     main_row = next(r for r in rows if r["case"] == "kagome_tj22_k00")
     record = {"kernels": [{
@@ -233,6 +550,9 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
     }]}
     print(json.dumps(record))
     print(card)

@@ -6,10 +6,13 @@ tensors (complex64/float32 in the bulk tier), and replaces each Pallas TPU
 kernel with a kernel written by hand for Hopper. It imports neither jax nor
 quantum_basis_tpu.
 
-Ported so far: the momentum-sector ground-state route
-(``Model.enumerate_basis_repr`` -> ``locate_E0_lanczos(which="repr")`` ->
-``measure_repr_static``) with the CUDA BSR SpMV kernel (ops/bsr.py,
-csrc/bsr_spmv.cu).
+Ported so far: the full-sector ground-state and static-measurement route
+(``Model.enumerate_basis_full`` -> ``locate_E0_lanczos`` / ``locate_E0_iram``
+-> ``measure_full_static``; matrix-free apply or explicit ELL), and the
+momentum-sector ground-state route (``Model.enumerate_basis_repr`` ->
+``locate_E0_lanczos(which="repr")`` -> ``measure_repr_static``) with the
+CUDA BSR SpMV kernel (ops/bsr.py, csrc/bsr_spmv.cu). ``ProductModel`` is not
+ported yet.
 """
 
 from quantum_basis_tpu_torch import config as config

@@ -1,9 +1,10 @@
 """Global configuration: tolerances, BSR routing bounds, matmul precision.
 
-Port of ``quantum_basis_tpu.config`` for the momentum-sector ground-state
-slice. Importing this module turns TF32 off for float32 matrix products and
-convolutions: the f32 bulk tier (Krylov basis products, the RQI inner CG)
-needs true float32, the way the JAX package forces ``Precision.HIGHEST``.
+Port of ``quantum_basis_tpu.config`` for the ground-state routes (momentum
+sectors and full sectors). Importing this module turns TF32 off for float32
+matrix products and convolutions: the f32 bulk tier (Krylov basis products,
+the RQI inner CG) needs true float32, the way the JAX package forces
+``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ mixed_precision_f32_tol = 1e-5
 # device; larger spaces use binary search. Calibrated on a 16 GB TPU and
 # not yet re-measured on the GPU.
 direct_lookup_max = 1 << 26
+
+# Target number of elements of each (rows, terms, images) intermediate of the
+# matrix-free full-sector apply (ops/apply.py): a row block holds
+# apply_block_budget / (images per row * slots) rows, rounded down to a power
+# of two, at least 1024. The JAX package's value, sized for a 16 GB TPU; not
+# re-measured on the GPU, where each intermediate is a separate allocation.
+apply_block_budget = 1 << 24
 
 # --------------------------------------------------------- BSR engine routing
 # Explicit momentum-sector solves on a CUDA device run their f32 bulk Krylov

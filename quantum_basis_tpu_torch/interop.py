@@ -2,8 +2,9 @@
 
 Both packages' objects meet here as numpy arrays: the JAX package's ELL
 (``cols``, ``vre``, ``vim``, ``diag``), BSR blocks and split (re, im)
-vectors become the port's device tensors. This module imports neither jax
-nor quantum_basis_tpu.
+vectors become the port's device tensors, and a full sector's labels and
+eigenvectors become a sector of a port ``Model``. This module imports
+neither jax nor quantum_basis_tpu.
 """
 
 from __future__ import annotations
@@ -50,3 +51,21 @@ def bsr_from_numpy(blocks_re, blocks_im, bi, bj, diag,
     return BsrMatrix(len(diag), t(blocks_re), t(blocks_im),
                      t(np.array(bi, np.int32)), t(np.array(bj, np.int32)),
                      t(np.array(diag, np.float64)))
+
+
+def full_sector_from_numpy(model, labels, evals=(), evecs=(), sec: int = 0):
+    """Install a full sector of the JAX package in a port ``Model``.
+
+    ``labels``: the JAX sector's sorted labels; ``evecs``: its eigenvectors
+    as split (re, im|None) pairs; ``evals``: their energies. The port builds
+    its own device residency and matrix-free apply over the same labels, so
+    measurements on the carried vectors compare like with like. Returns the
+    port's ``Sector``.
+    """
+    model._set_full_sector(np.array(labels, dtype=np.int64), sec)
+    s = model.sec_full[sec]
+    s.evals = [float(e) for e in evals]
+    s.evecs = [vec_from_split(re, im, device=model.device)
+               for re, im in evecs]
+    model.eigenvals_full, model.eigenvecs_full = list(s.evals), list(s.evecs)
+    return s

@@ -100,4 +100,6 @@ def test_unported_options_raise():
         config.initialize(enable_checkpoint=True)
     m, _ = tz.heisenberg_chain(4)
     with pytest.raises(NotImplementedError):
-        m.locate_E0_lanczos(which="full")
+        m.locate_E0_lanczos(which="vrnl")
+    with pytest.raises(NotImplementedError):
+        m.enumerate_basis_repr([0], method="dnc")

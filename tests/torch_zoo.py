@@ -56,6 +56,104 @@ def heisenberg_chain(L, device="cpu"):
     return m, {"Sz": sz}
 
 
+def dm_chain_with(Lattice, Model, Opr, Mopr, L, D=0.3, **model_kw):
+    """Spin-1/2 Heisenberg chain with a Dzyaloshinskii-Moriya term
+    i D (S+_i S-_j - S-_i S+_j) / 2 on every bond: complex amplitudes.
+    Built with the given package's classes, so a test can build the same
+    model in both packages."""
+    m = Model(Lattice("chain", [L], ["pbc"]), **model_kw)
+    m.add_orbital(L, "spin-1/2")
+    sz = Mopr()
+    for x in range(L):
+        j = (x + 1) % L
+        sp_i, sm_i = (Opr(x, 0, False, SP_HALF["Sp"]),
+                      Opr(x, 0, False, SP_HALF["Sm"]))
+        sp_j, sm_j = (Opr(j, 0, False, SP_HALF["Sp"]),
+                      Opr(j, 0, False, SP_HALF["Sm"]))
+        m.add_Ham(0.5 * (sp_i * sm_j + sm_i * sp_j))
+        m.add_Ham(Opr(x, 0, False, SP_HALF["Sz"])
+                  * Opr(j, 0, False, SP_HALF["Sz"]))
+        m.add_Ham((0.5j * D) * (sp_i * sm_j) + (-0.5j * D) * (sm_i * sp_j))
+        sz += Opr(x, 0, False, SP_HALF["Sz"])
+    return m, {"Sz": sz}
+
+
+def dm_chain(L, D=0.3, device="cpu"):
+    return dm_chain_with(Lattice, Model, Opr, Mopr, L, D, device=device)
+
+
+def tj_chain(L, t=1.0, J=1.0, device="cpu"):
+    """t-J chain of the reference's self-test (src/main_test.cc; the same
+    terms as tests/test_golden_chain.py::build_tj_chain)."""
+    lat = Lattice("chain", [L], ["pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "tJ")
+    Sz_total, N_total = Mopr(), Mopr()
+
+    def site_ops(s):
+        cu, cd = Opr(s, 0, True, TJ_C_UP), Opr(s, 0, True, TJ_C_DN)
+        return (cu, cd, cu.dagger() * cd, cd.dagger() * cu,
+                0.5 * (cu.dagger() * cu) - 0.5 * (cd.dagger() * cd),
+                cu.dagger() * cu + cd.dagger() * cd)
+
+    for x in range(L):
+        i = lat.coor2site([x], 0)
+        j = lat.coor2site([x + 1], 0)
+        cu_i, cd_i, Sp_i, Sm_i, Sz_i, N_i = site_ops(i)
+        cu_j, cd_j, Sp_j, Sm_j, Sz_j, N_j = site_ops(j)
+        m.add_Ham((-t) * (cu_i.dagger() * cu_j))
+        m.add_Ham((-t) * (cu_j.dagger() * cu_i))
+        m.add_Ham((-t) * (cd_i.dagger() * cd_j))
+        m.add_Ham((-t) * (cd_j.dagger() * cd_i))
+        m.add_Ham(0.5 * J * (Sp_i * Sm_j + Sm_i * Sp_j))
+        m.add_Ham(J * (Sz_i * Sz_j))
+        m.add_Ham((-0.25 * J) * (N_i * N_j))
+        Sz_total += Sz_i
+        N_total += N_i
+    return m, {"Sz": Sz_total, "N": N_total}
+
+
+def kagome_heisenberg(Lx, Ly, J=1.0, device="cpu"):
+    """Kagome Heisenberg antiferromagnet (reference:
+    examples/trans_absent/latt_kagome/kagome_Heisenberg_spin_half.cc)."""
+    lat = Lattice("kagome", [Lx, Ly], ["pbc", "pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "spin-1/2")
+    for x in range(Lx):
+        for y in range(Ly):
+            for si, sj, (dx, dy) in _KAGOME_BONDS:
+                _heis_bond(m, lat.coor2site([x, y], si),
+                           lat.coor2site([x + dx, y + dy], sj), SP_HALF, J)
+    sz = Mopr()
+    for s in range(lat.n_sites):
+        sz += Opr(s, 0, False, SP_HALF["Sz"])
+    return m, {"Sz": sz}
+
+
+def bose_hubbard_square(Lx, Ly, Nmax, t=1.0, U=1.1, device="cpu"):
+    """Bose-Hubbard model on the square lattice (reference:
+    examples/trans_absent/latt_square/square_Bose_Hubbard.cc)."""
+    b = np.zeros((Nmax + 1, Nmax + 1))
+    for d in range(Nmax):
+        b[d, d + 1] = np.sqrt(d + 1.0)
+    lat = Lattice("square", [Lx, Ly], ["pbc", "pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "boson", Nmax=Nmax)
+    Nb = Mopr()
+    for x in range(Lx):
+        for y in range(Ly):
+            i = lat.coor2site([x, y], 0)
+            b_i = Opr(i, 0, False, b)
+            n_i = b_i.dagger() * b_i
+            for dx, dy in ((1, 0), (0, 1)):
+                b_j = Opr(lat.coor2site([x + dx, y + dy], 0), 0, False, b)
+                m.add_Ham((-t) * (b_i.dagger() * b_j))
+                m.add_Ham((-t) * (b_j.dagger() * b_i))
+            m.add_Ham((0.5 * U) * (n_i * n_i - n_i))
+            Nb += n_i
+    return m, {"N": Nb}
+
+
 def tj_sz(s):
     """Sz on site s of a t-J orbital 0."""
     cu, cd = Opr(s, 0, True, TJ_C_UP), Opr(s, 0, True, TJ_C_DN)
