@@ -22,20 +22,43 @@ Phases (any failure raises, so the exit code is nonzero):
 5. drives the full-sector route (enumerate_basis_full -> locate_E0_lanczos /
    locate_E0_iram -> measure_full_static) on the card: the self-test goldens
    (chain-16: E0 and three correlators; t-J chain-12: the degenerate pair;
-   1e-8), then at dim 2,704,156 the chain L=24 Sz=0 (matrix-free and ELL,
-   E0 equal to 1e-10, H x equal to 1e-12 * max|y|, the residual under the
-   gate, <Sz0 Sz1> = E0/72 to 1e-9) and the 24-site kagome Heisenberg Sz=0
-   sector on the ELL (E0 = -10.759897248084 to 1e-8), and the f64 BSR kernel
-   through locate_E0_iram(which="repr") with config.prefer_bsr; prints the
-   set-up, per-apply and solve times and the peak device memory;
-6. prints the kernel record, the card line, and as the last line
+   1e-8; both now solved on the window-contraction engine, asserted by
+   type), then at dim 2,704,156 the chain L=24 Sz=0 (matrix-free, through
+   eigs_smallest on the sector's matvec, and ELL: E0 equal to 1e-10, H x
+   equal to 1e-12 * max|y|, the residual under the gate, <Sz0 Sz1> = E0/72
+   to 1e-9) and the 24-site kagome Heisenberg Sz=0 sector on the ELL (E0 =
+   -10.759897248084 to 1e-8), and the f64 BSR kernel through
+   locate_E0_iram(which="repr") with config.prefer_bsr; prints the set-up,
+   per-apply and solve times and the peak device memory;
+6. the full-label-space engines at N = 2^24 on the same two sectors:
+   ContractOp f64 and f32 and FullSpaceOp f64 H x against the ELL (1e-12 *
+   max|y|; f32 5e-6), their per-apply times beside the ELL's and the
+   matrix-free apply's, the contraction plan; locate_E0_lanczos() on
+   ContractOp in pure f64 and under config.mixed_precision (f32 bulk + f64
+   RQI polish): E0 equal to the ELL solve's to 1e-10 and to the golden, the
+   residual under the gate, matvec counts, seconds, peak memory; chain-16
+   ContractOp on a complex vector;
+7. the factorized route: Hubbard 4x2 half filling through ProductModel, pure
+   f64 and mixed (golden -14.07605866, 1e-8); Hubbard 4x4 half filling, U =
+   1.1, dim 165,636,900: KronOp f32 against f64 (5e-6 * max|y|) and against
+   the factor ELLs applied row- and column-wise (1e-11 * max|y|), per-apply
+   times, then ProductModel.locate_E0_lanczos() (E0 = -20.497352266554 to
+   1e-8, residual under the gate) when the projected time fits, else a
+   capped f32 Lanczos cycle whose Ritz value must lie above that E0 and
+   within 1e-2 of it; measure_product_static double occupancy;
+8. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-6, four
-windows under ``torch.profiler`` (the matrix-free solve of chain-16; a
-matrix-free apply, 20 ELL applies and the ELL solve at dim 2,704,156) and
-prints each window's wall time, device-busy time and idle share, then times
-the matrix-free apply at three row-block budgets; it prints no result line. Imports nothing of JAX.
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-8, windows
+under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
+apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
+dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster; a
+KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
+device-busy time, idle share and its three longest device operations, then
+times the matrix-free apply
+at three row-block budgets; it prints no result line.
+``python3 chip_smoke.py --hubbard4x4`` runs phase 7 alone with the full 4x4
+solve, whatever its projected time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -57,7 +80,17 @@ CHAIN16_CORR = {"Sz0Sz1": -0.1487978408, "Sz0Sz2": 0.0617414604,
                 "Sp0Sm1": -0.2975956817}
 E0_TJ12 = -9.762087307
 E0_KAGOME24 = -10.759897248084
+E0_HUBBARD_4X2 = -14.07605866
+E0_HUBBARD_4X4 = -20.497352266554
 DIM_24 = 2704156
+SCRIPT_BUDGET_S = 900.0  # the 4x4 solve is capped if the script would pass it
+HUBBARD4X4_DIMS = (12870, 165636900)  # factor dim C(16,8), sector dim
+# applies of the full Hubbard 4x4 solve (ProductModel defaults, seed 1), as
+# counted on an NVIDIA H100 80GB HBM3 (381 in the f32 bulk, 121 in the RQI
+# inner solves and up to 16 uncounted ones per outer step; 2 f64 outer steps
+# and the measurement); they project its time on the card at hand
+HUBBARD4X4_F32_APPLIES = 534
+HUBBARD4X4_F64_APPLIES = 3
 KAGOME_GOLDEN = {(0, 0): -15.41931496, (0, 1): -14.40277723,
                  (1, 0): -14.40277723, (1, 1): -14.40277723}
 
@@ -290,6 +323,23 @@ def _check(name, got, want, tol):
                              f"{abs(got - want):.3e} > {tol:g}")
 
 
+def _engine_of(model, tag, sec=0, dtype=torch.float64):
+    """The full-label-space engine a solve of this sector ran on; raises
+    unless it is a ContractOp of the given precision that was applied and the
+    sector's own matrix-free apply was not."""
+    from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
+
+    sector = model.sec_full[sec]
+    fs = model._fullspace_op(sector, dtype=dtype)
+    if not isinstance(fs, ContractOp) or fs.dtype != dtype:
+        raise AssertionError(f"{tag}: the solve did not route to a "
+                             f"{dtype} ContractOp but to {fs!r}")
+    if fs.n_applies <= 0 or sector.matvec.n_applies != 0:
+        raise AssertionError(f"{tag}: ContractOp applies {fs.n_applies}, "
+                             f"matrix-free {sector.matvec.n_applies}")
+    return fs
+
+
 def full_goldens(dev):
     """Phase 5a: the reference's self-test workloads (src/main_test.cc)."""
     from torch_zoo import SP_HALF, heisenberg_chain, sz_pair, tj_chain
@@ -301,6 +351,7 @@ def full_goldens(dev):
         raise AssertionError(f"chain-16 full dim {dim}")
     mv = m.sec_full[0].matvec
     _, t_solve = _timed(lambda: m.locate_E0_lanczos("full", nev=1, ncv=1))
+    fs = _engine_of(m, "chain16")
     _check("chain16 E0", m.eigenvals_full[0], E0_CHAIN16, 1e-8)
     ops = {"Sz0Sz1": sz_pair(0, 1), "Sz0Sz2": sz_pair(0, 2),
            "Sp0Sm1": Opr(0, 0, False, SP_HALF["Sp"])
@@ -312,7 +363,8 @@ def full_goldens(dev):
                         device=dev)
     print("full", json.dumps({
         "model": "chain16_full", "dim": dim, "E0": m.eigenvals_full[0],
-        "setup_s": t_enum, "solve_s": t_solve, "matvecs": mv.n_applies,
+        "setup_s": t_enum, "solve_s": t_solve, "engine": "ContractOp f64",
+        "matvecs": fs.n_applies,
         "matvec_free_ms": cuda_ms(lambda: mv(x), samples=5, per_sample=2)}),
         flush=True)
 
@@ -321,20 +373,21 @@ def full_goldens(dev):
         [c["Sz"], c["N"]], [0.0, 8.0]))
     if dim != 34650:
         raise AssertionError(f"t-J chain-12 dim {dim}")
-    mv = m.sec_full[0].matvec
     _, t_solve = _timed(lambda: m.locate_E0_iram("full", nev=4, ncv=12))
+    fs = _engine_of(m, "tJ12")  # 3^12 labels, blowup 15
     _check("tJ12 E0", m.eigenvals_full[0], E0_TJ12, 1e-8)
     _check("tJ12 E1", m.eigenvals_full[1], E0_TJ12, 1e-8)
     print("full", json.dumps({
         "model": "tJ12_N8_Sz0", "dim": dim, "evals": m.eigenvals_full,
-        "setup_s": t_enum, "solve_s": t_solve, "matvecs": mv.n_applies}),
-        flush=True)
+        "setup_s": t_enum, "solve_s": t_solve, "engine": "ContractOp f64",
+        "plan": fs.plan.describe(), "matvecs": fs.n_applies}), flush=True)
 
 
 def full_width(dev, tag, model, sz, matrix_free, maxit):
-    """One dim-2,704,156 case. Returns its record; the model keeps E0 and
-    the eigenvector of the last solve (on the ELL)."""
+    """One dim-2,704,156 case. Returns its record; the model keeps the ELL
+    as the sector's matvec, and E0 and the eigenvector of the solve on it."""
     from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
+    from quantum_basis_tpu_torch.solvers.restarted import eigs_smallest
 
     torch.cuda.reset_peak_memory_stats()
     rec = {"model": tag, "card": card_line()}
@@ -352,9 +405,12 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(dim),
                         device=dev)
     if matrix_free:
-        _, rec["solve_free_s"] = _timed(
-            lambda: model.locate_E0_lanczos("full", maxit=maxit))
-        rec["E0_free"] = model.eigenvals_full[0]
+        # locate_E0_lanczos() routes this sector to the contraction engine
+        # (phase 6); the matrix-free solve is the same thick-restart Lanczos
+        # with the same parameters on the sector's own matvec
+        (evals, _), rec["solve_free_s"] = _timed(lambda: eigs_smallest(
+            mv, dim, nev=1, ncv=12, maxit=maxit, seed=1, complex_vec=False))
+        rec["E0_free"] = evals[0]
         rec["matvecs_free"] = mv.n_applies
     y_free = mv(x)
     rec["matvec_free_ms"] = cuda_ms(lambda: mv(x), samples=5, per_sample=2)
@@ -389,7 +445,9 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
 
 
 def full_sector_run(bsr_mod, dev, e0_chain20):
-    """Phase 5: the full-sector route through the public Model API."""
+    """Phase 5: the full-sector route through the public Model API. Returns
+    the kernel's launches and the two full-width models for phase 6, as
+    (tag, model, Sz, phase-5 record, golden E0 or None)."""
     from quantum_basis_tpu_torch import config
     from torch_zoo import (heisenberg_chain, kagome_heisenberg, sz_pair)
 
@@ -404,11 +462,12 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
         lambda: m.measure_full_static(sz_pair(0, 1), 0, 0).real)
     print(f"chain24 measure_full_static: {t_meas:.4f} s", flush=True)
     _check("chain24 <Sz0 Sz1> = E0 / 72", szsz, rec["E0_ell"] / 72.0, 1e-9)
-    del m
+    wide = [("chain24_Sz0", m, ops["Sz"], rec, None)]
 
     m, ops = kagome_heisenberg(2, 4, device=dev)
     rec = full_width(dev, "kagome24_Sz0", m, ops["Sz"], False, 40000)
     _check("kagome24 E0", rec["E0_ell"], E0_KAGOME24, 1e-8)
+    wide.append(("kagome24_Sz0", m, ops["Sz"], rec, E0_KAGOME24))
     del m
 
     # the f64 BSR kernel through this route's entry point
@@ -439,7 +498,254 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
                              "BSR kernel")
     print("bsr_spmv launches in the full-sector phase:", launches,
           flush=True)
-    return launches
+    return launches, wide
+
+
+def _hx_check(tag, y, y_ref, rel_tol):
+    diff = float((y - y_ref).abs().max())
+    scale = float(y_ref.abs().max())
+    print(f"check {tag}: {diff:.3e} (max|y| {scale:.3e}, tol "
+          f"{rel_tol:g} * max|y|)", flush=True)
+    if not diff <= rel_tol * scale:
+        raise AssertionError(f"{tag}: H x differs by {diff:.3e} > "
+                             f"{rel_tol:g} * {scale:.3e}")
+    return diff / scale
+
+
+def engine_width(dev, tag, model, sz, rec5, golden):
+    """Phase 6 for one dim-2,704,156 sector (N = 2^24): the three
+    full-label-space engines against the sector's ELL of phase 5, then the
+    solves through ``locate_E0_lanczos()`` on the contraction engine."""
+    from quantum_basis_tpu_torch import config
+    from quantum_basis_tpu_torch.models import model as model_mod
+    from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
+    from quantum_basis_tpu_torch.ops.apply_fullspace import FullSpaceOp
+
+    sec0 = model.sec_full[0]
+    ell, labels = sec0.matvec, sec0.labels
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(sec0.dim),
+                        device=dev)
+    y_ell = ell(x)
+    rec = {"model": tag, "card": card_line(), "dim": sec0.dim,
+           "N": int(model.space.label_space),
+           "ell_ms": rec5["ell_ms"], "matvec_free_ms": rec5["matvec_free_ms"]}
+    for name, build, tol in (
+            ("contract_f64", lambda: ContractOp(
+                model.compiled_Ham, labels, dtype=torch.float64, device=dev),
+             1e-12),
+            ("contract_f32", lambda: ContractOp(
+                model.compiled_Ham, labels, dtype=torch.float32, device=dev),
+             5e-6),
+            ("fullspace_f64", lambda: FullSpaceOp(
+                model.compiled_Ham, labels, device=dev), 1e-12)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        op, rec[name + "_build_s"] = _timed(build)
+        rec[name + "_resident_bytes"] = torch.cuda.memory_allocated() - base
+        xf = op.to_full(x)
+        rec[name + "_rel_err"] = _hx_check(
+            f"{tag} H x, {name} vs ELL", op.to_sector(op(xf)).to(y_ell.dtype),
+            y_ell, tol)
+        rec[name + "_ms"] = cuda_ms(lambda: op(xf), samples=10, per_sample=3)
+        rec[name + "_apply_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                           - base)
+        if name == "contract_f64":
+            rec["plan"] = op.plan.describe()
+            rec["windows"] = [(f, hi, D, lo) for f, hi, D, lo, _, _
+                              in op._wins]
+        if name == "fullspace_f64":
+            rec["fullspace_passes"] = op.n_passes
+        del op, xf
+    torch.cuda.empty_cache()
+
+    # the solves, through the entry point, on a fresh sector of the model
+    # (sector 0 keeps its explicit ELL, which the routing honours)
+    model.enumerate_basis_full([sz], [0.0], sec=1)
+    gate = rec5["residual_gate"]
+    real_rqi, calls = model_mod.rqi_polish, []
+    model_mod.rqi_polish = lambda *a, **k: (calls.append(real_rqi(*a, **k))
+                                            or calls[-1])
+    try:
+        for mode, mixed in (("f64", False), ("mixed", True)):
+            config.mixed_precision = mixed
+            torch.cuda.reset_peak_memory_stats()
+            fs64 = model._fullspace_op(model.sec_full[1])
+            n64 = fs64.n_applies
+            _, rec[f"solve_{mode}_s"] = _timed(
+                lambda: model.locate_E0_lanczos(sec=1, maxit=40000))
+            _engine_of(model, f"{tag} {mode}", sec=1)
+            e0 = model.eigenvals_full[0]
+            v = model.eigenvecs_full[0]
+            rec[f"E0_{mode}"] = e0
+            rec[f"matvecs_f64_{mode}"] = fs64.n_applies - n64
+            rec[f"residual_{mode}"] = float(
+                torch.linalg.vector_norm(ell(v) - e0 * v))
+            rec[f"peak_bytes_{mode}"] = torch.cuda.max_memory_allocated()
+            if mixed:
+                fs32 = _engine_of(model, f"{tag} mixed f32", sec=1,
+                                  dtype=torch.float32)
+                rec["matvecs_f32_mixed"] = fs32.n_applies
+                if len(calls) != 1 or not calls[0]["converged"]:
+                    raise AssertionError(f"{tag}: the mixed solve did not "
+                                         f"end in a converged RQI: {calls}")
+                rec["rqi_outer"] = calls[0]["n_outer"]
+                rec["rqi_inner_f32"] = calls[0]["n_inner"]
+    finally:
+        config.mixed_precision = False
+        model_mod.rqi_polish = real_rqi
+    print("engines", json.dumps(rec), flush=True)
+    for mode in ("f64", "mixed"):
+        _check(f"{tag} E0, ContractOp {mode} vs ELL", rec[f"E0_{mode}"],
+               rec5["E0_ell"], 1e-10)
+        if golden is not None:
+            _check(f"{tag} E0, ContractOp {mode} vs golden",
+                   rec[f"E0_{mode}"], golden, 1e-8)
+        if not rec[f"residual_{mode}"] < gate:
+            raise AssertionError(
+                f"{tag} {mode}: residual {rec[f'residual_{mode}']:.3e} over "
+                f"the gate {gate:.3e}")
+    del model.sec_full[1]
+    return rec
+
+
+def engines_run(dev, wide):
+    """Phase 6: the full-label-space engines at full width, and ContractOp
+    on a complex vector at chain-16."""
+    from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
+    from torch_zoo import heisenberg_chain
+
+    while wide:
+        engine_width(dev, *wide.pop(0))
+        torch.cuda.empty_cache()
+
+    m, ops = heisenberg_chain(16, device=dev)
+    dim = m.enumerate_basis_full([ops["Sz"]], [0.0])
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(dim)
+                        + 1j * rng.standard_normal(dim), device=dev)
+    y_ref = m.sec_full[0].matvec(x)
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
+        op = ContractOp(m.compiled_Ham, m.sec_full[0].labels, dtype=dt,
+                        device=dev)
+        y = op(op.to_full(x))
+        if not y.is_complex():
+            raise AssertionError("a complex vector came back real")
+        _hx_check(f"chain16 Sz=0 complex vector, ContractOp {dt} vs "
+                  "matrix-free", op.to_sector(y).to(y_ref.dtype), y_ref, tol)
+
+
+def ell_apply_columns(ell, X, block=128):
+    """H X for an ELL matrix and a matrix of column vectors, in column
+    blocks (each gather makes an (n, width, block) intermediate)."""
+    Y = ell.diag[:, None] * X
+    for c in range(0, X.shape[1], block):
+        Y[:, c:c + block] += (ell.vals[:, :, None]
+                              * X[:, c:c + block][ell.cols]).sum(dim=1)
+    return Y
+
+
+def product_run(dev, t_start, force_full):
+    """Phase 7: the factorized route through ProductModel."""
+    from quantum_basis_tpu_torch.ops.apply_kron import KronOp
+    from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
+    from quantum_basis_tpu_torch.utils.rng import vec_randomize
+    from torch_zoo import hubbard_factorized, site_occupation
+
+    for mixed in (False, True):
+        pm, _ = hubbard_factorized(4, 2, device=dev)
+        e0, t = _timed(lambda: pm.locate_E0_lanczos(
+            mixed=mixed, ncv=6 if mixed else 16))
+        print("product", json.dumps({
+            "model": "hubbard_4x2_half", "dim": pm.dim, "mixed": mixed,
+            "E0": e0, "solve_s": t, "solve_info": pm.solve_info}), flush=True)
+        _check(f"hubbard 4x2 E0, mixed={mixed}", e0, E0_HUBBARD_4X2, 1e-8)
+        if not isinstance(pm.op(), KronOp):
+            raise AssertionError("ProductModel did not solve on a KronOp")
+
+    # Hubbard 4x4 half filling, U = 1.1 (benchmarks/hubbard4x4.py), full width
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"model": "hubbard_4x4_half_U1.1", "card": card_line()}
+    (pm, ms), rec["factor_build_s"] = _timed(
+        lambda: hubbard_factorized(4, 4, device=dev))
+    if (pm.na, pm.dim) != HUBBARD4X4_DIMS:
+        raise AssertionError(f"4x4: factor dim {pm.na}, dim {pm.dim}")
+    rec["dim"], rec["factor_dim"] = pm.dim, pm.na
+    fs64, rec["kron_f64_build_s"] = _timed(lambda: pm.op(torch.float64))
+    fs32, rec["kron_f32_build_s"] = _timed(lambda: pm.op(torch.float32))
+    for fs, dt in ((fs64, torch.float64), (fs32, torch.float32)):
+        if not isinstance(fs, KronOp) or fs.dtype != dt:
+            raise AssertionError(f"4x4: engine {fs!r} is not a {dt} KronOp")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    psi = torch.randn(pm.dim, dtype=torch.float64, device=dev, generator=gen)
+    y64 = fs64(psi)
+    rec["f32_vs_f64_rel_err"] = _hx_check(
+        "hubbard 4x4 H x, KronOp f32 vs f64", fs32(psi.float()).double(), y64,
+        5e-6)
+    # the same product from the factor ELL applied to every column of psi,
+    # to every row, and the diagonal coupling
+    ell_a, _ = pm._factor_ells()
+    X = psi.view(pm.na, pm.nb)
+    y_ref = ell_apply_columns(ell_a, X)
+    y_ref += ell_apply_columns(ell_a, X.T.contiguous()).T
+    y_ref += pm.coupling_scale * torch.as_tensor(
+        pm._coupling_matrix(), device=dev) * X
+    rec["kron_vs_ell_rel_err"] = _hx_check(
+        "hubbard 4x4 H x, KronOp f64 vs factor ELLs", y64, y_ref.view(-1),
+        1e-11)
+    del y_ref, X, y64
+    x32 = psi.float()
+    rec["kron_f32_ms"] = cuda_ms(lambda: fs32(x32), samples=3, per_sample=1)
+    rec["kron_f64_ms"] = cuda_ms(lambda: fs64(psi), samples=3, per_sample=1)
+    del psi, x32
+    torch.cuda.empty_cache()
+
+    # the solve; its count of applies on this card is in PERF.md section 5
+    projected = (HUBBARD4X4_F32_APPLIES * rec["kron_f32_ms"]
+                 + HUBBARD4X4_F64_APPLIES * rec["kron_f64_ms"]) * 1.15e-3
+    elapsed = time.perf_counter() - t_start
+    rec["projected_solve_s"] = projected
+    rec["capped"] = capped = (not force_full
+                              and elapsed + projected > SCRIPT_BUDGET_S)
+    print(f"hubbard 4x4: projected solve {projected:.0f} s after "
+          f"{elapsed:.0f} s of the script; "
+          f"{'capped' if capped else 'full'} solve", flush=True)
+    if capped:
+        # one unrestarted f32 Lanczos cycle as long as the time left allows:
+        # its Ritz value is variational, so above E0
+        steps = int(max(20, min(400, (SCRIPT_BUDGET_S - elapsed)
+                                / (2.3e-3 * rec["kron_f32_ms"]))))
+        v0 = torch.as_tensor(vec_randomize(pm.dim, seed=1)[0],
+                             device=dev).float()
+        out, rec["solve_s"] = _timed(lambda: lanczos_ground(
+            fs32, v0, maxit=1, inner=steps, want_vector=False))
+        rec["capped_steps"], rec["E0"] = steps, out["E0"]
+        rec["residual"] = out["residual"]
+    else:
+        e0, rec["solve_s"] = _timed(lambda: pm.locate_E0_lanczos())
+        rec["E0"], rec["residual"] = e0, pm._last_residual
+        rec["residual_gate"] = max(1e3 * 2e-12 * abs(e0), 5e-10)
+        n0 = site_occupation(0)
+        rec["double_occupancy_site0"], rec["measure_s"] = _timed(
+            lambda: pm.measure_product_static(n0, n0))
+    rec["solve_info"] = pm.solve_info
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print("product", json.dumps(rec), flush=True)
+    if capped:
+        print(f"check hubbard 4x4 capped f32 Ritz value {rec['E0']!r} in "
+              f"[{E0_HUBBARD_4X4}, {E0_HUBBARD_4X4 + 1e-2}]", flush=True)
+        if not -1e-4 <= rec["E0"] - E0_HUBBARD_4X4 <= 1e-2:
+            raise AssertionError(f"4x4 capped: Ritz value {rec['E0']!r}")
+    else:
+        _check("hubbard 4x4 E0", rec["E0"], E0_HUBBARD_4X4, 1e-8)
+        if not rec["residual"] < rec["residual_gate"]:
+            raise AssertionError(f"4x4: residual {rec['residual']:.3e} over "
+                                 f"the gate {rec['residual_gate']:.3e}")
+        if not 0.0 < rec["double_occupancy_site0"] < 0.25:
+            raise AssertionError("4x4: double occupancy "
+                                 f"{rec['double_occupancy_site0']!r}")
+    return rec
 
 
 def device_busy(tag, fn):
@@ -463,9 +769,13 @@ def device_busy(tag, fn):
     busy_us = sum(e.self_device_time_total for e in dev_events)
     if busy_us <= 0:
         raise AssertionError("the profiler recorded no device time")
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:3]
     rec = {"window": tag, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-           "device_ops": sum(e.count for e in dev_events)}
+           "device_ops": sum(e.count for e in dev_events),
+           "top_ops": [(e.key[:48], e.count,
+                        round(e.self_device_time_total / 1e3, 3))
+                       for e in top]}
     print("profile", json.dumps(rec), flush=True)
     return rec
 
@@ -484,11 +794,35 @@ def profile_windows(dev):
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(mv.n),
                         device=dev)
     device_busy("chain24 matrix-free apply (dim 2,704,156)", lambda: mv(x))
+    fs = m._fullspace_op(m.sec_full[0])
+    xf = fs.to_full(x)
+    device_busy("chain24 ContractOp f64 apply (N 2^24)", lambda: fs(xf))
+    device_busy("chain24 ContractOp f64 solve", lambda: m.locate_E0_lanczos())
+    del fs, xf
+    m.sec_full[0]._fs_cache.clear()
     ell = m.generate_Ham_sparse_full(check=False)
     device_busy("chain24 ELL apply x20",
                 lambda: [ell(x) for _ in range(20)])
     device_busy("chain24 ELL solve", lambda: m.locate_E0_lanczos("full"))
     del m, mv, ell
+
+    from torch_zoo import hubbard_factorized, kagome_heisenberg
+
+    m, ops = kagome_heisenberg(2, 4, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    fs = m._fullspace_op(m.sec_full[0])
+    xf = fs.to_full(x)
+    device_busy("kagome24 ContractOp f64 apply (N 2^24)", lambda: fs(xf))
+    del m, fs, xf
+    torch.cuda.empty_cache()
+
+    pm, _ = hubbard_factorized(4, 4, device=dev)
+    fs32 = pm.op(torch.float32)
+    psi = torch.randn(pm.dim, dtype=torch.float32, device=dev)
+    device_busy("hubbard 4x4 KronOp f32 apply (dim 165,636,900)",
+                lambda: fs32(psi))
+    del pm, fs32, psi
+    torch.cuda.empty_cache()
 
     # the matrix-free apply against the row-block budget (config.py carries
     # the JAX package's value, 1 << 24)
@@ -526,8 +860,12 @@ def main() -> int:
     # the model builders live beside the tests (tests/torch_zoo.py)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "tests"))
+    t_start = time.perf_counter()
     if "--profile" in sys.argv[1:]:
         profile_windows("cuda")
+        return 0
+    if "--hubbard4x4" in sys.argv[1:]:
+        product_run("cuda", t_start, force_full=True)
         return 0
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
@@ -538,7 +876,11 @@ def main() -> int:
     dev = "cuda"
     rows = kernel_checks(bsr_mod, dev)
     launches, e0_chain20 = slice_run(bsr_mod, dev)
-    launches += full_sector_run(bsr_mod, dev, e0_chain20)
+    launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
+    launches += launches5
+    engines_run(dev, wide)
+    product_run(dev, t_start, force_full=False)
+    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "kagome_tj22_k00")
     record = {"kernels": [{

@@ -8,11 +8,14 @@ quantum_basis_tpu.
 
 Ported so far: the full-sector ground-state and static-measurement route
 (``Model.enumerate_basis_full`` -> ``locate_E0_lanczos`` / ``locate_E0_iram``
--> ``measure_full_static``; matrix-free apply or explicit ELL), and the
-momentum-sector ground-state route (``Model.enumerate_basis_repr`` ->
-``locate_E0_lanczos(which="repr")`` -> ``measure_repr_static``) with the
-CUDA BSR SpMV kernel (ops/bsr.py, csrc/bsr_spmv.cu). ``ProductModel`` is not
-ported yet.
+-> ``measure_full_static``) on the full-label-space engines (window
+contraction, masked rolls; float64 or mixed precision), the matrix-free
+apply or the explicit ELL; the factorized product-sector route
+(``ProductModel`` -> ``locate_E0_lanczos`` -> ``measure_product_static`` on
+the dense kron engine); and the momentum-sector ground-state route
+(``Model.enumerate_basis_repr`` -> ``locate_E0_lanczos(which="repr")`` ->
+``measure_repr_static``) with the CUDA BSR SpMV kernel (ops/bsr.py,
+csrc/bsr_spmv.cu).
 """
 
 from quantum_basis_tpu_torch import config as config
@@ -23,6 +26,7 @@ from quantum_basis_tpu_torch.basis.state import StateSpace
 from quantum_basis_tpu_torch.ops.operators import Opr, OprProd, Mopr
 from quantum_basis_tpu_torch.lattice.lattice import Lattice
 from quantum_basis_tpu_torch.models.model import Model
+from quantum_basis_tpu_torch.models.product import ProductModel
 
 __version__ = "0.1.0"
 
@@ -36,5 +40,6 @@ __all__ = [
     "Mopr",
     "Lattice",
     "Model",
+    "ProductModel",
     "__version__",
 ]

@@ -1,10 +1,10 @@
 """Global configuration: tolerances, BSR routing bounds, matmul precision.
 
 Port of ``quantum_basis_tpu.config`` for the ground-state routes (momentum
-sectors and full sectors). Importing this module turns TF32 off for float32
-matrix products and convolutions: the f32 bulk tier (Krylov basis products,
-the RQI inner CG) needs true float32, the way the JAX package forces
-``Precision.HIGHEST``.
+sectors, full sectors and factorized product sectors). Importing this module
+turns TF32 off for float32 matrix products and convolutions: the f32 bulk
+tier (Krylov basis products, the window and kron matmuls, the RQI inner CG)
+needs true float32, the way the JAX package forces ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,13 @@ lanczos_precision = 2e-12   # Lanczos convergence tolerance
 # Crash-consistent checkpointing is not ported yet: setting this (or
 # initialize(enable_checkpoint=True)) makes every solve raise.
 enable_ckpt = False
+
+# Mixed-precision Krylov on full sectors: run the Lanczos bulk in float32 on
+# the window-contraction engine, then polish in float64 from the f32 Ritz
+# vector (models/model.py::_solve_fullspace). The final eigenpair still meets
+# the f64 residual gate. Off by default; enable per run via
+# initialize(mixed_precision=True) or set directly.
+mixed_precision = False
 
 # f32-stage convergence target (residual, relative to |E|); the f64 polish
 # stage then runs to the caller's tolerance from this warm start.
@@ -53,11 +60,14 @@ prefer_bsr = None
 bsr_stored_max_bytes = 2 << 30
 
 
-def initialize(enable_checkpoint: bool = False, quiet: bool = False) -> None:
+def initialize(enable_checkpoint: bool = False, quiet: bool = False,
+               mixed_precision: bool | None = None) -> None:
     """Set up the library and print an environment banner."""
     if enable_checkpoint:
         raise NotImplementedError(
             "checkpointing is not ported to quantum_basis_tpu_torch yet")
+    if mixed_precision is not None:
+        globals()["mixed_precision"] = bool(mixed_precision)
     if quiet:
         return
     print("=" * 64)

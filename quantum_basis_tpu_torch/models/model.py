@@ -18,16 +18,23 @@ Sectors are kept per integer index ``sec``. Every device object lives on
 ``device``; nothing moves to another device when that one is missing. A
 sector at or below ``_DENSE_CUTOFF`` rows is solved densely on the host.
 
-A larger full sector runs thick-restart Lanczos in float64 on its
-``matvec``: the matrix-free :class:`MatvecFull`, or the explicit ELL once
-``generate_Ham_sparse_full`` was called. A larger momentum sector takes the
-explicit-sparse route: the f32 bulk Krylov stage on the BSR kernel
-(ops/bsr.py) with an f64 Rayleigh-quotient polish on the ELL matrix when
-``_repr_bsr32`` routes the sector there, else thick-restart Lanczos on the
-f64 ELL.
+A larger full sector whose label space is at most 64 times its dimension is
+solved over the FULL label space (``_fullspace_op``): on the
+window-contraction engine (ops/apply_contract.py) in float64, or, under
+``config.mixed_precision``, with the Krylov bulk on its float32 twin and a
+float64 polish (Rayleigh-quotient iteration above ``_POLISH_N`` labels) under
+a hard residual gate; the masked-roll engine (ops/apply_fullspace.py) is the
+float64 fallback for operators the contraction engine cannot take. Other
+full sectors, and every sector after ``generate_Ham_sparse_full``, run
+thick-restart Lanczos in float64 on the sector's own ``matvec``: the
+matrix-free :class:`MatvecFull` or the explicit ELL. A larger momentum
+sector takes the explicit-sparse route: the f32 bulk Krylov stage on the BSR
+kernel (ops/bsr.py) with an f64 Rayleigh-quotient polish on the ELL matrix
+when ``_repr_bsr32`` routes the sector there, else thick-restart Lanczos on
+the f64 ELL.
 
-Not ported yet, each raising ``NotImplementedError``: the full-label-space
-engines (contraction, roll and projected momentum engines), a device mesh,
+Not ported yet, each raising ``NotImplementedError``: the projected
+full-label-space momentum engines (``_fullspace_repr_op``), a device mesh,
 checkpoint stages, interior windows (``locate_Es``), dynamics and the
 variational sector.
 """
@@ -50,6 +57,14 @@ from quantum_basis_tpu_torch.ops.apply import (
     MatvecFull,
     mopr_x_vec,
 )
+from quantum_basis_tpu_torch.ops.apply_contract import (
+    ContractOp,
+    supports_contract,
+)
+from quantum_basis_tpu_torch.ops.apply_fullspace import (
+    FullSpaceOp,
+    supports_fullspace,
+)
 from quantum_basis_tpu_torch.ops.apply_repr import MatvecRepr, ReprBasis
 from quantum_basis_tpu_torch.ops.bsr import bsr_fill_stats, ell_to_bsr
 from quantum_basis_tpu_torch.ops.compile import compile_operator
@@ -61,10 +76,16 @@ from quantum_basis_tpu_torch.ops.sparse import (
     hermiticity_exact,
     hermiticity_probe,
 )
-from quantum_basis_tpu_torch.solvers.restarted import eigs_smallest
+from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
+from quantum_basis_tpu_torch.solvers.restarted import _masked, eigs_smallest
 from quantum_basis_tpu_torch.solvers.rqi import rqi_polish
 
 _DENSE_CUTOFF = 600  # sectors at/below this size are solved densely on host
+# Above this full-space N a warm-started f64 stage is the RQI polish (or the
+# 2-vector Lanczos) instead of a thick restart. The JAX package's value, sized
+# there for a 16 GB TPU; kept so that both packages take the same branch, and
+# not re-measured on the GPU.
+_POLISH_N = 1 << 22
 
 
 def _not_ported(what: str, slice_name: str):
@@ -88,6 +109,7 @@ class Sector:
         self.bsr32 = None     # f32 BsrMatrix when routed to the kernel
         self._routed = False  # _repr_bsr32 has decided
         self.spmv = None      # f64 engine of the pure-Krylov route
+        self._fs_cache = {}   # dtype -> full-label-space engine or None
 
 
 class Model:
@@ -314,21 +336,142 @@ class Model:
         complex_h = sector.matvec.is_complex
         if sector.dim <= _DENSE_CUTOFF:
             evals, vecs = self._dense_solve(sector, max(nev, ncv), complex_h)
+            self._store("full", sector, evals, vecs, nev, max(ncv, 1))
+            self._e0_sec = sec
+            return
+        fs = self._fullspace_op(sector)
+        ncv_ = max(12, 2 * nev + 6)
+        v0 = fs32 = None
+        if fs is not None and config.mixed_precision:
+            # mixed-precision stage 1: bulk Krylov in f32 on the contraction
+            # engine; its Ritz vector warm-starts the f64 stage below
+            fs32 = self._fullspace_op(sector, dtype=torch.float32)
+            if fs32 is not None:
+                v0 = self._f32_stage_cached(fs32, nev, ncv_, maxit, seed,
+                                            fs32.is_complex or complex_h)
+        if fs is not None:
+            evals, vecs_full = self._solve_fullspace(
+                fs, nev, ncv_, maxit, seed, fs.is_complex or complex_h, v0,
+                fs32=fs32)
+            vecs = [fs.to_sector(v) for v in vecs_full]
         else:
             evals, vecs = eigs_smallest(
-                sector.matvec, sector.dim, nev=nev, ncv=max(12, 2 * nev + 6),
-                maxit=maxit, seed=seed, complex_vec=complex_h)
+                sector.matvec, sector.dim, nev=nev, ncv=ncv_, maxit=maxit,
+                seed=seed, complex_vec=complex_h)
         self._store("full", sector, evals, vecs, nev, max(ncv, 1))
         self._e0_sec = sec
+
+    def _fullspace_op(self, sector, max_blowup: float = 64.0, dtype=None):
+        """Full-label-space engine for this sector when supported and the
+        label-space blowup is worth it; None otherwise. Cached per dtype.
+
+        Both devices of the port have native float64 matmuls, so the
+        window-contraction engine serves both precisions (the JAX package
+        routes the same way on its CPU and GPU backends); the roll engine is
+        the float64 fallback for operators the contraction engine cannot
+        take. ``max_blowup`` is the JAX package's TPU calibration, not
+        re-measured on the GPU. An explicit ELL (``generate_Ham_sparse_full``)
+        is honoured: None.
+        """
+        dtype = dtype or torch.float64
+        if not isinstance(sector.matvec, MatvecFull):
+            return None  # explicit sparse was requested; honor it
+        if dtype in sector._fs_cache:
+            return sector._fs_cache[dtype]
+        if self.space.label_space > max_blowup * max(sector.dim, 1):
+            return None
+        op = None
+        if supports_contract(self.compiled_Ham):
+            op = ContractOp(self.compiled_Ham, sector.labels, dtype=dtype,
+                            device=self.device)
+        elif dtype != torch.float32 and supports_fullspace(self.compiled_Ham):
+            op = FullSpaceOp(self.compiled_Ham, sector.labels,
+                             device=self.device)
+        sector._fs_cache[dtype] = op
+        return op
+
+    def _fullspace_repr_op(self, *args, **kwargs):
+        raise _not_ported("the projected full-label-space momentum engines "
+                          "(_fullspace_repr_op)",
+                          "the projected momentum-engine slice")
+
+    @staticmethod
+    def _f32_stage_cached(fs32, nev, ncv, maxit, seed, complex_vec):
+        """f32 Krylov bulk stage: the lowest f32 Ritz vector, or None. (The
+        JAX package also persists it as a checkpoint stage; not ported.)"""
+        _, v32 = eigs_smallest(
+            fs32, fs32.N, nev=nev, ncv=ncv, maxit=maxit, seed=seed,
+            complex_vec=complex_vec, mask=fs32.mask,
+            tol=config.mixed_precision_f32_tol, verify_degenerate=False)
+        return v32[0] if v32 else None
+
+    @staticmethod
+    def _solve_fullspace(fs, nev, ncv, maxit, seed, complex_vec, v0,
+                         fs32=None):
+        """Full-space sector solve: thick restart, or, warm-started at
+        large N, the mixed-precision RQI polish.
+
+        The thick-restart basis holds ncv+1 full-space rows. Past
+        ``_POLISH_N`` the warm-started f64 stage runs at 3-4 full-space f64
+        vectors instead: the Jacobi-Davidson RQI polish (solvers/rqi.py: f64
+        residuals, f32 correction solves) when the f32 engine twin is
+        available, else the rolling 2-vector Lanczos (solvers/lanczos.py, the
+        reference's own sr_val0 design, src/lanczos.cc:193-264), both from
+        the f32 stage's Ritz vector and under a hard residual gate.
+        """
+        if v0 is None or nev != 1 or fs.N <= _POLISH_N:
+            return eigs_smallest(fs, fs.N, nev=nev, ncv=ncv, maxit=maxit,
+                                 seed=seed, complex_vec=complex_vec,
+                                 mask=fs.mask, v0=v0)
+        x = _masked(v0.to(device=fs.device, dtype=torch.complex128
+                          if complex_vec or v0.is_complex()
+                          else torch.float64), fs.mask)
+        x = x / torch.linalg.vector_norm(x)
+        if fs32 is not None:
+            out = rqi_polish(fs, x, fs32=fs32)
+            if out["converged"]:
+                return [out["E0"]], [out["vector"]]
+            # RQI stalled (e.g. f32 gap resolution): fall back to the f64
+            # 2-vector kernel warm-started from its best iterate
+            x = out["vector"] / torch.linalg.vector_norm(out["vector"])
+        # long unrestarted cycles: restarting every ~60 steps discards the
+        # Krylov subspace each cycle, which for small spectral gaps (kagome:
+        # ~1e-3) multiplies the matvec count (contraction per unrestarted
+        # step is e^{-2 sqrt(gap/spread)})
+        out = lanczos_ground(fs, x, maxit=maxit, inner=120)
+        # hard-fail on non-convergence, mirroring eigs_smallest: the gate is
+        # lanczos_ground's own residual threshold (a rigorous eigenvalue
+        # error bound for Hermitian H). Without this check a maxit-exhausted
+        # polish would silently publish an unconverged E0.
+        r_gate = max(1e3 * config.lanczos_precision * max(abs(out["E0"]), 1.0),
+                     5e-10)
+        if out["residual"] >= r_gate:
+            err = RuntimeError(
+                f"full-space Lanczos polish unconverged after "
+                f"{out['niter']} matvecs: E0={out['E0']:.12f}, "
+                f"residual {out['residual']:.3e} >= gate {r_gate:.3e}")
+            err.E0 = out["E0"]
+            err.residual = out["residual"]
+            raise err
+        return [out["E0"]], [out["vector"]]
 
     def locate_E0_iram(self, which: str = "full", nev: int = 2, ncv: int = 6,
                        maxit: int = 1000, sec: int = 0, seed: int = 1):
         """Several lowest eigenpairs via thick-restart Lanczos (ARPACK repl.)."""
         self._check_which(which)
         sector = self.sec_full[sec] if which == "full" else self.sec_repr[sec]
-        if sector.dim <= _DENSE_CUTOFF and which == "full":
+        dense = sector.dim <= _DENSE_CUTOFF and which == "full"
+        fs = (self._fullspace_op(sector) if which == "full" and not dense
+              else None)
+        if dense:
             evals, vecs = self._dense_solve(sector, nev,
                                             sector.matvec.is_complex)
+        elif fs is not None:
+            evals, vecs_full = eigs_smallest(
+                fs, fs.N, nev=nev, ncv=ncv, maxit=maxit, seed=seed,
+                complex_vec=fs.is_complex or sector.matvec.is_complex,
+                mask=fs.mask)
+            vecs = [fs.to_sector(v) for v in vecs_full]
         else:
             mv = self._repr_spmv(sector) if which == "repr" else sector.matvec
             evals, vecs = eigs_smallest(mv, sector.dim, nev=nev, ncv=ncv,

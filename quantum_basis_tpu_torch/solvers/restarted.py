@@ -12,7 +12,11 @@ pass.
 
 Operators are callables ``y = op(x)`` on 1-d tensors with attributes
 ``dtype`` (float32 or float64: the working precision), ``device`` and
-``is_complex``. Checkpointing is not ported.
+``is_complex``. A full-label-space solve passes the 0/1 sector ``mask``:
+every start vector and every injected restart vector is multiplied by it on
+the device and renormalized, so that no out-of-sector noise enters the
+Krylov space. Checkpointing and the ``project_host`` hook of the projected
+momentum engines are not ported.
 """
 
 from __future__ import annotations
@@ -123,9 +127,17 @@ def _host_vec(re, im, complex_vec):
     return re + 1j * im if complex_vec else re
 
 
+def _masked(x, mask):
+    """x restricted to the sector support and renormalized (x when no mask)."""
+    if mask is None:
+        return x
+    x = x * mask.to(x.real.dtype)
+    return x / torch.clamp(torch.linalg.vector_norm(x), min=1e-300)
+
+
 def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
-                  complex_vec=False, which="SA", deg_tol=1e-9, v0=None,
-                  verify_degenerate=True):
+                  complex_vec=False, which="SA", deg_tol=1e-9, mask=None,
+                  v0=None, verify_degenerate=True):
     """nev smallest ('SA') or largest ('LA') eigenpairs of a Hermitian matvec.
 
     Returns (eigenvalues list, eigenvectors list of 1-d tensors of the
@@ -138,7 +150,7 @@ def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
     start is wanted (the f32 bulk stage).
     """
     vals, vecs = _eigs_core(matvec, n, nev, ncv, maxit, tol, seed,
-                            complex_vec, which, v0=v0)
+                            complex_vec, which, mask=mask, v0=v0)
     sgn = 1.0 if which == "SA" else -1.0
     guard = 0
     while verify_degenerate and len(vals) >= nev and guard < 8:
@@ -149,7 +161,7 @@ def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         dmv = DeflatedMatvec(matvec, vecs, sigma)
         extra_vals, extra_vecs = _eigs_core(
             dmv, n, 1, max(8, ncv // 2), maxit, tol, seed + 1000 + guard,
-            complex_vec, which)
+            complex_vec, which, mask=mask)
         if not extra_vals:
             break
         v_extra = extra_vals[0]
@@ -164,20 +176,20 @@ def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
 
 
 def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
-               complex_vec=False, which="SA", v0=None):
+               complex_vec=False, which="SA", mask=None, v0=None):
     """Thick-restart Lanczos core (single starting vector)."""
     ncv = int(min(max(ncv, nev + 2), n))
     rows = ncv + 1
     Hm = np.zeros((rows, rows), dtype=np.complex128)
     kry = _Krylov(matvec, n, ncv, complex_vec)
     if v0 is not None:
-        x = v0.to(device=kry.V.device, dtype=torch.complex128
-                  if complex_vec else torch.float64)
+        x = _masked(v0.to(device=kry.V.device, dtype=torch.complex128
+                          if complex_vec else torch.float64), mask)
         kry.V[0] = (x / torch.linalg.vector_norm(x)).to(kry.dtype)
     else:
-        kry.V[0] = torch.as_tensor(_host_vec(
+        kry.V[0] = _masked(torch.as_tensor(_host_vec(
             *vec_randomize(n, seed=seed, complex_valued=complex_vec),
-            complex_vec), device=kry.V.device).to(kry.dtype)
+            complex_vec), device=kry.V.device), mask).to(kry.dtype)
     m = 0
     it = 0
     rng_seed = seed + 101
@@ -199,9 +211,10 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
             if stop < ncv:
                 # invariant subspace at step `stop`: inject a random
                 # orthogonal direction and resume
-                r = _host_vec(*vec_randomize(n, seed=rng_seed,
-                                             complex_valued=complex_vec),
-                              complex_vec)
+                r = _masked(torch.as_tensor(_host_vec(
+                    *vec_randomize(n, seed=rng_seed,
+                                   complex_valued=complex_vec),
+                    complex_vec), device=kry.V.device), mask)
                 rng_seed += 7
                 bnorm = kry.insert_random(r, stop, stop + 1)
                 if bnorm < _BREAKDOWN * 10 or m >= n:

@@ -98,17 +98,17 @@ def test_matvec_full_matches_jax(name, mode):
     assert mv.is_complex == cplx == sj.matvec.is_complex
     rng = np.random.default_rng(11)
     re, im = rng.standard_normal(st.dim), rng.standard_normal(st.dim)
-    _assert_close(mv(vec_from_split(re, im)),
+    _assert_close(mv(vec_from_split(re, im, device="cpu")),
                   *_jax_apply(sj.matvec, re, im))
     if cplx:
         with pytest.raises(ValueError):
-            mv(vec_from_split(re))
+            mv(vec_from_split(re, device="cpu"))
     else:
-        y = mv(vec_from_split(re))
+        y = mv(vec_from_split(re, device="cpu"))
         assert not y.is_complex()
         _assert_close(y, *_jax_apply(sj.matvec, re, None))
     # the sector's own matvec (default index and block size) agrees too
-    _assert_close(st.matvec(vec_from_split(re, im)),
+    _assert_close(st.matvec(vec_from_split(re, im, device="cpu")),
                   *_jax_apply(sj.matvec, re, im))
 
 
@@ -160,12 +160,12 @@ def test_mopr_x_vec_between_sectors():
             (np.asarray(xr), None if xi is None else np.asarray(xi)))
         y = mopr_x_vec(mt.compile_op(_sminus_q(tz, L, q)),
                        mt.sec_full[0].dbasis, mt.sec_full[1].dbasis,
-                       vec_from_split(xr, xi))
+                       vec_from_split(xr, xi, device="cpu"))
         assert y.shape == (mt.sec_full[1].dim,) and y.is_complex()
         _assert_close(y, np.asarray(yr), np.asarray(yi))
     # S^- applied within Sz=0 leaves the sector entirely: all dropped
     y = mopr_x_vec(mt.compile_op(_sminus_q(tz, L, q)), mt.sec_full[0].dbasis,
-                   mt.sec_full[0].dbasis, vec_from_split(re))
+                   mt.sec_full[0].dbasis, vec_from_split(re, device="cpu"))
     assert float(y.abs().max()) == 0.0
 
 
@@ -193,7 +193,7 @@ def test_mopr_x_vec_fermionic_complex_no_conjugate():
                             (np.asarray(re), np.asarray(im)))
     op_t = mt.compile_op(hop(tz, tz.TJ_C_UP))
     y = mopr_x_vec(op_t, mt.sec_full[0].dbasis, mt.sec_full[0].dbasis,
-                   vec_from_split(re, im))
+                   vec_from_split(re, im, device="cpu"))
     _assert_close(y, np.asarray(yr), np.asarray(yi))
     # and against the dense matrix <j|O|i> of the port's own host oracle
     from quantum_basis_tpu_torch.ops.dense import dense_matrix

@@ -52,7 +52,7 @@ def _jax_ell(name):
 
 
 def _port_ell(ej):
-    return ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag)
+    return ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag, device="cpu")
 
 
 ELLS = ["chain10_full", "honeycomb_3x2_full", "chain12_k1", "chain16_k0"]
@@ -94,11 +94,11 @@ def test_layout_bit_equal_and_apply(name, dt):
     yr, yi = jb((np.asarray(re, np_dt), np.asarray(im, np_dt)))
     yr, yi = np.asarray(yr, np.float64), np.asarray(yi, np.float64)
     carried = bsr_from_numpy(jb.blocks_re, jb.blocks_im, jb._bi, jb._bj,
-                             np.asarray(jb.diag)[:jb.n])
+                             np.asarray(jb.diag)[:jb.n], device="cpu")
     tol = 1e-11 if dt == "float64" else 5e-5 * max(np.abs(yr).max(),
                                                    np.abs(yi).max())
     for bsr in (tb, carried):
-        tr, ti = vec_to_split(bsr(vec_from_split(re, im)))
+        tr, ti = vec_to_split(bsr(vec_from_split(re, im, device="cpu")))
         np.testing.assert_allclose(tr, yr, rtol=0, atol=tol)
         np.testing.assert_allclose(ti, yi, rtol=0, atol=tol)
     if not jb.is_complex:

@@ -47,7 +47,7 @@ def test_dense_matrix_matches_jax(name):
     assert (np.abs(Ht.imag).max() > 1e-3) == cplx
     # and the device apply is this matrix
     x = np.random.default_rng(2).standard_normal(Ht.shape[0])
-    y = mt.sec_full[0].matvec(vec_from_split(x, np.zeros_like(x)))
+    y = mt.sec_full[0].matvec(vec_from_split(x, np.zeros_like(x), device="cpu"))
     np.testing.assert_allclose(y.numpy(), Ht @ x, rtol=0, atol=1e-12)
 
 
@@ -80,7 +80,7 @@ def test_lanczos_dynamics_coefficients(name):
     aj, bj = jax_lanczos.lanczos_dynamics(
         mj.sec_full[0].matvec,
         (np.asarray(re), None if im is None else np.asarray(im)), 24)
-    at, bt = lanczos_dynamics(mt.sec_full[0].matvec, vec_from_split(re, im),
+    at, bt = lanczos_dynamics(mt.sec_full[0].matvec, vec_from_split(re, im, device="cpu"),
                               24)
     assert at.shape == bt.shape == (24,)
     np.testing.assert_allclose(at, np.asarray(aj), rtol=0, atol=1e-10)
@@ -96,7 +96,7 @@ def test_lanczos_ground_matches_jax_and_dense(name):
         mj.sec_full[0].matvec,
         (np.asarray(re), None if im is None else np.asarray(im)),
         maxit=1500, inner=40)
-    ot = lanczos_ground(st.matvec, vec_from_split(re, im), maxit=1500,
+    ot = lanczos_ground(st.matvec, vec_from_split(re, im, device="cpu"), maxit=1500,
                         inner=40)
     w, U = np.linalg.eigh(dense_matrix(mt.compiled_Ham, st.labels))
     assert abs(ot["E0"] - w[0]) < 1e-10
@@ -114,7 +114,7 @@ def test_lanczos_ground_matches_jax_and_dense(name):
 
     # first excited state by deflation ("sr_val1")
     re2, im2 = _start(st.dim, cplx, seed=7)
-    o1 = lanczos_ground(st.matvec, vec_from_split(re2, im2), maxit=3000,
+    o1 = lanczos_ground(st.matvec, vec_from_split(re2, im2, device="cpu"), maxit=3000,
                         inner=40, deflate=(ot["vector"],))
     assert abs(o1["E0"] - w[1]) < 1e-9
     assert abs(torch.vdot(ot["vector"], o1["vector"])) < 1e-9
@@ -126,7 +126,7 @@ def test_energy_scale_matches_jax():
     re, _ = _start(st.dim, False, seed=5)
     lo_j, hi_j = jax_lanczos.energy_scale(mj.sec_full[0].matvec,
                                           (np.asarray(re), None), m_steps=64)
-    lo, hi = energy_scale(st.matvec, vec_from_split(re), m_steps=64)
+    lo, hi = energy_scale(st.matvec, vec_from_split(re, device="cpu"), m_steps=64)
     assert abs(lo - lo_j) < 1e-8 and abs(hi - hi_j) < 1e-8
     w = np.linalg.eigvalsh(dense_matrix(mt.compiled_Ham, st.labels))
     assert lo < w[0] and hi > w[-1]
@@ -147,7 +147,7 @@ def test_eigenvec_cg_matches_jax(name):
              np.ascontiguousarray(v0.imag) if cplx else None)
     vj, res_j, it_j = jax_cg.eigenvec_cg(mj.sec_full[0].matvec, w[0], split,
                                          maxit=400, tol=1e-11)
-    vt, res_t, it_t = eigenvec_cg(st.matvec, w[0], vec_from_split(*split),
+    vt, res_t, it_t = eigenvec_cg(st.matvec, w[0], vec_from_split(*split, device="cpu"),
                                   maxit=400, tol=1e-11)
     assert res_t < 1e-9 and res_j < 1e-9
     assert abs(it_t - it_j) <= 2
@@ -163,7 +163,7 @@ def test_checkpoint_hooks_raise():
     mt, ot = tz.heisenberg_chain(8)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
     mv = mt.sec_full[0].matvec
-    x = vec_from_split(vec_randomize(mv.n, seed=1)[0])
+    x = vec_from_split(vec_randomize(mv.n, seed=1)[0], device="cpu")
     with pytest.raises(NotImplementedError):
         lanczos_ground(mv, x, ckpt_key="k")
     with pytest.raises(NotImplementedError):

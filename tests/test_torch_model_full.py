@@ -4,10 +4,11 @@ package and the reference goldens.
 ``Model.enumerate_basis_full`` -> ``locate_E0_lanczos`` / ``locate_E0_iram``
 / ``locate_Emax_iram`` -> ``measure_full_static``. Chain-12 Sz=0: E0 =
 -5.387390917445 to 1e-10 through the matrix-free, explicit-ELL and dense
-routes; f64 eigenvalues within 1e-10 of the JAX ``Model`` (run on the same
-branch: its full-label-space engines switched off, as the port has none
-yet); expectation values within 1e-10 of the JAX package when its
-eigenvector is carried across through ``interop``. Eigenvectors of a
+routes; f64 eigenvalues within 1e-10 of the JAX ``Model``. These tests hold
+the branch that solves on the sector's own matvec, so the full-label-space
+engines are switched off in both packages (tests/test_torch_model_mixed.py
+holds the engine route); expectation values within 1e-10 of the JAX package
+when its eigenvector is carried across through ``interop``. Eigenvectors of a
 degenerate pair are compared through their projector, never raw.
 """
 
@@ -36,10 +37,13 @@ E0_CHAIN12 = -5.387390917445
 
 @pytest.fixture
 def jax_sector_route(monkeypatch):
-    """The JAX Model on the branch the port runs: thick-restart Lanczos on
-    the sector's own matvec (models/model.py:551-556)."""
-    monkeypatch.setattr(JaxModel, "_fullspace_op",
-                        lambda self, sector, max_blowup=64.0, dtype=None: None)
+    """Both Models on the branch without a full-label-space engine:
+    thick-restart Lanczos on the sector's own matvec (the JAX package's
+    models/model.py:551-556)."""
+    for cls in (JaxModel, qt.Model):
+        monkeypatch.setattr(
+            cls, "_fullspace_op",
+            lambda self, sector, max_blowup=64.0, dtype=None: None)
 
 
 def _np(v: torch.Tensor) -> np.ndarray:
@@ -222,8 +226,12 @@ def test_unported_routes_name_their_slice(monkeypatch):
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
     for call, word in (
             (lambda: mt.locate_E0_lanczos("vrnl"), "vrnl"),
+            (lambda: mt.locate_E0_iram("vrnl"), "vrnl"),
             (lambda: mt.locate_Es(-1.0, 0.0), "spectra"),
             (lambda: mt.measure_full_dynamic(None, 0, 0, 10), "dynamics"),
+            (lambda: mt.measure_repr_dynamic(None, 0, 0, 10), "dynamics"),
+            (lambda: mt._fullspace_repr_op(mt.sec_full[0]),
+             "projected momentum-engine"),
             (lambda: qt.Model(mesh=object()), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=word):
             call()
@@ -235,7 +243,6 @@ def test_unported_routes_name_their_slice(monkeypatch):
 
 
 def test_exports_follow_the_jax_package():
-    missing = set(qj.__all__) - set(qt.__all__)
-    assert missing == {"ProductModel"}  # the factorized-sector slice
+    assert set(qj.__all__) == set(qt.__all__)
     for name in qt.__all__:
         assert hasattr(qt, name)

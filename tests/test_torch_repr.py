@@ -45,7 +45,7 @@ def test_matvec_repr_matches_jax(name):
     rng = np.random.default_rng(11)
     re, im = rng.standard_normal(st.dim), rng.standard_normal(st.dim)
     yr, yi = sj.matvec((np.asarray(re), np.asarray(im)))
-    y = st.matvec(vec_from_split(re, im))
+    y = st.matvec(vec_from_split(re, im, device="cpu"))
     tr, ti = vec_to_split(y)
     np.testing.assert_allclose(tr, np.asarray(yr), rtol=0, atol=1e-12)
     np.testing.assert_allclose(ti, np.asarray(yi), rtol=0, atol=1e-12)
@@ -65,7 +65,7 @@ def test_matvec_repr_small_blocks():
     assert small.n_blocks > 1 and small.pad > 0
     rng = np.random.default_rng(2)
     x = vec_from_split(rng.standard_normal(st.dim),
-                       rng.standard_normal(st.dim))
+                       rng.standard_normal(st.dim), device="cpu")
     y = MatvecRepr(mt.compiled_Ham, small)(x)
     np.testing.assert_allclose(y.numpy(), st.matvec(x).numpy(), rtol=0,
                                atol=1e-12)

@@ -27,7 +27,7 @@ def shared_ell():
     m, c = jz.heisenberg_chain(16)
     m.enumerate_basis_repr([1], [c["Sz"]], [0.0])
     ej = jax_build(m.sec_repr[0].matvec)
-    return ej, ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag)
+    return ej, ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag, device="cpu")
 
 
 def _residual(op, v, e):

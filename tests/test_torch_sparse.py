@@ -39,12 +39,12 @@ def test_build_sparse_repr_matches_jax(name):
     rng = np.random.default_rng(4)
     re, im = rng.standard_normal(n), rng.standard_normal(n)
     yr, yi = ej((np.asarray(re), np.asarray(im)))
-    tr, ti = vec_to_split(et(vec_from_split(re, im)))
+    tr, ti = vec_to_split(et(vec_from_split(re, im, device="cpu")))
     np.testing.assert_allclose(tr, np.asarray(yr), rtol=0, atol=1e-12)
     np.testing.assert_allclose(ti, np.asarray(yi), rtol=0, atol=1e-12)
     # the same JAX arrays carried over through interop apply identically
-    ec = ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag)
-    cr, ci = vec_to_split(ec(vec_from_split(re, im)))
+    ec = ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag, device="cpu")
+    cr, ci = vec_to_split(ec(vec_from_split(re, im, device="cpu")))
     np.testing.assert_allclose(cr, np.asarray(yr), rtol=0, atol=1e-12)
     np.testing.assert_allclose(ci, np.asarray(yi), rtol=0, atol=1e-12)
 

@@ -54,7 +54,7 @@ def test_build_sparse_full_matches_jax(name):
         np.testing.assert_allclose(et.diag.numpy(), np.asarray(ej.diag),
                                    rtol=0, atol=1e-14)
     # the JAX ELL carried across applies like the port's own
-    carried = ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag)
+    carried = ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag, device="cpu")
     x = torch.as_tensor(np.random.default_rng(4).standard_normal(et.n))
     np.testing.assert_allclose(carried(x).numpy(), et(x).numpy(), rtol=0,
                                atol=1e-12)

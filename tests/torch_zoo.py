@@ -9,12 +9,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from quantum_basis_tpu_torch import Lattice, Model, Mopr, Opr
+from quantum_basis_tpu_torch import Lattice, Model, Mopr, Opr, ProductModel
 
 SP_HALF = {
     "Sz": np.array([0.5, -0.5]),
     "Sp": np.array([[0.0, 1.0], [0.0, 0.0]]),
     "Sm": np.array([[0.0, 0.0], [1.0, 0.0]]),
+}
+SP_ONE = {
+    "Sz": np.array([1.0, 0.0, -1.0]),
+    "Sp": np.sqrt(2.0) * np.array([[0, 1, 0], [0, 0, 1], [0, 0, 0.0]]),
+    "Sm": np.sqrt(2.0) * np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0.0]]),
 }
 # electron: |0>, |up>, |dn>, |up dn>
 C_UP = np.array([[0, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 1], [0, 0, 0, 0.0]])
@@ -24,6 +29,7 @@ TJ_C_UP = np.array([[0, 1, 0], [0, 0, 0], [0, 0, 0.0]])
 TJ_C_DN = np.array([[0, 0, 1], [0, 0, 0], [0, 0, 0.0]])
 # spinless fermion: |0>, |1>
 C_SPINLESS = np.array([[0.0, 1.0], [0.0, 0.0]])
+N_SPINLESS = np.array([0.0, 1.0])  # its occupation (diagonal)
 
 _KAGOME_BONDS = [
     (0, 2, (1, 0)), (0, 2, (0, 0)),
@@ -43,15 +49,39 @@ def sz_pair(i=0, j=1):
     return Opr(i, 0, False, SP_HALF["Sz"]) * Opr(j, 0, False, SP_HALF["Sz"])
 
 
-def heisenberg_chain(L, device="cpu"):
-    """Spin-1/2 Heisenberg chain (reference:
-    examples/*/latt_chain/chain_Heisenberg_spin_half.cc)."""
+def heisenberg_chain(L, spin="1/2", device="cpu"):
+    """Spin-1/2 or spin-1 Heisenberg chain (reference:
+    examples/*/latt_chain/chain_Heisenberg_spin_{half,one}.cc)."""
+    ops = SP_HALF if spin == "1/2" else SP_ONE
     m = Model(Lattice("chain", [L], ["pbc"]), device=device)
-    m.add_orbital(L, "spin-1/2")
+    m.add_orbital(L, "spin-1/2" if spin == "1/2" else "spin-1")
     for x in range(L):
-        _heis_bond(m, x, (x + 1) % L, SP_HALF)
+        _heis_bond(m, x, (x + 1) % L, ops)
     sz = Mopr()
     for x in range(L):
+        sz += Opr(x, 0, False, ops["Sz"])
+    return m, {"Sz": sz}
+
+
+def three_spin_chain_with(Lattice, Model, Opr, Mopr, L, K=0.7, **model_kw):
+    """Heisenberg chain plus the three-site exchange
+    K (S+_i S-_{i+1} + S-_i S+_{i+1}) Sz_{i+2}: Hermitian, real, conserves
+    Sz, and its three-slot support fits no pair window. Built with the given
+    package's classes."""
+    m = Model(Lattice("chain", [L], ["pbc"]), **model_kw)
+    m.add_orbital(L, "spin-1/2")
+    sz = Mopr()
+    for x in range(L):
+        j, k = (x + 1) % L, (x + 2) % L
+        sp_i, sm_i = (Opr(x, 0, False, SP_HALF["Sp"]),
+                      Opr(x, 0, False, SP_HALF["Sm"]))
+        sp_j, sm_j = (Opr(j, 0, False, SP_HALF["Sp"]),
+                      Opr(j, 0, False, SP_HALF["Sm"]))
+        sz_k = Opr(k, 0, False, SP_HALF["Sz"])
+        m.add_Ham(0.5 * (sp_i * sm_j + sm_i * sp_j))
+        m.add_Ham(Opr(x, 0, False, SP_HALF["Sz"])
+                  * Opr(j, 0, False, SP_HALF["Sz"]))
+        m.add_Ham(K * (sp_i * sm_j * sz_k) + K * (sm_i * sp_j * sz_k))
         sz += Opr(x, 0, False, SP_HALF["Sz"])
     return m, {"Sz": sz}
 
@@ -250,3 +280,71 @@ def kondo_chain(L, J_Kondo, t=1.0, device="cpu"):
         N_tot += n_up + n_dn
         Sz_tot += Sz_i + sz_i
     return m, {"N": N_tot, "Sz": Sz_tot}
+
+
+def fermi_hubbard_square(Lx, Ly, t=1.0, U=1.1, device="cpu"):
+    """Fermi-Hubbard model in the site-major 'electron' encoding (reference:
+    examples/*/latt_square/square_Fermi_Hubbard.cc)."""
+    lat = Lattice("square", [Lx, Ly], ["pbc", "pbc"])
+    m = Model(lat, device=device)
+    m.add_orbital(lat.n_sites, "electron")
+    Nup, Ndn = Mopr(), Mopr()
+    for x in range(Lx):
+        for y in range(Ly):
+            i = lat.coor2site([x, y], 0)
+            cu_i, cd_i = Opr(i, 0, True, C_UP), Opr(i, 0, True, C_DN)
+            for dx, dy in ((1, 0), (0, 1)):
+                j = lat.coor2site([x + dx, y + dy], 0)
+                cu_j, cd_j = Opr(j, 0, True, C_UP), Opr(j, 0, True, C_DN)
+                m.add_Ham((-t) * (cu_i.dagger() * cu_j))
+                m.add_Ham((-t) * (cu_j.dagger() * cu_i))
+                m.add_Ham((-t) * (cd_i.dagger() * cd_j))
+                m.add_Ham((-t) * (cd_j.dagger() * cd_i))
+            m.add_Ham(U * ((cu_i.dagger() * cu_i) * (cd_i.dagger() * cd_i)))
+            Nup += cu_i.dagger() * cu_i
+            Ndn += cd_i.dagger() * cd_i
+    return m, {"Nup": Nup, "Ndn": Ndn}
+
+
+def hubbard_factor(Lx, Ly, Nf, t=1.0, device="cpu"):
+    """One species of the factorized Hubbard model: spinless fermions
+    hopping on the square lattice, the N = Nf sector enumerated."""
+    lat = Lattice("square", [Lx, Ly], ["pbc", "pbc"])
+    ms = Model(lat, device=device)
+    ms.add_orbital(lat.n_sites, "spinless-fermion")
+    Nop = Mopr()
+    for x in range(Lx):
+        for y in range(Ly):
+            ci = Opr(lat.coor2site([x, y], 0), 0, True, C_SPINLESS)
+            for dx, dy in ((1, 0), (0, 1)):
+                cj = Opr(lat.coor2site([x + dx, y + dy], 0), 0, True,
+                         C_SPINLESS)
+                ms.add_Ham((-t) * (ci.dagger() * cj))
+                ms.add_Ham((-t) * (cj.dagger() * ci))
+            Nop += ci.dagger() * ci
+    ms.enumerate_basis_full([Nop], [float(Nf)])
+    return ms
+
+
+def site_occupation(s):
+    """n_s of a spinless-fermion factor, as a Mopr."""
+    return Mopr() + Opr(s, 0, False, N_SPINLESS)
+
+
+def hubbard_factorized(Lx, Ly, t=1.0, U=1.1, Nup=None, Ndn=None,
+                       device="cpu"):
+    """Species-factorized Hubbard model (the same construction as
+    examples/square_fermi_hubbard.py::build_factorized and
+    build_factorized_sector): in the species-major Jordan-Wigner ordering
+    the up and down species are two spinless-fermion hopping factors coupled
+    only by the diagonal U sum_i n_i^up (x) n_i^dn. Half filling shares one
+    factor; unequal (Nup, Ndn) builds two. Returns (ProductModel, up
+    factor)."""
+    half = Lx * Ly // 2
+    Nup = half if Nup is None else Nup
+    Ndn = Nup if Ndn is None else Ndn
+    mu = hubbard_factor(Lx, Ly, Nup, t, device)
+    md = None if Ndn == Nup else hubbard_factor(Lx, Ly, Ndn, t, device)
+    pairs = [(site_occupation(s), site_occupation(s))
+             for s in range(Lx * Ly)]
+    return ProductModel(mu, md, coupling=pairs, coupling_scale=U), mu
