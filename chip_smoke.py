@@ -6,7 +6,9 @@ Phases (any failure raises, so the exit code is nonzero):
 1. a CUDA device must be present; prints the card, its power limit and the
    torch/CUDA versions;
 2. builds the BSR SpMV kernel (csrc/bsr_spmv.cu) with nvcc;
-3. holds the kernel against its plain PyTorch version on the card, on the
+3. holds the kernel against its plain PyTorch version on the card, on a
+   momentum sector of the 20-site tilted cluster (f32: the shape of the
+   kernel's main path, phase 4b), on the
    chain-20 k=0 and kagome t-J k=(0,1) momentum-sector matrices (f32, f64),
    chain-22 k=0 (f32), a matrix with empty row tiles and a diagonal-only
    one; tolerance 1e-12 * max|y| (f64), 1e-5 * max|y| (f32); times both
@@ -15,10 +17,17 @@ Phases (any failure raises, so the exit code is nonzero):
    nowhere in the package) and computes the least time the card could take
    (bytes over 3.35 TB/s against operations over the peak rate);
 4. drives the momentum-sector ground-state route through Model(...,
-   device="cuda"): kagome t-J 2x2 N=8 Sz=0 at all four momenta against the
-   reference goldens (1e-8), chain-20 k=0 Sz=0 against the port's pure-f64
-   ELL Lanczos (1e-9); asserts that the solves launched the kernel and that
-   each f32 bulk engine is a float32 BsrMatrix;
+   device="cuda"). (a) kagome t-J 2x2 N=8 Sz=0 at all four momenta against
+   the reference goldens (1e-8) and chain-20 k=0 Sz=0 against the port's
+   pure-f64 ELL Lanczos (1e-9), each asserted to run as P_k H on a
+   ProjectedFullOp. (b) The kernel's main path: the tilted square cluster of
+   20 sites (A = [[4,2],[-2,4]], nearest-neighbour Heisenberg, Sz=0, sector
+   dim 184,756) through TiltedLattice -> enumerate_basis_repr at its 20
+   momenta -> locate_E0_lanczos(which="repr") -> measure_repr_static, with
+   no prefer_bsr: asserts that _fullspace_repr_op gives no engine, that each
+   f32 bulk engine is a float32 BsrMatrix, that the kernel was launched, that
+   the sector dims add up, and that min_k E0(k) equals the full-sector E0 of
+   the same model (1e-9);
 5. drives the full-sector route (enumerate_basis_full -> locate_E0_lanczos /
    locate_E0_iram -> measure_full_static) on the card: the self-test goldens
    (chain-16: E0 and three correlators; t-J chain-12: the degenerate pair;
@@ -46,14 +55,36 @@ Phases (any failure raises, so the exit code is nonzero):
    1e-8, residual under the gate) when the projected time fits, else a
    capped f32 Lanczos cycle whose Ritz value must lie above that E0 and
    within 1e-2 of it; measure_product_static double occupancy;
-8. prints the kernel record, the card line, and as the last line
+8. momentum sectors at full width, N = 2^24, on the two models of phases
+   5-6, as P_k H on the contraction engine with block-transpose
+   translations: chain L=24 Sz=0 k=0 (E0 equal to phase 5's ELL E0, 1e-9),
+   kagome 2x4 Sz=0 k=(0,2) (E0 = -10.759897248084, 1e-8) and k=(0,0) (E0 =
+   -10.70614979406, 1e-8), each in pure f64 and under
+   config.mixed_precision, residual under the gate, routed by type; P_k H x
+   against P_k applied to the ELL's H x and P_k idempotent (1e-12 * max|y|);
+   for kagome k=(0,2) also method="dnc" (representatives equal to "direct")
+   and the explicit route on the same sector; prints enumeration, projector
+   and engine build seconds, per-translation ms beside its bytes bound, P_k
+   and P_k H per apply, solve seconds, matvec counts, peak memory. The f64
+   solve of kagome k=(0,0) is dropped (and said so) when the script would
+   pass its budget;
+9. resume: with config.enable_ckpt and a temporary ckpt_dir, the chain-24
+   thick restart on the ELL (dim 2,704,156) is interrupted after a save by
+   an exception from a counting wrapper around the matvec, then resumed:
+   same E0 (1e-10), fewer matvecs than the cold run, the restart record
+   deleted; a further locate_E0_lanczos() returns from the stage record
+   without a matvec; prints save seconds and bytes; removes the directory;
+10. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-8, windows
+Phases 8 and 9 run before phase 7, whose 4x4 solve is the one part that is
+capped when the script would pass its budget.
+
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-10, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
-dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster; a
-KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
+dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
+P_k H apply at N = 2^24 on both; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
 device-busy time, idle share and its three longest device operations, then
 times the matrix-free apply
 at three row-block budgets; it prints no result line.
@@ -80,6 +111,10 @@ CHAIN16_CORR = {"Sz0Sz1": -0.1487978408, "Sz0Sz2": 0.0617414604,
                 "Sp0Sm1": -0.2975956817}
 E0_TJ12 = -9.762087307
 E0_KAGOME24 = -10.759897248084
+E0_KAGOME24_K00 = -10.70614979406   # k = (0, 0), dim 338,376
+KAGOME24_DIMS = {(0, 2): 338356, (0, 0): 338376}
+TILTED_A = [[4, 2], [-2, 4]]        # 20-site tilted square cluster
+TILTED_DIM = 184756                 # C(20, 10)
 E0_HUBBARD_4X2 = -14.07605866
 E0_HUBBARD_4X4 = -20.497352266554
 DIM_24 = 2704156
@@ -163,9 +198,14 @@ def kernel_checks(bsr_mod, dev):
     """Phase 3: kernel vs plain version; returns the measured rows."""
     from quantum_basis_tpu_torch.ops.bsr import BsrMatrix, ell_to_bsr
     from quantum_basis_tpu_torch.ops.sparse import EllMatrix
-    from torch_zoo import heisenberg_chain, kagome_tj
+    from torch_zoo import heisenberg_chain, kagome_tj, tilted_heisenberg
 
     mats = []
+    # the shape of the kernel's main path (phase 4b): a momentum sector of
+    # the 20-site tilted cluster
+    m, ops = tilted_heisenberg(TILTED_A, device=dev)
+    ell = sector_ell(m, [0, 0], [ops["Sz"]], [0.0])
+    mats += [("tilted20_k00", ell, torch.float32)]
     m, ops = heisenberg_chain(20, device=dev)
     ell = sector_ell(m, [0], [ops["Sz"]], [0.0])
     mats += [("chain20_k0", ell, torch.float32),
@@ -250,12 +290,28 @@ def kernel_checks(bsr_mod, dev):
 
 
 def slice_run(bsr_mod, dev):
-    """Phase 4: the ground-state route through the public Model API."""
+    """Phase 4: the momentum-sector route through the public Model API.
+    Returns the kernel's launches on the tilted-cluster path and the
+    chain-20 k=0 energy."""
+    from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
+    from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
+    from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
     from quantum_basis_tpu_torch.solvers.restarted import eigs_smallest
-    from torch_zoo import heisenberg_chain, kagome_tj, sz_pair, tj_sz
+    from torch_zoo import (heisenberg_chain, kagome_tj, sz_pair,
+                           tilted_heisenberg, tilted_momenta, tj_sz)
+
+    # (a) sectors the full-label-space engine takes: P_k H
+    def projected(model, sec, tag):
+        s = model.sec_repr[sec]
+        fs = model._fullspace_repr_op(s)
+        if not (isinstance(fs, ProjectedFullOp)
+                and isinstance(fs.base, ContractOp) and fs.n_applies > 0
+                and s.ell is None and s.bsr32 is None):
+            raise AssertionError(f"{tag}: the solve did not run as P_k H on "
+                                 f"the contraction engine ({fs!r})")
+        return fs.n_applies
 
     bsr_mod.launch_count = 0
-    results = []
     m, ops = kagome_tj(2, 2, device=dev)
     for sec, k in enumerate(KAGOME_GOLDEN):
         t0 = time.perf_counter()
@@ -266,11 +322,14 @@ def slice_run(bsr_mod, dev):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         meas = m.measure_repr_static(tj_sz(0) * tj_sz(1), sec)
-        results.append({"model": "kagome_tj_2x2_N8_Sz0", "k": list(k),
-                        "dim": dim, "E0": m.eigenvals_repr[0],
-                        "golden": KAGOME_GOLDEN[k], "Sz0Sz1": meas.real,
-                        "enumerate_s": t1 - t0, "solve_s": t2 - t1,
-                        "bsr32": m.sec_repr[sec].bsr32})
+        r = {"model": "kagome_tj_2x2_N8_Sz0", "k": list(k), "dim": dim,
+             "E0": m.eigenvals_repr[0], "golden": KAGOME_GOLDEN[k],
+             "Sz0Sz1": meas.real, "enumerate_s": t1 - t0,
+             "solve_s": t2 - t1, "engine": "P_k H on ContractOp f64",
+             "matvecs": projected(m, sec, f"kagome t-J k={k}")}
+        print("slice", json.dumps(r), flush=True)
+        _check(f"kagome t-J k={k} E0", r["E0"], r["golden"], 1e-8)
+    del m
     mc, opc = heisenberg_chain(20, device=dev)
     t0 = time.perf_counter()
     dim = mc.enumerate_basis_repr([0], [opc["Sz"]], [0.0])
@@ -278,33 +337,71 @@ def slice_run(bsr_mod, dev):
     mc.locate_E0_lanczos(which="repr")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    meas = mc.measure_repr_static(sz_pair(0, 1), 0)
-    results.append({"model": "chain20_Sz0", "k": [0], "dim": dim,
-                    "E0": mc.eigenvals_repr[0], "Sz0Sz1": meas.real,
-                    "enumerate_s": t1 - t0, "solve_s": t2 - t1,
-                    "bsr32": mc.sec_repr[0].bsr32})
-    launches = bsr_mod.launch_count
-
-    for r in results:
-        bsr32 = r.pop("bsr32")
-        if bsr32 is None or bsr32.dtype != torch.float32:
-            raise AssertionError(f"{r['model']} k={r['k']}: the f32 bulk "
-                                 "stage did not route to a float32 BsrMatrix")
-        r["bsr_blocks"] = bsr32.nb
-        print("slice", json.dumps(r), flush=True)
-        if "golden" in r and not abs(r["E0"] - r["golden"]) < 1e-8:
-            raise AssertionError(f"kagome k={r['k']}: E0 {r['E0']!r} vs "
-                                 f"golden {r['golden']}")
+    e0_chain20 = mc.eigenvals_repr[0]
+    print("slice", json.dumps({
+        "model": "chain20_Sz0", "k": [0], "dim": dim, "E0": e0_chain20,
+        "Sz0Sz1": mc.measure_repr_static(sz_pair(0, 1), 0).real,
+        "enumerate_s": t1 - t0, "solve_s": t2 - t1,
+        "engine": "P_k H on ContractOp f64",
+        "matvecs": projected(mc, 0, "chain-20 k=0")}), flush=True)
     ref, _ = eigs_smallest(mc._repr_ell(mc.sec_repr[0]), dim, nev=1,
                            ncv=12, complex_vec=True)
-    print("chain20 pure-f64 ELL E0", repr(ref[0]), flush=True)
-    if not abs(results[-1]["E0"] - ref[0]) < 1e-9:
-        raise AssertionError(f"chain-20: E0 {results[-1]['E0']!r} vs "
-                             f"f64 ELL {ref[0]!r}")
+    _check("chain-20 k=0 E0, P_k H vs pure-f64 ELL", e0_chain20, ref[0], 1e-9)
+    if bsr_mod.launch_count != 0:
+        raise AssertionError("a projected solve launched the BSR kernel")
+    del mc
+
+    # (b) the kernel's main path: a tilted cluster, no prefer_bsr
+    bsr_mod.launch_count = 0
+    mt, opt = tilted_heisenberg(TILTED_A, device=dev)
+    t0 = time.perf_counter()
+    dims, e0s, blocks, t_solve = [], [], [], 0.0
+    for k in tilted_momenta(TILTED_A):
+        dims.append(mt.enumerate_basis_repr(list(k), [opt["Sz"]], [0.0]))
+        s = mt.sec_repr[0]
+        if mt._fullspace_repr_op(s) is not None:
+            raise AssertionError("a tilted cluster got a full-space engine")
+        before = bsr_mod.launch_count
+        _, dt = _timed(lambda: mt.locate_E0_lanczos(which="repr"))
+        t_solve += dt
+        if not (isinstance(s.bsr32, BsrMatrix)
+                and s.bsr32.dtype == torch.float32
+                and bsr_mod.launch_count > before):
+            raise AssertionError(f"tilted k={k}: the f32 bulk stage did not "
+                                 "run on a float32 BsrMatrix")
+        e0s.append(mt.eigenvals_repr[0])
+        blocks.append(s.bsr32.nb)
+        szsz = mt.measure_repr_static(sz_pair(0, 1), 0)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = bsr_mod.launch_count
+    k_min = int(np.argmin(e0s))
+    full_dim, t_enum = _timed(lambda: mt.enumerate_basis_full([opt["Sz"]],
+                                                              [0.0]))
+    _, t_full = _timed(lambda: mt.locate_E0_lanczos())
+    print("slice", json.dumps({
+        "model": "tilted_square_20_Sz0", "A": TILTED_A, "card": card_line(),
+        "momenta": len(dims), "dims": sorted(set(dims)),
+        "dim_sum": sum(dims), "E0_min": e0s[k_min],
+        "k_min": list(tilted_momenta(TILTED_A)[k_min]),
+        "E0_full": mt.eigenvals_full[0], "Sz0Sz1_last_k": szsz.real,
+        "all_sectors_s": t_all, "solves_s": t_solve,
+        "bsr_blocks": [min(blocks), max(blocks)],
+        "bsr_launches": launches, "full_enumerate_s": t_enum,
+        "full_solve_s": t_full,
+        "full_engine": type(mt._fullspace_op(mt.sec_full[0])).__name__}),
+        flush=True)
+    if sum(dims) != full_dim or full_dim != TILTED_DIM:
+        raise AssertionError(f"tilted: sector dims sum to {sum(dims)}, the "
+                             f"Sz=0 sector has {full_dim}")
+    _check("tilted square 20: min_k E0(k) vs full-sector E0", e0s[k_min],
+           mt.eigenvals_full[0], 1e-9)
     if launches <= 0:
-        raise AssertionError("the slice never launched the BSR kernel")
-    print("bsr_spmv launches in the slice:", launches, flush=True)
-    return launches, results[-1]["E0"]
+        raise AssertionError("the tilted-cluster path never launched the "
+                             "BSR kernel")
+    print("bsr_spmv launches on the tilted-cluster path:", launches,
+          flush=True)
+    return launches, e0_chain20
 
 
 def _timed(fn):
@@ -615,8 +712,8 @@ def engines_run(dev, wide):
     from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
     from torch_zoo import heisenberg_chain
 
-    while wide:
-        engine_width(dev, *wide.pop(0))
+    for case in wide:
+        engine_width(dev, *case)
         torch.cuda.empty_cache()
 
     m, ops = heisenberg_chain(16, device=dev)
@@ -633,6 +730,338 @@ def engines_run(dev, wide):
             raise AssertionError("a complex vector came back real")
         _hx_check(f"chain16 Sz=0 complex vector, ContractOp {dt} vs "
                   "matrix-free", op.to_sector(y).to(y_ref.dtype), y_ref, tol)
+
+
+def _projected_engine(model, sector, dtype, tag):
+    """The P_k H engine of a momentum sector at one precision; raises unless
+    it is a ProjectedFullOp over a ContractOp of that precision."""
+    from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
+    from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
+
+    fs = model._fullspace_repr_op(sector, dtype=dtype)
+    if not (isinstance(fs, ProjectedFullOp) and isinstance(fs.base, ContractOp)
+            and fs.dtype == dtype):
+        raise AssertionError(f"{tag}: no {dtype} P_k H engine but {fs!r}")
+    return fs
+
+
+def momentum_sector(dev, tag, model, sz, k, dim_want, e0_want, e0_tol,
+                    solve_f64, t_start):
+    """Phase 8 for one momentum sector at N = 2^24, through
+    enumerate_basis_repr -> locate_E0_lanczos(which="repr"). The model's full
+    sector 0 holds the ELL of phase 5, the independent H of the checks."""
+    from quantum_basis_tpu_torch import config
+    from quantum_basis_tpu_torch.models import model as model_mod
+
+    rec = {"model": tag, "k": list(k), "card": card_line(),
+           "N": int(model.space.label_space)}
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated()
+    dim, rec["enumerate_direct_s"] = _timed(
+        lambda: model.enumerate_basis_repr(list(k), [sz], [0.0]))
+    if dim_want is not None and dim != dim_want:
+        raise AssertionError(f"{tag}: dim {dim} != {dim_want}")
+    rec["dim"] = dim
+    sector = model.sec_repr[0]
+    fs, rec["engine_f64_build_s"] = _timed(
+        lambda: _projected_engine(model, sector, torch.float64, tag))
+    fs32, rec["engine_f32_build_s"] = _timed(
+        lambda: _projected_engine(model, sector, torch.float32, tag))
+    rec["resident_bytes"] = torch.cuda.memory_allocated() - base_bytes
+    rolls, proj = fs.projector.rolls, fs.projector
+    rec["translations_per_apply"] = sum(len(sh) for _, _, sh in proj.dims)
+
+    # P_k H x against P_k applied to the ELL's H x; P_k idempotent
+    sec_full = model.sec_full[0]
+    ell = sec_full.matvec
+    rng = np.random.default_rng(8)
+    xs = torch.as_tensor(rng.standard_normal(sec_full.dim)
+                         + 1j * rng.standard_normal(sec_full.dim), device=dev)
+    labels = torch.as_tensor(sec_full.labels, device=dev)
+    xf = torch.zeros(fs.N, dtype=torch.complex128, device=dev)
+    xf[labels] = xs
+    y_ref = torch.zeros_like(xf)
+    y_ref[labels] = ell(xs)
+    y_ref = proj.apply(y_ref)
+    rec["pkh_vs_ell_rel_err"] = _hx_check(
+        f"{tag} k={k} P_k H x vs P_k (ELL H x)", fs(xf), y_ref, 1e-12)
+    rec["pkh_f32_rel_err"] = _hx_check(
+        f"{tag} k={k} P_k H x, f32 vs f64",
+        fs32(xf.to(torch.complex64)).to(torch.complex128), y_ref, 5e-6)
+    rec["pk_idempotent_rel_err"] = _hx_check(
+        f"{tag} k={k} P_k P_k x vs P_k x", proj.apply(y_ref), y_ref, 1e-12)
+    del y_ref
+
+    # per-translation, P_k and P_k H times, and the bytes bound of a
+    # translation (x read once, y written once)
+    x64 = fs.project(xf)
+    x32 = x64.to(torch.complex64)
+    vec_bytes = x64.numel() * x64.element_size()
+    rec["translate_bound_ms"] = 2 * vec_bytes / HBM_BYTES_PER_S * 1e3
+    rec["translate_ms"] = {
+        f"dim{d}_shift{r}": cuda_ms(lambda d=d, r=r: rolls.translate(x64, d, r),
+                                    samples=5, per_sample=3)
+        for d, L, _ in proj.dims for r in sorted({1, L // 2})}
+    rec["translate_axes"] = {f"dim{d}_shift1": [len(c[0]) for c in
+                                                rolls._perms(d, 1)]
+                             for d, _, _ in proj.dims}
+    # P_k as a function reads x once and writes y once; as torch ops it
+    # moves, per shift, the translation (2 vectors) and acc += phase * t (3),
+    # and per dimension the copy into acc and its scaling (2 + 2)
+    rec["pk_bound_ms"] = rec["translate_bound_ms"]
+    rec["pk_traffic_ms"] = ((5 * rec["translations_per_apply"]
+                             + 4 * len(proj.dims)) * vec_bytes
+                            / HBM_BYTES_PER_S * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    rec["pk_ms"] = cuda_ms(lambda: proj.apply(x64), samples=5, per_sample=2)
+    rec["pk_apply_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    rec["h_complex_f64_ms"] = cuda_ms(lambda: fs.base(x64), samples=5,
+                                      per_sample=2)
+    torch.cuda.reset_peak_memory_stats()
+    rec["pkh_f64_ms"] = cuda_ms(lambda: fs(x64), samples=5, per_sample=2)
+    rec["pkh_apply_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    rec["pkh_f32_ms"] = cuda_ms(lambda: fs32(x32), samples=5, per_sample=2)
+    del xf, x64, x32
+
+    # the solves through the entry point
+    real_rqi, calls = model_mod.rqi_polish, []
+    model_mod.rqi_polish = lambda *a, **kw: (calls.append(real_rqi(*a, **kw))
+                                             or calls[-1])
+    modes = (["f64"] if solve_f64 else []) + ["mixed"]
+    try:
+        for mode in modes:
+            config.mixed_precision = mode == "mixed"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            n64, n32 = fs.n_applies, fs32.n_applies
+            t_wall = time.perf_counter()
+            _, rec[f"solve_{mode}_s"] = _timed(
+                lambda: model.locate_E0_lanczos(which="repr", maxit=40000))
+            if sector.ell is not None or sector.bsr32 is not None:
+                raise AssertionError(f"{tag} {mode}: the explicit route ran")
+            e0 = model.eigenvals_repr[0]
+            rec[f"E0_{mode}"] = e0
+            rec[f"matvecs_f64_{mode}"] = fs.n_applies - n64
+            rec[f"matvecs_f32_{mode}"] = fs32.n_applies - n32
+            rec[f"peak_bytes_{mode}"] = torch.cuda.max_memory_allocated()
+            if rec[f"matvecs_f64_{mode}"] <= 0 or (
+                    (mode == "mixed") != (rec[f"matvecs_f32_{mode}"] > 0)):
+                raise AssertionError(f"{tag} {mode}: applies f64 "
+                                     f"{rec[f'matvecs_f64_{mode}']}, f32 "
+                                     f"{rec[f'matvecs_f32_{mode}']}")
+            vf = model._repr_to_full(sector, model.eigenvecs_repr[0], fs=fs)
+            rec[f"residual_{mode}"] = float(
+                torch.linalg.vector_norm(fs(vf) - e0 * vf))
+            del vf
+            if mode == "mixed":
+                if len(calls) != 1 or not calls[0]["converged"]:
+                    raise AssertionError(f"{tag}: the mixed solve did not "
+                                         f"end in a converged RQI: {calls}")
+                rec["rqi_outer"] = calls[0]["n_outer"]
+                rec["rqi_inner_f32"] = calls[0]["n_inner"]
+            print(f"{tag} k={k} {mode} solve: {rec[f'solve_{mode}_s']:.2f} s "
+                  f"({time.perf_counter() - t_start:.0f} s into the script, "
+                  f"{time.perf_counter() - t_wall:.2f} s wall)", flush=True)
+    finally:
+        config.mixed_precision = False
+        model_mod.rqi_polish = real_rqi
+    rec["solve_f64_dropped"] = not solve_f64
+    gate = max(1e3 * 2e-12 * abs(e0_want), 5e-10)
+    rec["residual_gate"] = gate
+    print("momentum", json.dumps(rec), flush=True)
+    for mode in modes:
+        _check(f"{tag} k={k} E0 {mode}", rec[f"E0_{mode}"], e0_want, e0_tol)
+        if not rec[f"residual_{mode}"] < gate:
+            raise AssertionError(
+                f"{tag} k={k} {mode}: residual {rec[f'residual_{mode}']:.3e} "
+                f"over the gate {gate:.3e}")
+    return rec
+
+
+def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
+    """Phase 8, the other route on the same sector: method="dnc" against
+    "direct", then the explicit ELL/BSR solve through the same entry point
+    with the full-label-space engine switched off for this model."""
+    direct = model.sec_repr[0]
+    dim, t_dnc = _timed(lambda: model.enumerate_basis_repr(
+        list(k), [sz], [0.0], sec=1, method="dnc"))
+    s = model.sec_repr[1]
+    if dim != direct.dim or not np.array_equal(s.labels, direct.labels) \
+            or not np.array_equal(s.dbasis.nus, direct.dbasis.nus):
+        raise AssertionError(f"{tag}: dnc and direct representatives differ")
+    rec = {"model": tag, "k": list(k), "dim": dim, "enumerate_dnc_s": t_dnc}
+    mask_dnc, rec["qn_mask_dnc_s"] = _timed(
+        lambda: model._qn_mask(s, torch.float64))
+    fs_direct = model._fullspace_repr_op(direct)
+    if mask_dnc is fs_direct.mask:
+        # one enumeration key: rebuild from the operators to check the build
+        model._qn_mask_cache = None
+        mask_dnc, rec["qn_mask_dnc_s"] = _timed(
+            lambda: model._qn_mask(s, torch.float64))
+    if not torch.equal(mask_dnc, fs_direct.mask):
+        raise AssertionError(f"{tag}: the dnc quantum-number mask differs")
+    del mask_dnc
+
+    launches_before = bsr_mod.launch_count
+    model._fullspace_repr_op = lambda *a, **kw: None  # this model only
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ell, rec["ell_build_s"] = _timed(lambda: model._repr_ell(s))
+        rec["ell_width"] = ell.width
+        rec["ell_bytes"] = (ell.cols.numel() * ell.cols.element_size()
+                            + ell.vals.numel() * ell.vals.element_size())
+        x = torch.as_tensor(np.random.default_rng(2).standard_normal(dim)
+                            + 0j, device=dev)
+        rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=10, per_sample=3)
+        n0 = ell.n_applies
+        _, rec["solve_s"] = _timed(
+            lambda: model.locate_E0_lanczos(which="repr", sec=1, maxit=40000))
+    finally:
+        del model._fullspace_repr_op
+    rec["E0"] = model.sec_repr[1].evals[0]
+    rec["matvecs_ell"] = ell.n_applies - n0
+    rec["bsr32_routed"] = s.bsr32 is not None
+    rec["bsr_blocks"] = s.bsr32.nb if s.bsr32 is not None else None
+    rec["bsr_launches"] = bsr_mod.launch_count - launches_before
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print("explicit", json.dumps(rec), flush=True)
+    _check(f"{tag} k={k} E0, explicit route", rec["E0"], e0_want, 1e-8)
+    del model.sec_repr[1]
+    return rec
+
+
+def momentum_run(bsr_mod, dev, wide, t_start):
+    """Phase 8: momentum sectors at N = 2^24 on the models of phases 5-6."""
+    (ctag, chain, csz, crec, _), (ktag, kagome, ksz, _, _) = wide
+    momentum_sector(dev, ctag, chain, csz, (0,), None, crec["E0_ell"], 1e-9,
+                    True, t_start)
+    chain.sec_repr.clear()
+    chain._fsrepr_bases.clear()
+    chain._qn_mask_cache = None
+    torch.cuda.empty_cache()
+
+    first = momentum_sector(dev, ktag, kagome, ksz, (0, 2),
+                            KAGOME24_DIMS[(0, 2)], E0_KAGOME24, 1e-8, True,
+                            t_start)
+    explicit_route(bsr_mod, dev, ktag, kagome, ksz, (0, 2), E0_KAGOME24)
+    # k = (0, 0) costs about what k = (0, 2) did, and phases 9 and 7 follow
+    # (about 150 s on an H100): its f64 solve is dropped past the budget
+    elapsed = time.perf_counter() - t_start
+    projected = first["solve_f64_s"] + first["solve_mixed_s"] + 150.0
+    keep = elapsed + projected <= SCRIPT_BUDGET_S
+    print(f"kagome k=(0,0): {elapsed:.0f} s into the script, projected "
+          f"{projected:.0f} s more with the f64 solve: "
+          f"{'kept' if keep else 'f64 solve dropped'}", flush=True)
+    momentum_sector(dev, ktag, kagome, ksz, (0, 0), KAGOME24_DIMS[(0, 0)],
+                    E0_KAGOME24_K00, 1e-8, keep, t_start)
+    kagome.sec_repr.clear()
+    kagome._fsrepr_bases.clear()
+    kagome._qn_mask_cache = None
+    torch.cuda.empty_cache()
+
+
+class _Interrupting:
+    """A matvec that raises after ``limit`` applies: stands for a crash."""
+
+    def __init__(self, base, limit):
+        self.base, self.limit, self.calls = base, limit, 0
+        self.n, self.dtype, self.device = base.n, base.dtype, base.device
+        self.is_complex = base.is_complex
+
+    def __call__(self, x):
+        self.calls += 1
+        if self.calls > self.limit:
+            raise InterruptedError(f"stopped after {self.limit} applies")
+        return self.base(x)
+
+
+def resume_run(dev, chain_case):
+    """Phase 9: checkpoint, interruption and resume of the chain-24 solve on
+    the ELL route (the sector's matvec is the explicit ELL of phase 5)."""
+    import shutil
+    import tempfile
+
+    from quantum_basis_tpu_torch import CkptStore, config
+    from quantum_basis_tpu_torch.solvers import restarted
+    from quantum_basis_tpu_torch.utils import ckpt as ckpt_mod
+
+    tag, model, _, rec5, _ = chain_case
+    sector = model.sec_full[0]
+    ell = sector.matvec
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=here)
+    saves = []
+
+    class TimedStore(CkptStore):
+        def save(self, key, payload):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(key, payload)
+            saves.append((key, time.perf_counter() - t0,
+                          os.path.getsize(self._path(key))))
+
+    old = (config.enable_ckpt, config.ckpt_dir, restarted._SAVE_PERIOD,
+           ckpt_mod.active_store)
+    rec = {"model": tag, "card": card_line(), "dim": sector.dim,
+           "matvecs_cold": rec5["matvecs_ell"], "E0_cold": rec5["E0_ell"]}
+    try:
+        config.enable_ckpt, config.ckpt_dir = True, ckpt_dir
+        ckpt_mod.active_store = lambda: TimedStore(ckpt_dir)
+        restarted._SAVE_PERIOD = 0.0     # every restart boundary saves
+        key = f"lczsE0_full_sec0_nev1_h{model._ham_fingerprint():08x}"
+        sector.matvec = _Interrupting(ell, 40)
+        try:
+            model.locate_E0_lanczos("full", maxit=4000)
+        except InterruptedError as e:
+            print(f"resume: {e}; {len(saves)} records written", flush=True)
+        else:
+            raise AssertionError("the interrupting matvec never raised")
+        finally:
+            sector.matvec = ell
+        store = CkptStore(ckpt_dir)
+        krylov = store.load(key + "_krylov")
+        if krylov is None or store.load(key) is not None:
+            raise AssertionError("after the interruption there must be a "
+                                 "restart record and no stage record")
+        rec["record_it"] = int(krylov["it"])
+        rec["record_bytes"] = saves[-1][2]
+        rec["save_s"] = [round(t, 3) for _, t, _ in saves]
+        (_, rec["load_s"]) = _timed(lambda: store.load(key + "_krylov"))
+        del krylov
+
+        restarted._SAVE_PERIOD = old[2]  # the resumed run saves once
+        n0, n_saves = ell.n_applies, len(saves)
+        _, rec["resume_s"] = _timed(
+            lambda: model.locate_E0_lanczos("full", maxit=4000))
+        rec["matvecs_resumed"] = ell.n_applies - n0
+        rec["E0_resumed"] = model.eigenvals_full[0]
+        rec["saves_in_resume"] = [(k, round(t, 3), b)
+                                  for k, t, b in saves[n_saves:]]
+        if store.load(key + "_krylov") is not None:
+            raise AssertionError("the restart record outlived convergence")
+        if store.load(key) is None:
+            raise AssertionError("no stage record after the resumed solve")
+        n0 = ell.n_applies
+        _, rec["stage_load_s"] = _timed(
+            lambda: model.locate_E0_lanczos("full", maxit=4000))
+        rec["matvecs_after_stage_record"] = ell.n_applies - n0
+        rec["E0_stage"] = model.eigenvals_full[0]
+    finally:
+        (config.enable_ckpt, config.ckpt_dir, restarted._SAVE_PERIOD,
+         ckpt_mod.active_store) = old
+        shutil.rmtree(ckpt_dir)
+    print("resume", json.dumps(rec), flush=True)
+    _check("chain24 E0, resumed vs cold", rec["E0_resumed"], rec["E0_cold"],
+           1e-10)
+    if not 0 < rec["matvecs_resumed"] < rec["matvecs_cold"]:
+        raise AssertionError(f"resumed run: {rec['matvecs_resumed']} matvecs, "
+                             f"cold {rec['matvecs_cold']}")
+    if rec["matvecs_after_stage_record"] != 0 \
+            or rec["E0_stage"] != rec["E0_resumed"]:
+        raise AssertionError("the stage record did not short-circuit the "
+                             "solve")
+    return rec
 
 
 def ell_apply_columns(ell, X, block=128):
@@ -813,8 +1242,30 @@ def profile_windows(dev):
     fs = m._fullspace_op(m.sec_full[0])
     xf = fs.to_full(x)
     device_busy("kagome24 ContractOp f64 apply (N 2^24)", lambda: fs(xf))
-    del m, fs, xf
+    del fs, xf
+    m.sec_full.clear()
     torch.cuda.empty_cache()
+
+    # P_k H at N = 2^24: kagome k=(0,2), then chain-24 k=0
+    for tag, mk, opk, k in (
+            ("kagome24 k=(0,2)", m, ops, [0, 2]),
+            ("chain24 k=0", *heisenberg_chain(24, device=dev), [0])):
+        mk.enumerate_basis_repr(k, [opk["Sz"]], [0.0])
+        pk = mk._fullspace_repr_op(mk.sec_repr[0])
+        g = torch.Generator(device=dev).manual_seed(3)
+        xk = pk.project(torch.randn(pk.N, dtype=torch.complex128, device=dev,
+                                    generator=g))
+        device_busy(f"{tag} P_k apply (N 2^24)",
+                    lambda: pk.projector.apply(xk))
+        device_busy(f"{tag} P_k H f64 apply (N 2^24)", lambda: pk(xk))
+        if len(k) == 1:
+            # host share of a whole projected solve (Lehmer start vectors
+            # made on the host over all labels, projected on the device)
+            device_busy(f"{tag} P_k H f64 solve",
+                        lambda: mk.locate_E0_lanczos(which="repr"))
+        del mk, pk, xk
+        torch.cuda.empty_cache()
+    del m
 
     pm, _ = hubbard_factorized(4, 4, device=dev)
     fs32 = pm.op(torch.float32)
@@ -879,10 +1330,19 @@ def main() -> int:
     launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
     launches += launches5
     engines_run(dev, wide)
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
+    momentum_run(bsr_mod, dev, wide, t_start)
+    print(f"phases 1-6, 8: {time.perf_counter() - t_start:.1f} s", flush=True)
+    resume_run(dev, wide[0])
+    del wide
+    torch.cuda.empty_cache()
+    print(f"phases 1-6, 8, 9: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     product_run(dev, t_start, force_full=False)
-    print(f"phases 1-7: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    main_row = next(r for r in rows if r["case"] == "kagome_tj22_k00")
+    main_row = next(r for r in rows if r["case"] == "tilted20_k00"
+                    and r["vector"] == "complex")
     record = {"kernels": [{
         "name": "bsr_spmv",
         "route": "cuda",

@@ -3,9 +3,12 @@
 Both packages' objects meet here as numpy arrays: the JAX package's ELL
 (``cols``, ``vre``, ``vim``, ``diag``), BSR blocks and split (re, im)
 vectors become the port's device tensors, and a full sector's labels and
-eigenvectors become a sector of a port ``Model``, and the parameter arrays of
-its window-contraction and kron engines become the port's engines. ``device``
-is a required keyword everywhere: these are entry points of the package, and
+eigenvectors become a sector of a port ``Model`` (a momentum sector's
+labels, representatives and repr-basis eigenvectors likewise), and the
+parameter arrays of its window-contraction and kron engines and of its
+momentum projector become the port's. Checkpoint records need no converter:
+both packages write the same ``.npz`` layout under the same keys
+(utils/ckpt.py). ``device`` is a required keyword everywhere: these are entry points of the package, and
 none of them picks a device on its own. This module imports neither jax nor
 quantum_basis_tpu.
 """
@@ -17,8 +20,13 @@ import torch
 
 from quantum_basis_tpu_torch.ops.apply_contract import ContractOp, _complex_of
 from quantum_basis_tpu_torch.ops.apply_kron import KronOp, _compact_coupling
+from quantum_basis_tpu_torch.ops.apply_repr import MatvecRepr, ReprBasis
 from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
 from quantum_basis_tpu_torch.ops.sparse import EllMatrix
+from quantum_basis_tpu_torch.ops.translate_fullspace import (
+    MomentumProjector,
+    RollTranslations,
+)
 
 
 def vec_from_split(re, im=None, *, device) -> torch.Tensor:
@@ -121,3 +129,61 @@ def kron_from_numpy(Ad, Bt, adiag, bdiag, P, pscale, *, device) -> KronOp:
     return KronOp.from_arrays(
         Ad_t, Ad_t if Bt is Ad else t(Bt), t(adiag), t(bdiag),
         None if P is None else t(_compact_coupling(P)), pscale)
+
+
+def repr_sector_from_numpy(model, momentum, labels, reps, evals=(), evecs=(),
+                           sec: int = 0, conserve_lst=None, val_lst=None):
+    """Install a momentum sector of the JAX package in a port ``Model``, the
+    momentum-sector twin of :func:`full_sector_from_numpy`.
+
+    ``labels``: the sorted labels of the quantum-number sector the JAX
+    enumeration materialized (``method="direct"``), or None; ``reps``: its
+    orbit representatives (all of them, before the norm filter);
+    ``evecs``: eigenvectors over the momentum basis as split (re, im) pairs;
+    ``conserve_lst`` / ``val_lst``: the port's conserved operators and their
+    values, needed for the quantum-number mask when ``labels`` is None. The
+    port builds its own norms, device residency and applies over the same
+    representatives. Returns the port's ``Sector``. The model's device is
+    used: a model is made for one device.
+    """
+    from quantum_basis_tpu_torch.models.model import Sector
+
+    reps = np.array(reps, dtype=np.int64)
+    labels = None if labels is None else np.array(labels, dtype=np.int64)
+    rbasis = ReprBasis(model.space, model.tset,
+                       reps if labels is None else labels, momentum,
+                       reps_all=reps,
+                       work_per_row=max(model.compiled_Ham.nnz_per_row, 1))
+    s = Sector()
+    s.labels, s.dim, s.dbasis = rbasis.labels_np, rbasis.n, rbasis
+    s.matvec = MatvecRepr(model.compiled_Ham, rbasis)
+    s.momentum = rbasis.momentum
+    s.qn = (("interop", sec, id(s)), list(conserve_lst or []),
+            list(val_lst or []), labels)
+    s.evals = [float(e) for e in evals]
+    s.evecs = [vec_from_split(re, im, device=model.device)
+               for re, im in evecs]
+    model.sec_repr[sec] = s
+    model.eigenvals_repr, model.eigenvecs_repr = list(s.evals), list(s.evecs)
+    return s
+
+
+def rolls_from_numpy(N, specs, signs, *, device) -> RollTranslations:
+    """The JAX package's ``RollTranslations`` as the port's, from its block
+    transposes: ``specs`` {(dim, shift): [(A, P, Q, B), ...]} (its
+    ``_specs``), ``signs`` {(dim, shift): +-1 array over all labels} (its
+    ``sign_host``) for the fermionic shifts."""
+    return RollTranslations.from_specs(N, specs, signs, device)
+
+
+def projector_from_numpy(N, momentum, dims, phases, signs_np, specs, *,
+                         device) -> MomentumProjector:
+    """The JAX package's ``MomentumProjector`` as the port's, from its
+    arrays: ``dims`` [(dim, L, [(shift, sign index | None), ...])],
+    ``phases`` (its ``_phases_np``), ``signs_np`` (its ``_signs_np``, which
+    the sign indices point into) and ``specs`` {(dim, shift): its
+    ``rolls._specs(dim, shift)``}."""
+    signs = {(d, r): signs_np[sidx] for d, _, shifts in dims
+             for r, sidx in shifts if sidx is not None}
+    rolls = rolls_from_numpy(N, specs, signs, device=device)
+    return MomentumProjector.from_arrays(rolls, momentum, dims, phases)

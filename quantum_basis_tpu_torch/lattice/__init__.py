@@ -1,1 +1,6 @@
-"""Lattice geometry and symmetry plans."""
+"""Lattice geometry: named Bravais lattices, TOML clusters, symmetry plans."""
+
+from quantum_basis_tpu_torch.lattice.lattice import Lattice
+from quantum_basis_tpu_torch.lattice.tilted import TiltedLattice
+
+__all__ = ["Lattice", "TiltedLattice"]

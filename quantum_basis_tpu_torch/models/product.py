@@ -19,14 +19,19 @@ Flagship use: Fermi-Hubbard 4x4 at half filling (species-major JW ordering;
 sector dim C(16,8)^2 = 165,636,900), cross-checked against the reference's
 4x2 golden value.
 
-Not ported yet: a device mesh (``mesh=`` raises, the multi-GPU slice) and
-the stage checkpoints (the checkpointing slice).
+With ``config.enable_ckpt`` the finished solve is kept as a stage record
+whose key carries both factors' Hamiltonian fingerprints and the coupling's
+bytes, and each stage's solver keeps its restart state (utils/ckpt.py).
+
+Not ported yet: a device mesh (``mesh=`` raises, the multi-GPU slice).
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 
+import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
@@ -39,8 +44,9 @@ from quantum_basis_tpu_torch.ops.apply_kron import (
 )
 from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
 from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
-from quantum_basis_tpu_torch.solvers.restarted import eigs_smallest
+from quantum_basis_tpu_torch.solvers.restarted import _solver_log, eigs_smallest
 from quantum_basis_tpu_torch.solvers.rqi import rqi_polish
+from quantum_basis_tpu_torch.utils import ckpt
 from quantum_basis_tpu_torch.utils.rng import vec_randomize
 
 _MIXED_ABOVE = 1 << 22  # mixed=None picks mixed precision above this dim
@@ -109,6 +115,21 @@ class ProductModel:
     def set_mesh(self, mesh):
         raise _not_ported("ProductModel.set_mesh", "the multi-GPU slice")
 
+    def _fingerprint(self) -> int:
+        """Content CRC of the product Hamiltonian: both factors' and the
+        whole coupling matrix (a prefix would alias couplings that differ
+        only on higher-index factor states)."""
+        fp = self.model_a._ham_fingerprint()
+        if self.model_b is not None:
+            fp = zlib.crc32(self.model_b._ham_fingerprint()
+                            .to_bytes(4, "little"), fp)
+        P = self._coupling_matrix()
+        if P is not None:
+            fp = zlib.crc32(np.float64(self.coupling_scale).tobytes(), fp)
+            fp = zlib.crc32(memoryview(np.ascontiguousarray(P)).cast("B"),
+                            fp)
+        return fp & 0xFFFFFFFF
+
     # ------------------------------------------------------------- solve
     def locate_E0_lanczos(self, nev: int = 1, maxit: int = 4000,
                           ncv: int = 6, seed: int = 1,
@@ -121,16 +142,24 @@ class ProductModel:
         below. Results land in ``eigenvals``/``eigenvecs``; ``solve_info``
         holds the stage times and counts of a mixed solve.
         """
-        if config.enable_ckpt:
-            raise _not_ported("checkpointing", "the checkpointing slice")
+        # factor dims spelled out: transposed sectors like Hubbard (9,8) vs
+        # (8,7) share dim = na*nb and the same Hamiltonian terms; only the
+        # factor split (and the coupling bytes) tells them apart
+        key = (f"prodE0_{self.na}x{self.nb}_nev{nev}"
+               f"_h{self._fingerprint():08x}")
+        done = self._stage_load(key)
+        if done is not None:
+            self.eigenvals, self.eigenvecs, self._last_residual = done
+            return self.eigenvals[0]
         if mixed is None:
             mixed = config.mixed_precision or self.dim > _MIXED_ABOVE
         if not mixed:
             fs = self.op(torch.float64)
             evals, vecs = eigs_smallest(
                 fs, fs.N, nev=nev, ncv=max(ncv, 2 * nev + 4), maxit=maxit,
-                seed=seed, complex_vec=False, mask=fs.mask)
-            self._publish(evals, vecs)
+                seed=seed, complex_vec=False, mask=fs.mask,
+                ckpt_key=key + "_krylov")
+            self._publish(key, evals, vecs)
             return self.eigenvals[0]
 
         # stage 1: f32 bulk on the dense float32 engine
@@ -139,7 +168,8 @@ class ProductModel:
         oom = False
         t32 = time.time()
         try:
-            v0 = Model._f32_stage_cached(fs32, nev, ncv, maxit, seed, False)
+            v0 = Model._f32_stage_cached(fs32, nev, ncv, maxit, seed, False,
+                                         key)
         except torch.OutOfMemoryError:
             # the (ncv+1, N) thick-restart buffer overflowed the device; the
             # rolling 2-vector kernel needs ~5 vectors in all. tol=1e-8 makes
@@ -150,8 +180,8 @@ class ProductModel:
                 "rolling 2-vector Lanczos")
             re, _ = vec_randomize(self.dim, seed=seed)
             v32 = torch.as_tensor(re, device=self.device).to(torch.float32)
-            v0 = lanczos_ground(fs32, v32, maxit=maxit, inner=48,
-                                tol=1e-8)["vector"]
+            v0 = lanczos_ground(fs32, v32, maxit=maxit, inner=48, tol=1e-8,
+                                ckpt_key=key + "_f32roll")["vector"]
         if fs32.device.type == "cuda":
             torch.cuda.synchronize(fs32.device)
         t32 = time.time() - t32
@@ -164,7 +194,9 @@ class ProductModel:
         v0 = v0.to(torch.float64)
         v0 = v0 / torch.linalg.vector_norm(v0)
         tp = time.time()
-        out = rqi_polish(fs64, v0, fs32=fs32)
+        out = rqi_polish(fs64, v0, fs32=fs32, ckpt_key=key + "_rqi",
+                         log=lambda i, th, rn, ni: _solver_log(
+                             "rqi_product", i, [th], [rn]))
         self.solve_info = {
             "f32_stage_s": round(t32, 1),
             "f32_stage_matvecs": n32,
@@ -175,7 +207,8 @@ class ProductModel:
         }
         if not out["converged"]:
             v0 = out["vector"] / torch.linalg.vector_norm(out["vector"])
-            out = lanczos_ground(fs64, v0, maxit=maxit, inner=60)
+            out = lanczos_ground(fs64, v0, maxit=maxit, inner=60,
+                                 ckpt_key=key + "_polish")
         if fs64.device.type == "cuda":
             torch.cuda.synchronize(fs64.device)
         self.solve_info["polish_s"] = round(time.time() - tp, 1)
@@ -185,17 +218,46 @@ class ProductModel:
         if out["residual"] >= r_gate:
             err = RuntimeError(
                 f"product-sector polish unconverged: E0={out['E0']:.12f}, "
-                f"residual {out['residual']:.3e} >= gate {r_gate:.3e}")
+                f"residual {out['residual']:.3e} >= gate {r_gate:.3e} "
+                f"(checkpoint retained; re-run to resume)")
             err.E0 = out["E0"]
             err.residual = out["residual"]
             raise err
-        self._publish([out["E0"]], [out["vector"]])
+        self._publish(key, [out["E0"]], [out["vector"]],
+                      resid=out["residual"])
         self._last_residual = out["residual"]
         return self.eigenvals[0]
 
-    def _publish(self, evals, vecs):
+    def _publish(self, key, evals, vecs, resid=None):
         self.eigenvals = [float(e) for e in evals]
         self.eigenvecs = list(vecs)
+        self._stage_save(key, evals, vecs, resid)
+
+    # ------------------------------------------------- stage checkpointing
+    def _stage_load(self, key):
+        store = ckpt.active_store()
+        rec = store.load(key) if store is not None else None
+        if rec is None:
+            return None
+        evals = [float(x) for x in rec["evals"]]
+        vecs = [ckpt.join_vec(rec[f"v{i}_re"], None, False, self.device)
+                for i in range(int(rec["nev"]))]
+        resid = float(rec["resid"]) if "resid" in rec else None
+        return evals, vecs, resid
+
+    def _stage_save(self, key, evals, vecs, resid=None):
+        store = ckpt.active_store()
+        if store is None:
+            return
+        payload = {"nev": len(vecs), "evals": np.asarray(evals)}
+        if resid is not None:
+            payload["resid"] = float(resid)
+        if sum(v.numel() * v.element_size() for v in vecs) \
+                > config.ckpt_max_bytes:
+            return
+        for i, v in enumerate(vecs):
+            payload[f"v{i}_re"] = ckpt.split_vec(v, False)[0]
+        store.save(key, payload)
 
     # ------------------------------------------------------- measurements
     def _factor_dense(self, model, op):

@@ -14,7 +14,8 @@ minimizing element g*; then
     y_i += sqrt(nu_j / nu_i) * conj(A) * sigma_{g*} * e^{-i k.R_{g*}} * x_j
 
 Images whose representative has nu = 0, or lies outside the quantum-number
-sector, are dropped.
+sector, are dropped. :func:`mopr_x_vec_repr` is the forward-scatter direction
+y = A x between two momentum sectors.
 """
 
 from __future__ import annotations
@@ -80,6 +81,19 @@ class ReprBasis(DeviceBasis):
             (row_id < self.n).reshape(self.n_blocks, self.block_rows),
             device=dev)
 
+    def from_full(self, x_full: torch.Tensor) -> torch.Tensor:
+        """Repr coefficients of a full-label-space sector-k vector.
+
+        A normalized |psi> with P_k|psi> = |psi> expands over the repr basis
+        |r,k> = P_k|r>/sqrt(nu_r) as c_r = <r,k|psi> = psi[r]/sqrt(nu_r): one
+        gather at the representative labels (see ops/translate_fullspace.py).
+        ``x_full`` runs over ALL labels of the space. Returns a normalized
+        complex128 vector over the representatives.
+        """
+        idx = self.labels_b.reshape(-1)[: self.n]
+        c = x_full[idx].to(torch.complex128) / self.sqrt_nu[: self.n]
+        return c / torch.clamp(torch.linalg.vector_norm(c), min=1e-300)
+
 
 class MatvecRepr:
     """y = H x in a momentum sector; complex128, matrix-free."""
@@ -130,3 +144,59 @@ class MatvecRepr:
             for j, valid, coef in self.images(b):
                 y[b] += (coef * x[torch.where(valid, j, 0)]).sum(dim=(1, 2))
         return (y * rb.mask_b).reshape(-1)[: self.n]
+
+
+def mopr_x_vec_repr(compiled: CompiledOperator, src: ReprBasis,
+                    dst: ReprBasis, x: torch.Tensor) -> torch.Tensor:
+    """y = A x across momentum sectors (forward scatter direction).
+
+    Port of the JAX package's moprXvec_repr (reference:
+    src/model.cc:1715-1856). ``A`` must carry a definite momentum transfer q
+    with dst.momentum = k_src - q for A = sum_x e^{-i q.x} O_x (the double
+    projection P_k' A P_k then collapses to P_k' A):
+
+        y_j = sum_i x_i sqrt(nu'_j / nu_i) sum_{m in A|r_i>}
+                  B_m sigma*_m e^{+i k'.R*_m}
+
+    Images whose representative is not in the destination basis are dropped
+    (zero norm or out of sector), matching the reference's lookup-miss
+    behavior: their contribution is zeroed before the ``index_add_`` (whose
+    order is not fixed on a CUDA device: two runs may differ in the last
+    bits).
+    """
+    space = compiled.space
+    tset = src.tset
+    dev = src.device
+    groups = [_group_device(g, dev) for g in compiled.groups]
+    cos, sin = tset.phases(dst.momentum)
+    phase = torch.as_tensor(cos - 1j * sin, device=dev)       # e^{+i k'.R}
+    diag_b = (None if compiled.diag_terms.q_zero() else
+              compile_diagonal(compiled.diag_terms, space)(src.V_b))
+    xb = src.pad_vec(x.to(device=dev, dtype=torch.complex128))
+    y = torch.zeros(dst.n, dtype=torch.complex128, device=dev)
+
+    def scatter(amp, tgt, wsrc):
+        """Add the images ``tgt`` (B, T, K), amplitude ``amp`` (JW sign
+        included), of source weights ``wsrc`` (B, 1, 1)."""
+        Vm = space.decode(tgt)
+        Fm = tset.fermion_counts(Vm) if tset.fermionic else None
+        tl, tsign = tset.transform_all(Vm, Fm)                # (B,T,K,G)
+        rmin, gstar = tl.min(dim=-1)
+        sig = tsign.gather(-1, gstar[..., None])[..., 0]
+        j, valid = dst.index.lookup_checked(rmin)
+        j = torch.where(valid, j, 0)
+        contrib = torch.where(
+            valid, sig * dst.sqrt_nu[j] * amp * phase[gstar] * wsrc, 0.0)
+        y.index_add_(0, j.reshape(-1), contrib.reshape(-1))
+
+    for b in range(src.n_blocks):
+        labels, V, F = src.labels_b[b], src.V_b[b], src.F_b[b]
+        wsrc = (xb[b] * src.inv_sqrt_nu_b[b] * src.mask_b[b])[:, None, None]
+        if diag_b is not None:
+            # diagonal terms: the image is the source state itself
+            scatter(diag_b[b][:, None, None].to(torch.complex128),
+                    labels[:, None, None], wsrc)
+        for g in groups:
+            sign, amp, tgt = _block_images(g, labels, V, F)
+            scatter(amp * sign[..., None], tgt, wsrc)
+    return y

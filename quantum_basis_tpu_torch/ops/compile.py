@@ -29,6 +29,7 @@ result is grouped by arity so the device apply is a short static loop.
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -348,3 +349,29 @@ def _joint_diag_term(slots, dims, dvals, space: StateSpace):
             factors.append(Opr(site, orb, False, ind))
         out += OprProd(dvals[c], factors)
     return out
+
+
+def operator_fingerprint(compiled: CompiledOperator) -> int:
+    """Content CRC32 of a compiled operator's term tables.
+
+    Folded into solver stage-checkpoint keys so a stale ``out_Qckpt/`` from
+    a run with DIFFERENT couplings (but the same sector dim) is ignored
+    instead of silently returned — the same re-validation discipline the
+    reference applies to cached eigenvector files
+    (src/model.cc:2163-2187), extended to every solve-stage record. The
+    value equals the JAX package's on the same model, so that checkpoint keys
+    and records are interchangeable between the packages.
+    """
+    fp = zlib.crc32(repr([g.arity for g in compiled.groups]).encode())
+    for g in compiled.groups:
+        for arr in (g.slots, g.jstrides, g.dlt, g.amp_re, g.amp_im, g.W):
+            if arr is not None:
+                fp = zlib.crc32(np.ascontiguousarray(arr).tobytes(), fp)
+    for t in compiled.diag_terms.terms:
+        fp = zlib.crc32(np.ascontiguousarray(
+            np.atleast_1d(np.complex128(t.coeff))).tobytes(), fp)
+        fp = zlib.crc32(np.ascontiguousarray(
+            t.slots(compiled.space)).tobytes(), fp)
+        for f in t.factors:
+            fp = zlib.crc32(np.ascontiguousarray(f.mat).tobytes(), fp)
+    return fp & 0xFFFFFFFF

@@ -8,27 +8,34 @@ The loop runs on the host and reads the residual norm once per iteration.
 
 Use cases match the reference: polish an eigenvector from a coarser solve
 (e.g. a mixed-precision Lanczos run) to full f64 solver tolerance, or
-recover V0/V1 from stored energies without storing Krylov bases.
-Checkpoint hooks are not ported: ``ckpt_key`` raises.
+recover V0/V1 from checkpointed energies without storing Krylov bases.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from quantum_basis_tpu_torch.utils import ckpt
 
 
 def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
-                tol: float = 2e-12, ckpt_key=None):
+                tol: float = 2e-12, ckpt_key=None, ckpt_every: int = 500):
     """Refine v0 toward the E0 eigenvector.
 
     ``matvec`` is a callable on 1-d float64/complex128 tensors. Returns
     (v, residual_norm, iterations). The residual is ||(H - E0) v|| with
     ||v|| = 1 (the reference's `accu`).
+
+    With ``ckpt_key`` set and config.enable_ckpt, the run checkpoints every
+    ``ckpt_every`` iterations (reference: the CG branch of
+    src/ckpt.cc:343-516). Only the current iterate v and the count are
+    saved: on resume CG restarts its Krylov direction from v, which the
+    reference's own restart-on-renormalize logic does periodically anyway.
     """
-    if ckpt_key is not None:
-        raise NotImplementedError(
-            "solver checkpoints are not ported yet (the checkpointing slice)")
     E0 = float(E0)
+    complex_vec = v0.is_complex()
+    store = ckpt.active_store() if ckpt_key else None
 
     def hs(x):
         """(H - E0) x."""
@@ -39,9 +46,34 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
         r = -hs(v)                                      # r = (E0 - H) v
         return v, r, r, float(torch.linalg.vector_norm(r))
 
-    v, r, p, gamma = restart(v0)
+    def save_state(m_now, vc):
+        v_re, v_im = ckpt.split_vec(vc, complex_vec)
+        store.save(ckpt_key, {"m": m_now, "E0": E0, "v_re": v_re,
+                              "v_im": v_im})
+
     m = 1
+    if store is not None:
+        rec = store.load(ckpt_key)
+        # Resume only when the record matches THIS problem: shape AND the
+        # eigenvalue it was polishing toward. A same-key record from a run
+        # with a different E0/Hamiltonian would converge to a wrong vector.
+        if (rec is not None and rec["v_re"].shape == tuple(v0.shape)
+                and abs(float(rec.get("E0", E0)) - E0)
+                <= 1e-8 * max(1.0, abs(E0))):
+            m = int(rec["m"]) + 1
+            v0 = ckpt.join_vec(rec["v_re"], rec["v_im"], complex_vec,
+                               v0.device, v0.real.dtype)
+
+    v, r, p, gamma = restart(v0)
+    done = False
+    next_save = m + ckpt_every if store is not None else np.inf
     while m < maxit:
+        if m >= next_save:
+            save_state(m, v)
+            # resuming restarts the direction: do the same now so the saved
+            # and in-memory trajectories agree (deterministic replay)
+            v, r, p, gamma = restart(v)
+            next_save = m + ckpt_every
         m += 1
         if gamma < tol:
             # done if the fresh residual is already converged, or v was
@@ -49,6 +81,7 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
             was_unit = abs(float(torch.linalg.vector_norm(v)) - 1.0) <= tol
             v, r, p, gamma = restart(v)
             if gamma < tol or was_unit:
+                done = True
                 break
             continue
         pp = hs(p)
@@ -61,5 +94,10 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
         p = r + (beta * beta) * p
         gamma = g2
 
+    if store is not None:
+        if done:
+            store.delete(ckpt_key)
+        else:
+            save_state(m, v)  # unconverged: keep for resume
     v = v / torch.linalg.vector_norm(v)
     return v, float(torch.linalg.vector_norm(hs(v))), m

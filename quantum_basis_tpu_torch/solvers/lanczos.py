@@ -22,25 +22,27 @@ src/lanczos.cc:134-266) and the routines built on it:
 
 Operators are callables ``y = op(x)`` on 1-d float64/complex128 tensors.
 The coefficients of a cycle stay on the device and are read by the host once
-per cycle. Checkpoint hooks are not ported: ``ckpt_key`` raises.
+per cycle. With ``ckpt_key`` set and ``config.enable_ckpt`` on,
+``lanczos_ground`` saves its iterate after every cycle and
+``lanczos_dynamics`` its recurrence state every ``ckpt_chunk`` steps, and
+both resume from the record (utils/ckpt.py; same record fields as the JAX
+package).
 """
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
 
+from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.config import lanczos_precision
+from quantum_basis_tpu_torch.utils import ckpt
 from quantum_basis_tpu_torch.solvers.restarted import _project_out
 from quantum_basis_tpu_torch.solvers.tridiag import tridiag_eig, tridiag_eigvals
 
 _TINY = 1e-300
-
-
-def _no_ckpt(ckpt_key):
-    if ckpt_key is not None:
-        raise NotImplementedError(
-            "solver checkpoints are not ported yet (the checkpointing slice)")
 
 
 def _step(matvec, v_prev, v_cur, b_prev, anchor, deflate):
@@ -61,19 +63,27 @@ def _step(matvec, v_prev, v_cur, b_prev, anchor, deflate):
     return w * inv, a, b
 
 
-def _first_pass(matvec, v0, deflate, inner):
-    """``inner`` steps from v0; returns the (a, b) coefficients on the host."""
-    v_prev, v_cur = torch.zeros_like(v0), v0
-    b_prev = torch.zeros((), dtype=torch.float64, device=v0.device)
+def _run_steps(matvec, v_prev, v_cur, b_prev, anchor, deflate, nsteps):
+    """``nsteps`` recurrence steps from the state (v_prev, v_cur, b_prev);
+    returns the new state and the (a, b) coefficients on the host."""
     a_l, b_l = [], []
-    for _ in range(inner):
-        v_next, a, b_prev = _step(matvec, v_prev, v_cur, b_prev, v0, deflate)
+    for _ in range(nsteps):
+        v_next, a, b_prev = _step(matvec, v_prev, v_cur, b_prev, anchor,
+                                  deflate)
         v_prev, v_cur = v_cur, v_next
         a_l.append(a)
         b_l.append(b_prev)
     if not a_l:
-        return np.zeros(0), np.zeros(0)
-    return (torch.stack(a_l).cpu().numpy(), torch.stack(b_l).cpu().numpy())
+        return v_prev, v_cur, b_prev, np.zeros(0), np.zeros(0)
+    return (v_prev, v_cur, b_prev, torch.stack(a_l).cpu().numpy(),
+            torch.stack(b_l).cpu().numpy())
+
+
+def _first_pass(matvec, v0, deflate, inner):
+    """``inner`` steps from v0; returns the (a, b) coefficients on the host."""
+    b0 = torch.zeros((), dtype=torch.float64, device=v0.device)
+    return _run_steps(matvec, torch.zeros_like(v0), v0, b0, v0, deflate,
+                      inner)[3:]
 
 
 def _second_pass(matvec, v0, s_coeff, deflate):
@@ -116,10 +126,10 @@ def lanczos_ground(
     step — the reference's "sr_val1" mode for first excited states
     (src/lanczos.cc:218-226). ``maxit`` counts matrix applications.
     """
-    _no_ckpt(ckpt_key)
     deflate = tuple(deflate)
     v0 = _project_out(v0, deflate)
     v0 = v0 / torch.linalg.vector_norm(v0)
+    complex_vec = v0.is_complex()
 
     # the residual gate: |theta - lambda| <= ||r|| for Hermitian operators,
     # so r_tol directly bounds the eigenvalue error (degeneracy-safe).
@@ -129,6 +139,19 @@ def lanczos_ground(
     best = None  # (theta, vector, explicit residual) across cycles
     used = 0
     alphas_last = betas_last = None
+    store = ckpt.active_store() if ckpt_key else None
+    if store is not None:
+        rec = store.load(ckpt_key)
+        if rec is not None and rec["v_re"].shape == tuple(v0.shape) \
+                and (rec["v_im"].shape == tuple(v0.shape)) == complex_vec:
+            real_dt = v0.real.dtype
+            v = ckpt.join_vec(rec["v_re"], rec["v_im"], complex_vec,
+                              v0.device, real_dt)
+            best = (float(rec["theta"]),
+                    ckpt.join_vec(rec["b_re"], rec["b_im"], complex_vec,
+                                  v0.device, real_dt),
+                    float(rec["rnorm"]))
+            used = int(rec["used"])
     while used < maxit:
         a_np, b_np = _first_pass(matvec, v, deflate, inner)
         # truncate at Krylov breakdown (invariant subspace reached)
@@ -156,12 +179,23 @@ def lanczos_ground(
             log(used, theta, rnorm)
         if best is None or rnorm < best[2]:
             best = (theta, v, rnorm)
+        if store is not None:
+            # capped like every per-iteration save (config.ckpt_max_bytes);
+            # the stage records still persist
+            v_re, v_im = ckpt.split_vec(v, complex_vec)
+            b_re, b_im = ckpt.split_vec(best[1], complex_vec)
+            rec = {"v_re": v_re, "v_im": v_im, "b_re": b_re, "b_im": b_im,
+                   "theta": best[0], "rnorm": best[2], "used": used}
+            if ckpt.payload_nbytes(rec) <= config.ckpt_max_bytes:
+                store.save(ckpt_key, rec)
         if r_tol_abs is None:
             r_tol_abs = max(1e3 * tol * max(abs(theta), 1.0), 5e-10)
         if rnorm < r_tol_abs:
             break
 
     theta, v, rnorm = best
+    if store is not None and r_tol_abs is not None and rnorm < r_tol_abs:
+        store.delete(ckpt_key)
     out = {
         "E0": theta,
         "niter": used,
@@ -175,15 +209,65 @@ def lanczos_ground(
     return out
 
 
-def lanczos_dynamics(matvec, v_start, m_steps: int, ckpt_key=None):
+def lanczos_dynamics(matvec, v_start, m_steps: int, ckpt_key=None,
+                     ckpt_chunk: int = 64):
     """Fixed-step Lanczos recording (alphas, betas) — the "dnmcs" mode used
     for continued-fraction dynamical correlation functions
     (reference: model::measure_full_dynamic, src/model.cc:1696-1712).
 
     ``v_start`` must be normalized by the caller (its norm enters S(q,w)).
+    With ``ckpt_key`` set and config.enable_ckpt, the run checkpoints every
+    ``ckpt_chunk`` steps: the carried state is just (v_prev, v_cur, b) plus
+    the coefficients so far, the same record the reference's "dnmcs"
+    checkpoint writes (src/ckpt.cc:13-340), and resumes mid-run.
     """
-    _no_ckpt(ckpt_key)
-    return _first_pass(matvec, v_start, (), m_steps)
+    store = ckpt.active_store() if ckpt_key else None
+    if store is None:
+        return _first_pass(matvec, v_start, (), m_steps)
+
+    complex_vec = v_start.is_complex()
+    real_dt = v_start.real.dtype
+    k = 0
+    alphas, betas = np.zeros(0), np.zeros(0)
+    v_prev, v_cur = torch.zeros_like(v_start), v_start
+    b_prev = torch.zeros((), dtype=torch.float64, device=v_start.device)
+    # Fingerprint of the start vector: a same-key record from a run against
+    # a different source vector (same dim) must not be resumed, because the
+    # a/b coefficients would describe a different resolvent.
+    s_re, s_im = ckpt.split_vec(v_start, complex_vec)
+    v_fp = zlib.crc32(s_re.tobytes())
+    if complex_vec:
+        v_fp = zlib.crc32(s_im.tobytes(), v_fp)
+    rec = store.load(ckpt_key)
+    if rec is not None and rec["v_cur_re"].shape == tuple(v_start.shape) \
+            and int(rec["m_steps"]) == m_steps \
+            and int(rec.get("v_fp", v_fp)) == v_fp:
+        k = int(rec["k"])
+        alphas, betas = np.asarray(rec["alphas"]), np.asarray(rec["betas"])
+        v_prev = ckpt.join_vec(rec["v_prev_re"], rec["v_prev_im"],
+                               complex_vec, v_start.device, real_dt)
+        v_cur = ckpt.join_vec(rec["v_cur_re"], rec["v_cur_im"], complex_vec,
+                              v_start.device, real_dt)
+        b_prev = torch.as_tensor(float(rec["b_prev"]), dtype=torch.float64,
+                                 device=v_start.device)
+
+    while k < m_steps:
+        n = min(ckpt_chunk, m_steps - k)
+        v_prev, v_cur, b_prev, a_np, b_np = _run_steps(
+            matvec, v_prev, v_cur, b_prev, v_start, (), n)
+        alphas = np.concatenate([alphas, a_np])
+        betas = np.concatenate([betas, b_np])
+        k += n
+        if k < m_steps:
+            pr, pi = ckpt.split_vec(v_prev, complex_vec)
+            cr, ci = ckpt.split_vec(v_cur, complex_vec)
+            store.save(ckpt_key, {
+                "k": k, "m_steps": m_steps, "b_prev": float(b_prev),
+                "v_fp": v_fp, "alphas": alphas, "betas": betas,
+                "v_prev_re": pr, "v_prev_im": pi,
+                "v_cur_re": cr, "v_cur_im": ci})
+    store.delete(ckpt_key)
+    return alphas, betas
 
 
 def energy_scale(matvec, v0, m_steps: int = 128, slack: float = 0.1):

@@ -15,18 +15,35 @@ Operators are callables ``y = op(x)`` on 1-d tensors with attributes
 ``is_complex``. A full-label-space solve passes the 0/1 sector ``mask``:
 every start vector and every injected restart vector is multiplied by it on
 the device and renormalized, so that no out-of-sector noise enters the
-Krylov space. Checkpointing and the ``project_host`` hook of the projected
-momentum engines are not ported.
+Krylov space. An operator with a ``project(x)`` method (the projected
+momentum engines: quantum-number mask, then P_k, then renormalise) is asked
+instead, and its projection takes precedence over ``mask``; it runs on the
+device, on the float64 start vector before that is cast to the working
+precision, like the JAX package's host-side hook.
+
+With ``ckpt_key`` set and ``config.enable_ckpt`` on, the restart-boundary
+state (basis, projected matrix, counters) is saved at most every
+``_SAVE_PERIOD`` seconds and restored on re-entry: the reference's
+Lanczos-step-level checkpointing (src/ckpt.cc:13-340) at restart granularity.
 """
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
+from quantum_basis_tpu_torch import config
+from quantum_basis_tpu_torch.utils import ckpt
 from quantum_basis_tpu_torch.utils.rng import vec_randomize
 
 _BREAKDOWN = 1e-13
+# Seconds between two restart-boundary saves: a save copies the whole basis
+# to the host and writes it out, so it is spaced; a crash then loses at most
+# this much progress plus one restart cycle. The JAX package's value.
+_SAVE_PERIOD = 60.0
 
 
 def _vec_dtype(real_dtype, complex_vec: bool):
@@ -57,6 +74,10 @@ class DeflatedMatvec:
         self.dtype = base.dtype
         self.device = base.device
         self.is_complex = base.is_complex
+        # forward the sector projection, so that the restarts of the
+        # deflate-and-verify pass stay inside the sector
+        if getattr(base, "project", None) is not None:
+            self.project = base.project
 
     def __call__(self, x):
         px = _project_out(x, self.vecs)
@@ -135,9 +156,30 @@ def _masked(x, mask):
     return x / torch.clamp(torch.linalg.vector_norm(x), min=1e-300)
 
 
+def _projected(matvec, x, mask):
+    """x inside the sector and renormalized: by the operator's own
+    ``project`` (the momentum engines) when it has one, else by the mask."""
+    project = getattr(matvec, "project", None)
+    return project(x) if project is not None else _masked(x, mask)
+
+
+def _solver_log(purpose, it, theta, resid):
+    """Per-restart convergence line (reference: log_Lanczos_<purpose>.txt,
+    src/lanczos.cc:102-128); enabled by config.solver_log_dir."""
+    if not config.solver_log_dir:
+        return
+    os.makedirs(config.solver_log_dir, exist_ok=True)
+    path = os.path.join(config.solver_log_dir, f"log_{purpose}.txt")
+    with open(path, "a") as f:
+        th = " ".join(f"{t:.12f}" for t in theta)
+        rs = " ".join(f"{r:.3e}" for r in resid)
+        stamp = time.strftime("%H:%M:%S")
+        f.write(f"{stamp} [{os.getpid()}] {it:8d}  theta: {th}  resid: {rs}\n")
+
+
 def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
-                  complex_vec=False, which="SA", deg_tol=1e-9, mask=None,
-                  v0=None, verify_degenerate=True):
+                  complex_vec=False, which="SA", deg_tol=1e-9, ckpt_key=None,
+                  mask=None, v0=None, verify_degenerate=True):
     """nev smallest ('SA') or largest ('LA') eigenpairs of a Hermitian matvec.
 
     Returns (eigenvalues list, eigenvectors list of 1-d tensors of the
@@ -150,7 +192,8 @@ def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
     start is wanted (the f32 bulk stage).
     """
     vals, vecs = _eigs_core(matvec, n, nev, ncv, maxit, tol, seed,
-                            complex_vec, which, mask=mask, v0=v0)
+                            complex_vec, which, ckpt_key=ckpt_key, mask=mask,
+                            v0=v0)
     sgn = 1.0 if which == "SA" else -1.0
     guard = 0
     while verify_degenerate and len(vals) >= nev and guard < 8:
@@ -176,22 +219,42 @@ def eigs_smallest(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
 
 
 def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
-               complex_vec=False, which="SA", mask=None, v0=None):
-    """Thick-restart Lanczos core (single starting vector)."""
+               complex_vec=False, which="SA", ckpt_key=None, mask=None,
+               v0=None):
+    """Thick-restart Lanczos core (single starting vector).
+
+    A checkpoint record is accepted only when its basis has this solve's
+    shape, precision and complex structure; one that does not fit is ignored
+    and the solve starts from its start vector.
+    """
     ncv = int(min(max(ncv, nev + 2), n))
     rows = ncv + 1
     Hm = np.zeros((rows, rows), dtype=np.complex128)
     kry = _Krylov(matvec, n, ncv, complex_vec)
     if v0 is not None:
-        x = _masked(v0.to(device=kry.V.device, dtype=torch.complex128
-                          if complex_vec else torch.float64), mask)
+        x = _projected(matvec, v0.to(
+            device=kry.V.device, dtype=torch.complex128
+            if complex_vec else torch.float64), mask)
         kry.V[0] = (x / torch.linalg.vector_norm(x)).to(kry.dtype)
     else:
-        kry.V[0] = _masked(torch.as_tensor(_host_vec(
+        kry.V[0] = _projected(matvec, torch.as_tensor(_host_vec(
             *vec_randomize(n, seed=seed, complex_valued=complex_vec),
             complex_vec), device=kry.V.device), mask).to(kry.dtype)
     m = 0
     it = 0
+    store = ckpt.active_store() if ckpt_key else None
+    if store is not None:
+        rec = store.load(ckpt_key)
+        real_np = np.float32 if matvec.dtype == torch.float32 else np.float64
+        if (rec is not None and rec["Vre"].shape == (rows, n)
+                and rec["Vre"].dtype == real_np
+                and (rec["Vim"].shape == (rows, n)) == bool(complex_vec)):
+            kry.V.copy_(ckpt.join_vec(rec["Vre"], rec["Vim"], complex_vec,
+                                      kry.V.device))
+            Hm = rec["Hm"].astype(np.complex128)
+            m = int(rec["m"])
+            it = int(rec["it"])
+    last_save = 0.0  # monotonic time of the last restart-boundary save
     rng_seed = seed + 101
     sort_sign = 1.0 if which == "SA" else -1.0
 
@@ -211,7 +274,7 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
             if stop < ncv:
                 # invariant subspace at step `stop`: inject a random
                 # orthogonal direction and resume
-                r = _masked(torch.as_tensor(_host_vec(
+                r = _projected(matvec, torch.as_tensor(_host_vec(
                     *vec_randomize(n, seed=rng_seed,
                                    complex_valued=complex_vec),
                     complex_vec), device=kry.V.device), mask)
@@ -227,6 +290,8 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         theta = sort_sign * theta
         coup = Hm[mm, :mm] if mm < rows else np.zeros(mm)
         resid = np.abs(coup @ S)
+        _solver_log("lanczos", it, theta[: min(nev, mm)],
+                    resid[: min(nev, mm)])
         scale = max(np.max(np.abs(theta)), 1.0)
         nconv = 0
         for i in range(min(nev, mm)):
@@ -239,6 +304,8 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
             Spad = np.zeros((rows, keep), dtype=np.complex128)
             Spad[:mm] = S[:, :keep]
             Y = kry.compact(Spad if complex_vec else Spad.real, m)
+            if store is not None:
+                store.delete(ckpt_key)
             return theta[:keep].tolist(), [Y[i].clone() for i in range(keep)]
 
         # thick restart: keep best `keep` Ritz vectors + current residual dir
@@ -253,4 +320,16 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         Hm[keep, :keep] = np.conj(u)
         Hm[:keep, keep] = u
         m = keep
+        if store is not None and time.monotonic() - last_save > _SAVE_PERIOD:
+            # spaced in time and capped in size (config.ckpt_max_bytes): past
+            # the cap the in-progress record is skipped; the stage and
+            # completion records still persist, so a crash redoes at most
+            # this stage
+            if kry.V.numel() * kry.V.element_size() <= config.ckpt_max_bytes:
+                vre, vim = ckpt.split_vec(kry.V, complex_vec)
+                store.save(ckpt_key, {
+                    "Vre": vre,
+                    "Vim": vim if complex_vec else np.zeros((1, 1)),
+                    "Hm": Hm, "m": m, "it": it})
+            last_save = time.monotonic()
     raise RuntimeError(f"thick-restart Lanczos failed to converge in {maxit} steps")

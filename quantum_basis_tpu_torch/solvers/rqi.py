@@ -12,14 +12,21 @@ precision:
   solve early with a partial correction.
 
 The update x <- normalize(x - t) is applied in f64, so the attainable
-residual is set by the f64 outer evaluation. All vectors stay on the device.
+residual is set by the f64 outer evaluation. All vectors stay on the device
+(the JAX package parks them on the host between phases to fit a 16 GB TPU);
+with ``ckpt_key`` set and ``config.enable_ckpt`` on, the iterate is copied to
+the host and saved after every outer evaluation and after every correction,
+and a rerun resumes from the record.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.config import lanczos_precision
+from quantum_basis_tpu_torch.utils import ckpt
 
 _TINY = 1e-300
 _CHECK_EVERY = 16  # inner CG steps between host checks of the stop flag
@@ -76,15 +83,32 @@ def _inner(fs32, x, b, theta, nsteps):
     return t, float(torch.sqrt(rs)), int(k), bn
 
 
+def _save_capped(store, key, best, x, outer, complex_vec, pending):
+    """Save the iterate to resume from (x_*) and the best evaluated iterate
+    (best_*) as separate fields; ``pending`` marks x_* as not yet evaluated,
+    so the metadata never claims best's residual for it. Skipped past
+    config.ckpt_max_bytes (the stage records still persist, so a crash then
+    redoes this stage only)."""
+    x_re, x_im = ckpt.split_vec(x, complex_vec)
+    b_re, b_im = ckpt.split_vec(best[2], complex_vec)
+    payload = {"x_re": x_re, "x_im": x_im, "outer": outer,
+               "pending": bool(pending), "best_re": b_re, "best_im": b_im,
+               "best_theta": best[1], "best_rnorm": best[0]}
+    if ckpt.payload_nbytes(payload) <= config.ckpt_max_bytes:
+        store.save(key, payload)
+
+
 def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
-               inner: int = 240, inner_max: int = 1920):
+               inner: int = 240, inner_max: int = 1920, ckpt_key=None,
+               log=None):
     """Polish eigenpair ``v0`` of ``fs64`` to f64 residual tolerance.
 
     fs64/fs32: the same operator in float64 and float32 working precision
     (callables with ``dtype``/``device``/``is_complex``).
 
     Returns dict with E0, vector, residual (exact f64 ||Hx - E0 x||),
-    converged, n_outer, n_inner (total f32 applies).
+    converged, n_outer, n_inner (total f32 applies). ``log(outer, theta,
+    residual, inner steps)`` is called after every outer evaluation.
     """
     complex_vec = v0.is_complex() or fs64.is_complex
     dt64 = torch.complex128 if complex_vec else torch.float64
@@ -94,13 +118,35 @@ def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
     cur_inner = int(inner)
     prev_rn = None
     best = None  # (rnorm, theta, x)
-    it = 0
-    for it in range(max_outer):
+    n_outer0 = 0
+    store = ckpt.active_store() if ckpt_key else None
+    if store is not None:
+        rec = store.load(ckpt_key)
+        if rec is not None and rec["x_re"].shape == tuple(x.shape) \
+                and (rec["x_im"].shape == tuple(x.shape)) == complex_vec:
+            x = ckpt.join_vec(rec["x_re"], rec["x_im"], complex_vec,
+                              fs64.device, torch.float64)
+            n_outer0 = min(int(rec["outer"]), max_outer - 1)
+            # best travels apart from the (possibly unevaluated) pending
+            # iterate: if a correction diverged before the crash, the resume
+            # evaluates the pending x but can still fall back to best
+            if "best_re" in rec:
+                best = (float(rec["best_rnorm"]), float(rec["best_theta"]),
+                        ckpt.join_vec(rec["best_re"], rec["best_im"],
+                                      complex_vec, fs64.device,
+                                      torch.float64))
+    it = n_outer0
+    for it in range(n_outer0, max_outer):
         theta, x, r, rn = _outer(fs64, x)
         if tol is None:
             tol = max(1e3 * lanczos_precision * max(abs(theta), 1.0), 5e-10)
+        if log is not None:
+            log(it, theta, rn, cur_inner)
         if best is None or rn < best[0]:
             best = (rn, theta, x)
+        if store is not None:
+            _save_capped(store, ckpt_key, best, best[2], it + 1, complex_vec,
+                         pending=False)
         if rn < tol:
             break
         if prev_rn is not None and rn > 0.5 * prev_rn:
@@ -111,12 +157,21 @@ def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
         n_inner_tot += k
         # x <- x - t*||b|| (t solved against the normalized rhs)
         x = x - bn * t.to(dt64)
+        if store is not None:
+            # persist the UPDATED iterate at once: a crash between the inner
+            # solve and the next outer evaluation must not lose the correction
+            _save_capped(store, ckpt_key, best, x, it + 1, complex_vec,
+                         pending=True)
     rn, theta, x = best
+    converged = bool(rn < (tol if tol is not None else np.inf))
+    if store is not None and converged:
+        store.delete(ckpt_key)
     return {
         "E0": theta,
         "vector": x,
         "residual": rn,
-        "converged": bool(rn < tol),
+        "residual_bound": rn,
+        "converged": converged,
         "n_outer": it + 1,
         "n_inner": n_inner_tot,
     }

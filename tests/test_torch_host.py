@@ -86,7 +86,14 @@ def test_random_start_equal(complex_valued):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, quantum_basis_tpu_torch, quantum_basis_tpu_torch.interop; "
+    mods = ["quantum_basis_tpu_torch", "quantum_basis_tpu_torch.interop",
+            "quantum_basis_tpu_torch.lattice.tilted",
+            "quantum_basis_tpu_torch.basis.weisse",
+            "quantum_basis_tpu_torch.basis.io",
+            "quantum_basis_tpu_torch.utils.ckpt",
+            "quantum_basis_tpu_torch.ops.translate_fullspace",
+            "quantum_basis_tpu_torch.solvers.cg"]
+    code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,12 +101,23 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    from quantum_basis_tpu_torch import config
+    """What waits for a later slice raises and names it; checkpointing and
+    the streaming enumeration no longer do."""
+    from quantum_basis_tpu_torch import Lattice, Model, config
 
-    with pytest.raises(NotImplementedError):
-        config.initialize(enable_checkpoint=True)
+    try:
+        config.initialize(enable_checkpoint=True, quiet=True)
+        assert config.enable_ckpt is True
+    finally:
+        config.initialize(enable_checkpoint=False, quiet=True)
+    assert config.enable_ckpt is False
     m, _ = tz.heisenberg_chain(4)
-    with pytest.raises(NotImplementedError):
+    assert m.enumerate_basis_repr([0], method="dnc") == 6
+    with pytest.raises(NotImplementedError, match="vrnl"):
         m.locate_E0_lanczos(which="vrnl")
-    with pytest.raises(NotImplementedError):
-        m.enumerate_basis_repr([0], method="dnc")
+    with pytest.raises(NotImplementedError, match="dynamics"):
+        m.measure_repr_dynamic()
+    with pytest.raises(NotImplementedError, match="dynamics"):
+        m.locate_Es()
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Model(Lattice("chain", [4], ["pbc"]), device="cpu", mesh=object())

@@ -254,13 +254,16 @@ def test_measure_product_static_matches_jax():
     assert abs(pt.measure_product_static(nt, nt) - direct) < 1e-8
 
 
-def test_unported_product_routes_name_their_slice(monkeypatch):
+def test_unported_product_routes_name_their_slice(monkeypatch, tmp_path):
     ms = tz.hubbard_factor(2, 2, 2)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ProductModel(ms, mesh=object())
     pm = ProductModel(ms)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         pm.set_mesh(object())
+    # checkpointing is ported: it writes a stage record instead of raising
+    # (tests/test_torch_ckpt.py covers the records)
     monkeypatch.setattr(config, "enable_ckpt", True)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        pm.locate_E0_lanczos()
+    monkeypatch.setattr(config, "ckpt_dir", str(tmp_path))
+    e0 = pm.locate_E0_lanczos()
+    assert np.isfinite(e0) and len(list(tmp_path.iterdir())) == 1

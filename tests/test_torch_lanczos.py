@@ -159,14 +159,26 @@ def test_eigenvec_cg_matches_jax(name):
         np.testing.assert_allclose(ti, np.asarray(vj[1]), rtol=0, atol=1e-9)
 
 
-def test_checkpoint_hooks_raise():
+def test_checkpoint_hooks_raise(tmp_path, monkeypatch):
+    """The checkpoint hooks are ported (tests/test_torch_ckpt.py): a
+    ``ckpt_key`` raises nowhere. With checkpointing off it writes nothing and
+    changes nothing; with it on, a finished run leaves no record behind."""
+    from quantum_basis_tpu_torch import config
+
+    monkeypatch.setattr(config, "ckpt_dir", str(tmp_path))
     mt, ot = tz.heisenberg_chain(8)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
     mv = mt.sec_full[0].matvec
     x = vec_from_split(vec_randomize(mv.n, seed=1)[0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        lanczos_ground(mv, x, ckpt_key="k")
-    with pytest.raises(NotImplementedError):
-        lanczos_dynamics(mv, x, 4, ckpt_key="k")
-    with pytest.raises(NotImplementedError):
-        eigenvec_cg(mv, -3.0, x, ckpt_key="k")
+    x = x / torch.linalg.vector_norm(x)
+    ref = lanczos_ground(mv, x)
+    a_ref, b_ref = lanczos_dynamics(mv, x, 4)
+    for on in (False, True):
+        monkeypatch.setattr(config, "enable_ckpt", on)
+        assert lanczos_ground(mv, x, ckpt_key="k")["E0"] == ref["E0"]
+        a, b = lanczos_dynamics(mv, x, 4, ckpt_key="k")
+        np.testing.assert_allclose(a, a_ref, rtol=0, atol=1e-14)
+        np.testing.assert_allclose(b, b_ref, rtol=0, atol=1e-14)
+        _, res, _ = eigenvec_cg(mv, ref["E0"], ref["vector"], ckpt_key="k")
+        assert res < 1e-9
+        assert not tmp_path.exists() or list(tmp_path.iterdir()) == []

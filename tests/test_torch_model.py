@@ -1,5 +1,11 @@
-"""The port's momentum-sector ground-state slice end to end, against the JAX
-package and the reference goldens (BASELINE.md).
+"""The port's explicit momentum-sector route (ELL, BSR kernel) end to end,
+against the JAX package and the reference goldens (BASELINE.md).
+
+Both packages solve these sectors as P_k H in the full label space by
+default (tests/test_torch_model_repr_fs.py); here that engine is switched
+off in both, as tests/test_pallas_bsr.py does for the JAX package, so that
+the explicit route, which a tilted cluster or a large blowup takes, is
+driven on the chain.
 
 chain-16 k=0 Sz=0 through ``Model.enumerate_basis_repr`` ->
 ``locate_E0_lanczos(which="repr")`` -> ``measure_repr_static``: E0 =
@@ -18,6 +24,7 @@ from quantum_basis_tpu import config as jax_config
 from quantum_basis_tpu.models.model import Model as JaxModel
 from quantum_basis_tpu.ops.operators import Opr as JaxOpr
 from quantum_basis_tpu_torch import config
+from quantum_basis_tpu_torch.models.model import Model
 from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
 from quantum_basis_tpu_torch.ops.sparse import EllMatrix
 
@@ -34,6 +41,13 @@ def _jax_chain(L, k, monkeypatch, prefer_bsr):
     m, c = jz.heisenberg_chain(L)
     m.enumerate_basis_repr([k], [c["Sz"]], [0.0])
     return m
+
+
+@pytest.fixture(autouse=True)
+def _explicit_route(monkeypatch):
+    """The port's projected full-space engine off: the explicit route."""
+    monkeypatch.setattr(Model, "_fullspace_repr_op",
+                        lambda self, sector, max_blowup=256.0, dtype=None: None)
 
 
 def _jax_sz01(m):

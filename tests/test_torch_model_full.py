@@ -221,7 +221,7 @@ def test_measure_full_static_chained_list(jax_sector_route):
     assert abs(e0.real - mj.eigenvals_full[0]) < 1e-9
 
 
-def test_unported_routes_name_their_slice(monkeypatch):
+def test_unported_routes_name_their_slice(monkeypatch, tmp_path):
     mt, ot = tz.heisenberg_chain(8)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
     for call, word in (
@@ -230,16 +230,17 @@ def test_unported_routes_name_their_slice(monkeypatch):
             (lambda: mt.locate_Es(-1.0, 0.0), "spectra"),
             (lambda: mt.measure_full_dynamic(None, 0, 0, 10), "dynamics"),
             (lambda: mt.measure_repr_dynamic(None, 0, 0, 10), "dynamics"),
-            (lambda: mt._fullspace_repr_op(mt.sec_full[0]),
-             "projected momentum-engine"),
             (lambda: qt.Model(mesh=object()), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=word):
             call()
     with pytest.raises(ValueError):
         mt.locate_E0_lanczos("half")
+    # checkpointing is ported (tests/test_torch_ckpt.py): no raise; a dense
+    # sector writes no record
     monkeypatch.setattr(config, "enable_ckpt", True)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        mt.locate_E0_lanczos()
+    monkeypatch.setattr(config, "ckpt_dir", str(tmp_path))
+    mt.locate_E0_lanczos()
+    assert not list(tmp_path.iterdir())
 
 
 def test_exports_follow_the_jax_package():

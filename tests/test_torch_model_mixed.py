@@ -179,8 +179,8 @@ def test_mixed_precision_reaches_f64_e0(branch, monkeypatch):
     calls = []
     real_rqi = model_mod.rqi_polish
 
-    def spy_rqi(fs64, v0, fs32):
-        out = real_rqi(fs64, v0, fs32=fs32)
+    def spy_rqi(fs64, v0, fs32, **kw):
+        out = real_rqi(fs64, v0, fs32=fs32, **kw)
         calls.append(out)
         if branch == "lanczos_ground":  # RQI reports a stall
             out = dict(out, converged=False,
@@ -232,7 +232,7 @@ def test_polish_gate_raises_when_starved(monkeypatch):
         lambda fs_, x, **kw: real_ground(fs_, x, **{**kw, "inner": 10}))
     v0 = torch.as_tensor(vec_randomize(fs.N, seed=3)[0])
     with pytest.raises(RuntimeError, match="unconverged") as ei:
-        model_mod.Model._solve_fullspace(fs, 1, 12, 1, 1, False, v0)
+        model_mod.Model._solve_fullspace(fs, 1, 12, 1, 1, False, None, v0)
     assert ei.value.residual >= _gate(ei.value.E0)
     assert E0_CHAIN16 - 1e-6 < ei.value.E0 < 0.0
 

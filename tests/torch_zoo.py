@@ -7,9 +7,21 @@ test can run one model through both packages. Imports nothing of JAX.
 
 from __future__ import annotations
 
-import numpy as np
+import os
 
-from quantum_basis_tpu_torch import Lattice, Model, Mopr, Opr, ProductModel
+import numpy as np
+import torch
+
+from quantum_basis_tpu_torch import (Lattice, Model, Mopr, Opr, ProductModel,
+                                     TiltedLattice)
+
+# Under pytest-xdist several test processes run side by side. With PyTorch's
+# default of one intra-op thread per core each of them starts a full OpenMP
+# team for every small CPU op, and the teams spin against one another: the
+# projected chain-16 solve then takes minutes instead of seconds. One thread
+# per worker is the fastest setting for the small shapes tested there.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 SP_HALF = {
     "Sz": np.array([0.5, -0.5]),
@@ -348,3 +360,68 @@ def hubbard_factorized(Lx, Ly, t=1.0, U=1.1, Nup=None, Ndn=None,
     pairs = [(site_occupation(s), site_occupation(s))
              for s in range(Lx * Ly)]
     return ProductModel(mu, md, coupling=pairs, coupling_scale=U), mu
+
+
+def _fold(coor, A):
+    """Integer coordinates folded into the supercell of the rows of A."""
+    alpha = np.asarray(coor) @ np.linalg.inv(np.asarray(A, dtype=float))
+    return tuple(np.asarray(coor) - np.floor(alpha + 1e-12).astype(int)
+                 @ np.asarray(A))
+
+
+def tilted_cosets(A):
+    """Coset representatives of Z^2 / A Z^2 (A's rows span the
+    superlattice): scan a box, keep coordinates with distinct folded values
+    (as tests/test_tilted.py::_tilted_square_5)."""
+    A = np.asarray(A)
+    n = int(round(abs(np.linalg.det(A))))
+    r = int(np.abs(A).sum())
+    seen, out = set(), []
+    for x in range(-r, r + 1):
+        for y in range(-r, r + 1):
+            c0 = _fold([x, y], A)
+            if c0 not in seen:
+                seen.add(c0)
+                out.append([x, y])
+                if len(out) == n:
+                    return out
+    raise AssertionError("failed to enumerate cosets")
+
+
+def tilted_momenta(A):
+    """One integer momentum per character of Z^2 / A Z^2: m and m' give the
+    same phases e^{2 pi i m.(R A^-1)} iff m - m' is an integer combination
+    of A's columns, so these are the cosets of the rows of A^T."""
+    return tilted_cosets(np.asarray(A).T)
+
+
+def tilted_heisenberg_with(TiltedLattice, Model, Opr, Mopr, A, **model_kw):
+    """Spin-1/2 nearest-neighbour Heisenberg model on the tilted square
+    cluster with superlattice rows A (|det A| sites), built with the given
+    package's classes. Returns (model, {"Sz": total Sz})."""
+    lat = TiltedLattice(2, 1, np.eye(2), np.asarray(A), [[0.0, 0.0]],
+                        [(c, 0) for c in tilted_cosets(A)])
+    m = Model(lat, **model_kw)
+    m.add_orbital(lat.n_sites, "spin-1/2")
+    bonds = set()
+    for s in range(lat.n_sites):
+        coor, sub = lat.site2coor(s)
+        for d in ((1, 0), (0, 1)):
+            j = lat.coor2site([coor[0] + d[0], coor[1] + d[1]], sub)
+            bonds.add((min(s, j), max(s, j)))
+    sz = Mopr()
+    for i, j in sorted(bonds):
+        m.add_Ham(0.5 * (Opr(i, 0, False, SP_HALF["Sp"])
+                         * Opr(j, 0, False, SP_HALF["Sm"])
+                         + Opr(i, 0, False, SP_HALF["Sm"])
+                         * Opr(j, 0, False, SP_HALF["Sp"])))
+        m.add_Ham(Opr(i, 0, False, SP_HALF["Sz"])
+                  * Opr(j, 0, False, SP_HALF["Sz"]))
+    for s in range(lat.n_sites):
+        sz += Opr(s, 0, False, SP_HALF["Sz"])
+    return m, {"Sz": sz}
+
+
+def tilted_heisenberg(A, device="cpu"):
+    return tilted_heisenberg_with(TiltedLattice, Model, Opr, Mopr, A,
+                                  device=device)
