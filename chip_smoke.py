@@ -74,17 +74,44 @@ Phases (any failure raises, so the exit code is nonzero):
    same E0 (1e-10), fewer matvecs than the cold run, the restart record
    deleted; a further locate_E0_lanczos() returns from the stage record
    without a matvec; prints save seconds and bytes; removes the directory;
-10. prints the kernel record, the card line, and as the last line
+10. dynamics and spectra through the Model entry points: (a) S(q, w) of the
+   tilted cluster of phase 4b from its ground-state sector k = (-12, -4), at
+   all 20 q (A = Sz(q), target sector k - q): measure_repr_dynamic_kpm with
+   192 moments and bounds from energy_scale, both on the f32 BSR kernel (no
+   target sector has a full-space engine): each engine a float32 BsrMatrix
+   that was launched, norm 0 at q = 0, sum_q norm_q^2 = N/4 = 5 (1e-10),
+   mu_0 = 1 (1e-6), |mu_n| <= 1 + 1e-5, for two q the moments of
+   chebyshev.kpm_moments on the f64 ELL with the same bounds (5e-5), and
+   measure_repr_dynamic (40 steps) the same norm (1e-12); (b) the flagship
+   benchmarks/flagship_kagome24_sqw.py at N = 2^24: the 8 q of the cell zone
+   from phase 8's k0 = (0,2) ground state, 192 moments each on the float64
+   P_k H engine (config.kpm_fullspace_max_N = 2^24, as the flagship sets it)
+   with the shared bounds of SQW_kagome24.json: norms within 1e-7 and
+   moments within 1e-4 of that file, sum_q norm^2 = 0.8044558613240673
+   (1e-7), |mu_n| <= 1 + 1e-9, the target sector k = (0,0)'s own
+   energy_scale bounds (slack 0.05) inside the shared ones, and three
+   applies of its MatvecRepr timed; (c) measure_full_dynamic (40 steps) of
+   Sz(q) at all 24 q of chain L=24 Sz=0 on phase 5's ELL: norm 0 at q = 0,
+   sum_q norm_q^2 = L/4 = 6 (1e-10), for two q norm_q^2 =
+   sum_r e^(-iqr) <Sz_0 Sz_r> from measure_full_static (translation-averaged
+   correlators, 1e-9), and one q
+   through measure_full_dynamic_kpm, whose S(q, w) (sqw_kpm) integrates to
+   norm^2 within 2%; (d) locate_Es on chain-16 Sz=0 (dim 12,870, ELL) with a
+   window of its lowest 3-6 levels: the eigenvalues of the dense sector
+   matrix (eigvalsh on the card) to 1e-9, residuals under 1e-6. Prints
+   seconds per q, ms per apply, moments per second and peak memory;
+11. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-Phases 8 and 9 run before phase 7, whose 4x4 solve is the one part that is
-capped when the script would pass its budget.
+Phases 8, 9 and 10 run before phase 7, whose 4x4 solve is the one part that
+is capped when the script would pass its budget.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-10, windows
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-11, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
-P_k H apply at N = 2^24 on both; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
+P_k H apply at N = 2^24 on both; one q of the tilted cluster's KPM S(q, w) on
+the BSR kernel; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
 device-busy time, idle share and its three longest device operations, then
 times the matrix-free apply
 at three row-block budgets; it prints no result line.
@@ -114,6 +141,7 @@ E0_KAGOME24 = -10.759897248084
 E0_KAGOME24_K00 = -10.70614979406   # k = (0, 0), dim 338,376
 KAGOME24_DIMS = {(0, 2): 338356, (0, 0): 338376}
 TILTED_A = [[4, 2], [-2, 4]]        # 20-site tilted square cluster
+TILTED_K_GS = (-12, -4)             # its ground-state sector (phase 4b)
 TILTED_DIM = 184756                 # C(20, 10)
 E0_HUBBARD_4X2 = -14.07605866
 E0_HUBBARD_4X4 = -20.497352266554
@@ -128,6 +156,13 @@ HUBBARD4X4_F32_APPLIES = 534
 HUBBARD4X4_F64_APPLIES = 3
 KAGOME_GOLDEN = {(0, 0): -15.41931496, (0, 1): -14.40277723,
                  (1, 0): -14.40277723, (1, 1): -14.40277723}
+# phase 10: the moments and continued-fraction steps of the JAX package's
+# scripts (benchmarks/flagship_kagome24_sqw.py, examples/chain_dynamics_sqw.py)
+# and the shared spectral bounds and norm sum of SQW_kagome24.json
+KPM_MOMENTS = 192
+CF_STEPS = 40
+SQW_BOUNDS = (-12.964242089650671, 13.487894943231652)
+SQW_NORM2_SUM = 0.8044558613240673
 
 
 def card_line() -> str:
@@ -291,8 +326,9 @@ def kernel_checks(bsr_mod, dev):
 
 def slice_run(bsr_mod, dev):
     """Phase 4: the momentum-sector route through the public Model API.
-    Returns the kernel's launches on the tilted-cluster path and the
-    chain-20 k=0 energy."""
+    Returns the kernel's launches on the tilted-cluster path, the chain-20
+    k=0 energy and, for phase 10a, the tilted model with its ground-state
+    sector's momentum and energy."""
     from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
     from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
     from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
@@ -401,7 +437,8 @@ def slice_run(bsr_mod, dev):
                              "BSR kernel")
     print("bsr_spmv launches on the tilted-cluster path:", launches,
           flush=True)
-    return launches, e0_chain20
+    tilted = (mt, opt, tilted_momenta(TILTED_A)[k_min], e0s[k_min])
+    return launches, e0_chain20, tilted
 
 
 def _timed(fn):
@@ -932,7 +969,9 @@ def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
 
 
 def momentum_run(bsr_mod, dev, wide, t_start):
-    """Phase 8: momentum sectors at N = 2^24 on the models of phases 5-6."""
+    """Phase 8: momentum sectors at N = 2^24 on the models of phases 5-6.
+    Returns the kagome k=(0,2) sector with its ground state, without its
+    engines, for phase 10b."""
     (ctag, chain, csz, crec, _), (ktag, kagome, ksz, _, _) = wide
     momentum_sector(dev, ctag, chain, csz, (0,), None, crec["E0_ell"], 1e-9,
                     True, t_start)
@@ -944,11 +983,13 @@ def momentum_run(bsr_mod, dev, wide, t_start):
     first = momentum_sector(dev, ktag, kagome, ksz, (0, 2),
                             KAGOME24_DIMS[(0, 2)], E0_KAGOME24, 1e-8, True,
                             t_start)
+    gs_sector = kagome.sec_repr[0]
     explicit_route(bsr_mod, dev, ktag, kagome, ksz, (0, 2), E0_KAGOME24)
-    # k = (0, 0) costs about what k = (0, 2) did, and phases 9 and 7 follow
-    # (about 150 s on an H100): its f64 solve is dropped past the budget
+    # k = (0, 0) costs about what k = (0, 2) did, and phases 9, 10 and 7
+    # follow (about 300 s on an H100): its f64 solve is dropped past the
+    # budget
     elapsed = time.perf_counter() - t_start
-    projected = first["solve_f64_s"] + first["solve_mixed_s"] + 150.0
+    projected = first["solve_f64_s"] + first["solve_mixed_s"] + 300.0
     keep = elapsed + projected <= SCRIPT_BUDGET_S
     print(f"kagome k=(0,0): {elapsed:.0f} s into the script, projected "
           f"{projected:.0f} s more with the f64 solve: "
@@ -958,7 +999,9 @@ def momentum_run(bsr_mod, dev, wide, t_start):
     kagome.sec_repr.clear()
     kagome._fsrepr_bases.clear()
     kagome._qn_mask_cache = None
+    gs_sector._fsrepr_cache, gs_sector._projector = {}, None
     torch.cuda.empty_cache()
+    return gs_sector
 
 
 class _Interrupting:
@@ -1062,6 +1105,361 @@ def resume_run(dev, chain_case):
         raise AssertionError("the stage record did not short-circuit the "
                              "solve")
     return rec
+
+
+def _sz_q(phases):
+    """A = sum_s phase_s / sqrt(N) Sz_s on the spin-1/2 orbital 0."""
+    from quantum_basis_tpu_torch import Mopr, Opr
+    from torch_zoo import SP_HALF
+
+    out = Mopr()
+    for s, ph in enumerate(phases):
+        out += (ph / np.sqrt(len(phases))) * Opr(s, 0, False, SP_HALF["Sz"])
+    return out
+
+
+def _moments_ok(tag, mu, bound_tol):
+    """mu_0 = 1 (the start vector is normalized) and |mu_n| <= 1: the
+    rescaled spectrum lies inside [-1, 1]."""
+    if not (abs(mu[0] - 1.0) <= 1e-6
+            and float(np.max(np.abs(mu))) <= 1.0 + bound_tol):
+        raise AssertionError(f"{tag}: mu_0 = {mu[0]!r}, max|mu_n| = "
+                             f"{np.max(np.abs(mu))!r}")
+
+
+def tilted_dynamics(bsr_mod, dev, tilted):
+    """Phase 10a: S(q, w) of the 20-site tilted cluster through
+    measure_repr_dynamic_kpm; the target sectors have no full-space engine,
+    so the Chebyshev recurrence (and its energy_scale) runs on the f32 BSR
+    kernel. Returns the kernel's launches and the record."""
+    from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
+    from quantum_basis_tpu_torch.solvers.chebyshev import kpm_moments
+    from torch_zoo import tilted_momenta
+
+    mt, opt, k_min, e0_min = tilted
+    if tuple(map(int, k_min)) != TILTED_K_GS:
+        raise AssertionError(f"tilted: ground state at {k_min}")
+    sz, lat = opt["Sz"], mt.lattice
+    coords = [lat.site2coor(s)[0] for s in range(lat.n_sites)]
+    mt.enumerate_basis_repr(list(k_min), [sz], [0.0], sec=0)
+    _, t_gs = _timed(lambda: mt.locate_E0_lanczos(which="repr"))
+    _check("tilted 20 E0(k_min), solved again", mt.eigenvals_repr[0], e0_min,
+           1e-9)
+    momenta = tilted_momenta(TILTED_A)
+    compare = {1, len(momenta) // 2}     # two q held against the f64 ELL
+    torch.cuda.reset_peak_memory_stats()
+    bsr_mod.launch_count = 0
+    rows, norms2 = [], []
+    for i, q in enumerate(momenta):
+        ph = np.exp(-2j * np.pi * lat.k_dot_R(q, coords))
+        A = _sz_q(ph)
+        kt = np.asarray(k_min) - np.asarray(q)
+        dim, t_enum = _timed(lambda: mt.enumerate_basis_repr(
+            kt.tolist(), [sz], [0.0], sec=1))
+        dst = mt.sec_repr[1]
+        # the routing the entry point makes (explicit ELL, BSR fill
+        # statistics and blocks), timed apart from the recurrence
+        _, t_route = _timed(lambda: mt._repr_bsr32(dst))
+        before = bsr_mod.launch_count
+        (nrm, mu, lo, hi), t_kpm = _timed(
+            lambda: mt.measure_repr_dynamic_kpm(A, 0, 1, KPM_MOMENTS))
+        applies = bsr_mod.launch_count - before
+        mt.generate_Ham_sparse_repr(1, check=False)   # the ELL, built above
+        (nrm_cf, _, _), t_cf = _timed(
+            lambda: mt.measure_repr_dynamic(A, 0, 1, CF_STEPS))
+        norms2.append(nrm ** 2)
+        row = {"q": list(map(int, q)), "k_target": kt.tolist(), "dim": dim,
+               "norm": nrm, "e_min": lo, "e_max": hi, "launches": applies,
+               "enumerate_s": t_enum, "route_s": t_route, "kpm_s": t_kpm,
+               "contfrac_s": t_cf}
+        _check(f"tilted q={row['q']}: continued-fraction norm vs KPM norm",
+               nrm_cf, nrm, 1e-12)
+        if np.allclose(ph, 1.0):       # q = 0: Sz(0)|gs> = 0 at Sz = 0
+            if nrm != 0.0 or applies != 0:
+                raise AssertionError(f"tilted q=0: norm {nrm!r}, "
+                                     f"{applies} launches")
+            rows.append(row)
+            continue
+        if not (isinstance(dst.bsr32, BsrMatrix)
+                and dst.bsr32.dtype == torch.float32 and applies > 0):
+            raise AssertionError(f"tilted q={row['q']}: the moments did not "
+                                 "run on a float32 BsrMatrix")
+        _moments_ok(f"tilted q={row['q']}", mu, 1e-5)
+        row["ms_per_apply"] = t_kpm / applies * 1e3
+        row["moments_per_s"] = KPM_MOMENTS / t_kpm
+        if i in compare:
+            v, _ = mt._injected(A, mt.sec_repr[0], dst, 0, True)
+            mu64, _, _ = kpm_moments(mt._repr_spmv(dst), v, KPM_MOMENTS,
+                                     bounds=(lo, hi))
+            row["max_diff_vs_f64_ell"] = float(np.max(np.abs(mu - mu64)))
+            print(f"check tilted q={row['q']} moments, BSR f32 vs ELL f64: "
+                  f"{row['max_diff_vs_f64_ell']:.3e} (tol 5e-05)", flush=True)
+            if not row["max_diff_vs_f64_ell"] <= 5e-5:
+                raise AssertionError("tilted: f32 BSR moments differ from "
+                                     "the f64 ELL's")
+        rows.append(row)
+    launches = bsr_mod.launch_count
+    rec = {"model": "tilted_square_20_Sz0", "card": card_line(),
+           "k_gs": list(map(int, k_min)), "E0": e0_min, "gs_solve_s": t_gs,
+           "n_moments": KPM_MOMENTS, "launches": launches,
+           "norm2_sum": sum(norms2), "peak_bytes":
+           torch.cuda.max_memory_allocated(), "per_q": rows}
+    print("dynamics", json.dumps(rec), flush=True)
+    _check("tilted: sum_q norm_q^2 = N/4", rec["norm2_sum"],
+           lat.n_sites / 4, 1e-10)
+    if launches <= 0:
+        raise AssertionError("phase 10a never launched the BSR kernel")
+    return launches, rec
+
+
+def kagome_sqw(dev, kagome_case, gs_sector, art, bounds):
+    """Phase 10b: benchmarks/flagship_kagome24_sqw.py through the port, at
+    N = 2^24: the q of the cell zone from the ground state of phase 8, 192
+    moments each on the float64 P_k H engine with the shared ``bounds`` of
+    the flagship's result ``art`` (SQW_kagome24.json), held against its
+    norms and moments."""
+    from quantum_basis_tpu_torch import config
+    from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
+    from quantum_basis_tpu_torch.solvers.lanczos import energy_scale
+
+    tag, km, sz, _, _ = kagome_case
+    ref = {tuple(r["q"]): r for r in art["runs"]}
+    k0 = tuple(art["k0"])
+    if tuple(int(k) for k in gs_sector.momentum) != k0:
+        raise AssertionError(f"kagome S(q,w): ground state at "
+                             f"{gs_sector.momentum}, not {k0}")
+    lat = km.lattice
+    Lx, Ly = lat.L
+    coords = np.asarray([lat.site2coor(s)[0] for s in range(lat.n_sites)])
+    km.sec_repr[0] = gs_sector
+    old = config.kpm_fullspace_max_N
+    config.kpm_fullspace_max_N = 1 << 24   # as the flagship script sets it
+    rows, norms2, extra = [], [], {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for qx in range(Lx):
+            for qy in range(Ly):
+                ph = np.exp(-2j * np.pi * (qx * coords[:, 0] / Lx
+                                           + qy * coords[:, 1] / Ly))
+                A = _sz_q(ph)
+                kt = [int((k0[0] - qx) % Lx), int((k0[1] - qy) % Ly)]
+                dim, t_enum = _timed(lambda: km.enumerate_basis_repr(
+                    kt, [sz], [0.0], sec=1))
+                dst = km.sec_repr[1]
+                fs, t_engine = _timed(lambda: km._fullspace_repr_op(dst))
+                if not (isinstance(fs, ProjectedFullOp)
+                        and fs.dtype == torch.float64):
+                    raise AssertionError(f"kagome q=({qx},{qy}): no float64 "
+                                         f"P_k H engine but {fs!r}")
+                n0 = fs.n_applies
+                (nrm, mu, lo, hi), t_kpm = _timed(
+                    lambda: km.measure_repr_dynamic_kpm(
+                        A, 0, 1, KPM_MOMENTS, bounds=bounds))
+                applies = fs.n_applies - n0
+                r = ref[(qx, qy)]
+                norms2.append(nrm ** 2)
+                row = {"q": [qx, qy], "k_target": kt, "dim": dim,
+                       "norm": nrm, "norm_ref": r["norm"], "applies": applies,
+                       "enumerate_s": t_enum, "engine_s": t_engine,
+                       "kpm_s": t_kpm}
+                _check(f"kagome q=({qx},{qy}) norm vs SQW_kagome24.json",
+                       nrm, r["norm"], 1e-7)
+                if qx == qy == 0:
+                    if nrm != 0.0 or applies != 0 or r["mu"]:
+                        raise AssertionError("kagome q=0: norm must be 0")
+                    rows.append(row)
+                    continue
+                if (lo, hi) != bounds or (r["e_min"], r["e_max"]) != bounds:
+                    raise AssertionError("kagome: bounds differ")
+                _moments_ok(f"kagome q=({qx},{qy})", mu, 1e-9)
+                row["max_diff_vs_ref"] = float(np.max(np.abs(
+                    mu - np.asarray(r["mu"]))))
+                print(f"check kagome q=({qx},{qy}) moments vs "
+                      f"SQW_kagome24.json: {row['max_diff_vs_ref']:.3e} "
+                      f"(tol 1e-04)", flush=True)
+                if not row["max_diff_vs_ref"] <= 1e-4:
+                    raise AssertionError("kagome: moments differ from "
+                                         "SQW_kagome24.json")
+                row["ms_per_apply"] = t_kpm / applies * 1e3
+                row["moments_per_s"] = KPM_MOMENTS / t_kpm
+                if kt == [0, 0]:
+                    # the target sector k = (0,0), which holds the Sz = 0
+                    # member of the ferromagnetic multiplet: its own bounds
+                    # against the shared ones, which the flagship computed
+                    # from k0 alone
+                    g = torch.Generator(device=dev).manual_seed(11)
+                    x = fs.project(torch.randn(fs.N, dtype=torch.complex128,
+                                               device=dev, generator=g))
+                    (elo, ehi), extra["energy_scale_s"] = _timed(
+                        lambda: energy_scale(fs, x, slack=0.0))
+                    w = ehi - elo
+                    extra.update({
+                        "sector": kt, "ritz_min": elo, "ritz_max": ehi,
+                        "bounds_slack_0.05": [elo - 0.05 * w, ehi + 0.05 * w],
+                        "bounds_slack_0.1": [elo - 0.1 * w, ehi + 0.1 * w]})
+                    del x
+                    if not (bounds[0] < elo - 0.05 * w
+                            and ehi + 0.05 * w < bounds[1]):
+                        raise AssertionError(
+                            f"kagome k={kt}: its bounds [{elo}, {ehi}] "
+                            f"(slack 0.05) leave the shared ones")
+                    extra["matvec_repr_ms"] = _time_matvec_repr(dst, dev)
+                rows.append(row)
+    finally:
+        config.kpm_fullspace_max_N = old
+    rec = {"model": tag, "card": card_line(), "k0": list(k0),
+           "n_moments": KPM_MOMENTS, "bounds": list(bounds),
+           "norm2_sum": sum(norms2), "peak_bytes":
+           torch.cuda.max_memory_allocated(), "per_q": rows, **extra}
+    print("dynamics", json.dumps(rec), flush=True)
+    _check("kagome: sum_q norm_q^2 vs the flagship's",
+           rec["norm2_sum"], art["sum_rule"]["norms2"], 1e-7)
+    km.sec_repr.clear()
+    km._fsrepr_bases.clear()
+    km._qn_mask_cache = None
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _time_matvec_repr(sector, dev, n=3):
+    """Seconds of up to ``n`` applies of a momentum sector's matrix-free
+    apply (MatvecRepr, K9); stops after one apply that takes over 60 s."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(sector.dim, dtype=torch.complex128, device=dev,
+                    generator=g)
+    out = []
+    for _ in range(n):
+        _, t = _timed(lambda: sector.matvec(x))
+        out.append(t * 1e3)
+        if t > 60.0:
+            break
+    print(f"MatvecRepr apply at dim {sector.dim}: {out} ms", flush=True)
+    return out
+
+
+def chain_contfrac(dev, chain_case):
+    """Phase 10c: continued fractions of Sz(q) at all 24 q of chain L=24
+    Sz=0 on phase 5's ELL (dim 2,704,156), checked against the static
+    correlators, and one q through KPM with the sum rule of its S(q, w)."""
+    from quantum_basis_tpu_torch import Mopr
+    from quantum_basis_tpu_torch.postprocess import sqw_kpm
+    from quantum_basis_tpu_torch.solvers.lanczos import lanczos_dynamics
+    from torch_zoo import sz_pair
+
+    tag, m, _, _, _ = chain_case
+    L = m.lattice.n_sites
+    x = np.arange(L)
+    torch.cuda.reset_peak_memory_stats()
+    # one q's injection A|phi> and its Lanczos steps timed apart
+    sec = m.sec_full[0]
+    (v, nrm), t_inject = _timed(lambda: m._injected(
+        _sz_q(np.exp(-2j * np.pi * x / L)), sec, sec, 0, False))
+    _, t_steps = _timed(lambda: lanczos_dynamics(sec.matvec, v / nrm,
+                                                 CF_STEPS))
+    del v
+    rows, norms2 = [], []
+    for q in range(L):
+        A = _sz_q(np.exp(-2j * np.pi * q * x / L))
+        (nrm, a, b), t = _timed(
+            lambda: m.measure_full_dynamic(A, 0, 0, CF_STEPS))
+        norms2.append(nrm ** 2)
+        rows.append({"q": q, "norm": nrm, "s": t, "steps": a.size})
+        if q == 0 and (nrm != 0.0 or a.size != 0):
+            raise AssertionError(f"{tag} q=0: norm must be 0")
+        if q and a.size != CF_STEPS:
+            raise AssertionError(f"{tag} q={q}: {a.size} coefficients")
+    def corr(r):
+        """<Sz_0 Sz_r>, averaged over the translations (exact for any
+        vector, as norm_q^2 is)."""
+        op = Mopr()
+        for s in range(L):
+            op += (1.0 / L) * sz_pair(s, (s + r) % L)
+        return m.measure_full_static(op, 0).real
+
+    corr, t_corr = _timed(lambda: [corr(r) for r in range(L)])
+    for q in (1, L // 2):
+        want = float(np.sum(np.cos(2 * np.pi * q * x / L) * np.asarray(corr)))
+        _check(f"{tag} norm_q^2 = sum_r e^(-iqr) <Sz0 Szr>, q={q}",
+               norms2[q], want, 1e-9)
+    qk = L // 3
+    (nrm, mu, lo, hi), t_kpm = _timed(lambda: m.measure_full_dynamic_kpm(
+        _sz_q(np.exp(-2j * np.pi * qk * x / L)), 0, 0, KPM_MOMENTS))
+    _moments_ok(f"{tag} q={qk}", mu, 1e-9)
+    E0 = m.eigenvals_full[0]
+    om = np.linspace(lo - E0 + 1e-3, hi - E0 - 1e-3, 4000)
+    integral = float(np.trapezoid(sqw_kpm(om, nrm, mu, lo, hi, E0), om))
+    rec = {"model": tag, "card": card_line(), "dim": m.sec_full[0].dim,
+           "steps": CF_STEPS, "norm2_sum": sum(norms2), "inject_s": t_inject,
+           "ms_per_step": t_steps / CF_STEPS * 1e3,
+           "static_correlators_s": t_corr, "kpm_q": qk, "kpm_s": t_kpm,
+           "kpm_moments_per_s": KPM_MOMENTS / t_kpm,
+           "kpm_norm2": nrm ** 2, "sqw_integral": integral,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "per_q": rows}
+    print("dynamics", json.dumps(rec), flush=True)
+    _check(f"{tag}: sum_q norm_q^2 = L/4", rec["norm2_sum"], L / 4, 1e-10)
+    if not abs(integral - nrm ** 2) <= 0.02 * nrm ** 2:
+        raise AssertionError(f"{tag} q={qk}: integral of S(q,w) "
+                             f"{integral!r} vs norm^2 {nrm ** 2!r}")
+    return rec
+
+
+def interior_window(dev, L=16):
+    """Phase 10d: locate_Es on chain-16 Sz=0 (dim 12,870) on its ELL, with
+    a window holding the lowest 3-6 levels, against the eigenvalues of the
+    dense sector matrix (ops/dense.py, eigvalsh on the card)."""
+    from quantum_basis_tpu_torch.ops.dense import dense_matrix
+    from torch_zoo import heisenberg_chain
+
+    m, ops = heisenberg_chain(L, device=dev)
+    dim = m.enumerate_basis_full([ops["Sz"]], [0.0])
+    ell, t_ell = _timed(lambda: m.generate_Ham_sparse_full(check="probe"))
+    H, t_dense = _timed(lambda: torch.as_tensor(
+        dense_matrix(m.compiled_Ham, m.sec_full[0].labels).real, device=dev))
+    w, t_eigh = _timed(lambda: torch.linalg.eigvalsh(H).cpu().numpy())
+    del H
+    torch.cuda.empty_cache()
+    # the window's upper edge sits in the widest gap after 3 to 6 levels
+    n = max(range(3, 7), key=lambda k: w[k] - w[k - 1])
+    lo, hi = w[0] - 0.5 * (w[1] - w[0]), 0.5 * (w[n - 1] + w[n])
+    n0 = ell.n_applies
+    torch.cuda.reset_peak_memory_stats()
+    got, t = _timed(lambda: m.locate_Es(lo, hi))
+    peak = torch.cuda.max_memory_allocated()
+    applies = ell.n_applies - n0
+    res = [float(torch.linalg.vector_norm(ell(v) - e * v))
+           for e, v in zip(got, m.eigenvecs_full)]
+    rec = {"model": f"chain{L}_Sz0", "card": card_line(), "dim": dim,
+           "window": [lo, hi], "levels": n, "evals": got,
+           "dense_evals": w[:n].tolist(), "residuals": res,
+           "applies": applies, "locate_Es_s": t,
+           "ms_per_apply": t / applies * 1e3, "ell_build_s": t_ell,
+           "dense_build_s": t_dense, "eigvalsh_s": t_eigh,
+           "peak_bytes": peak}
+    print("dynamics", json.dumps(rec), flush=True)
+    if len(got) != n:
+        raise AssertionError(f"locate_Es found {len(got)} of {n} levels")
+    for i, (e, r) in enumerate(zip(got, res)):
+        _check(f"chain{L} locate_Es level {i} vs dense eigvalsh", e, w[i],
+               1e-9)
+        if not r < 1e-6:
+            raise AssertionError(f"locate_Es level {i}: residual {r:.3e}")
+    return rec
+
+
+def dynamics_run(bsr_mod, dev, tilted, wide, gs_sector):
+    """Phase 10: dynamics and spectra. Returns the kernel's launches (10a)."""
+    launches, _ = tilted_dynamics(bsr_mod, dev, tilted)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "SQW_kagome24.json")) as f:
+        art = json.load(f)
+    if tuple(art["k0"]) != (0, 2) or \
+            art["sum_rule"]["norms2"] != SQW_NORM2_SUM:
+        raise AssertionError("SQW_kagome24.json is not the flagship's")
+    kagome_sqw(dev, wide[1], gs_sector, art, SQW_BOUNDS)
+    chain_contfrac(dev, wide[0])
+    interior_window(dev)
+    return launches
 
 
 def ell_apply_columns(ell, X, block=128):
@@ -1209,6 +1607,26 @@ def device_busy(tag, fn):
     return rec
 
 
+def profile_kpm(dev):
+    """--profile: the KPM path of phase 10a, one q of the tilted cluster's
+    S(q, w) (192 moments and their bounds on the BSR kernel) from the
+    ground-state sector phase 4b finds."""
+    from torch_zoo import tilted_heisenberg, tilted_momenta
+
+    mt, opt = tilted_heisenberg(TILTED_A, device=dev)
+    mt.enumerate_basis_repr(list(TILTED_K_GS), [opt["Sz"]], [0.0])
+    mt.locate_E0_lanczos(which="repr")
+    lat = mt.lattice
+    q = tilted_momenta(TILTED_A)[1]
+    A = _sz_q(np.exp(-2j * np.pi * lat.k_dot_R(
+        q, [lat.site2coor(s)[0] for s in range(lat.n_sites)])))
+    mt.enumerate_basis_repr((np.asarray(TILTED_K_GS) - q).tolist(),
+                            [opt["Sz"]], [0.0], sec=1)
+    mt._repr_bsr32(mt.sec_repr[1])
+    device_busy("tilted-20 S(q,w), one q: 192 KPM moments on the BSR kernel",
+                lambda: mt.measure_repr_dynamic_kpm(A, 0, 1, KPM_MOMENTS))
+
+
 def profile_windows(dev):
     """--profile: where the device waits for the host on the full route."""
     from torch_zoo import heisenberg_chain
@@ -1266,6 +1684,7 @@ def profile_windows(dev):
         del mk, pk, xk
         torch.cuda.empty_cache()
     del m
+    profile_kpm(dev)
 
     pm, _ = hubbard_factorized(4, 4, device=dev)
     fs32 = pm.op(torch.float32)
@@ -1326,20 +1745,23 @@ def main() -> int:
 
     dev = "cuda"
     rows = kernel_checks(bsr_mod, dev)
-    launches, e0_chain20 = slice_run(bsr_mod, dev)
+    launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
     launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
     launches += launches5
     engines_run(dev, wide)
     print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
-    momentum_run(bsr_mod, dev, wide, t_start)
+    gs_sector = momentum_run(bsr_mod, dev, wide, t_start)
     print(f"phases 1-6, 8: {time.perf_counter() - t_start:.1f} s", flush=True)
     resume_run(dev, wide[0])
-    del wide
-    torch.cuda.empty_cache()
     print(f"phases 1-6, 8, 9: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    launches += dynamics_run(bsr_mod, dev, tilted, wide, gs_sector)
+    del wide, tilted, gs_sector
+    torch.cuda.empty_cache()
+    print(f"phases 1-6, 8-10: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     product_run(dev, t_start, force_full=False)
-    print(f"phases 1-9: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")

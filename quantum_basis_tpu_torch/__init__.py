@@ -18,9 +18,12 @@ the dense kron engine); the momentum-sector ground-state route
 ``P_k H`` in the full label space on the same engines with block-transpose
 translations (ops/translate_fullspace.py), or, on a tilted cluster
 (``TiltedLattice``) and wherever that gives no engine, the explicit route with
-the CUDA BSR SpMV kernel (ops/bsr.py, csrc/bsr_spmv.cu); and crash-consistent
+the CUDA BSR SpMV kernel (ops/bsr.py, csrc/bsr_spmv.cu); crash-consistent
 checkpoint and resume of every solve (``initialize(enable_checkpoint=True)``,
-``CkptStore``, ``basis_save`` / ``basis_load``).
+``CkptStore``, ``basis_save`` / ``basis_load``); and dynamics and spectra
+(``Model.measure_full_dynamic`` / ``measure_repr_dynamic`` continued
+fractions, ``measure_*_dynamic_kpm`` Chebyshev moments, ``locate_Es`` interior
+windows; solvers/chebyshev.py, solvers/kpm.py, postprocess.py).
 """
 
 from quantum_basis_tpu_torch import config as config

@@ -1,7 +1,8 @@
 """Global configuration: tolerances, BSR routing bounds, matmul precision.
 
 Port of ``quantum_basis_tpu.config`` for the ground-state routes (momentum
-sectors, full sectors and factorized product sectors) and checkpointing.
+sectors, full sectors and factorized product sectors), the dynamics routes
+and checkpointing.
 Importing this module turns TF32 off for float32 matrix products and
 convolutions: the f32 bulk
 tier (Krylov basis products, the window and kron matmuls, the RQI inner CG)
@@ -75,6 +76,20 @@ apply_block_budget = 1 << 24
 bsr_blowup_max = 400.0
 prefer_bsr = None
 bsr_stored_max_bytes = 2 << 30
+
+# KPM dynamics only CONSIDERS the BSR route for a momentum sector at or below
+# this dim (Model.measure_repr_dynamic_kpm): deciding costs an explicit ELL
+# build; a sector routed by an earlier solve is reused at any dim. The JAX
+# package's TPU calibration (sector sizes of its measured winners), not
+# re-measured on the H100.
+bsr_auto_max_dim = 1 << 16
+
+# KPM dynamics on momentum sectors runs the Chebyshev recurrence on the
+# projected full-space engine (float64 P_k H) when the label space has at
+# most this many states, else on the sector-dim engine (the BSR kernel where
+# routed, else the sector's matvec). The JAX package's value, set there by
+# the device memory of a 16 GB TPU; not re-measured on the H100.
+kpm_fullspace_max_N = 1 << 23
 
 
 def initialize(enable_checkpoint: bool = False, quiet: bool = False,

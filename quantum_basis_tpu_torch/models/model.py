@@ -46,8 +46,17 @@ that carries the Hamiltonian's fingerprint, and the solvers persist their
 restart state (utils/ckpt.py): a rerun loads finished stages and resumes the
 one that was interrupted.
 
-Not ported yet, each raising ``NotImplementedError``: a device mesh, interior
-windows (``locate_Es``), dynamics and the variational sector.
+Dynamics: ``measure_full_dynamic`` / ``measure_repr_dynamic`` record the
+continued fraction of <phi|A^dagger (z - H)^{-1} A|phi> on the target sector's
+matvec; ``measure_full_dynamic_kpm`` / ``measure_repr_dynamic_kpm`` record its
+Chebyshev (KPM) moments, a momentum sector on the float64 ``P_k H`` engine up
+to ``config.kpm_fullspace_max_N`` labels, else on the sector-dim engine (the
+float32 BSR kernel where ``_repr_bsr32`` routes the sector). ``locate_Es``
+finds the eigenpairs inside an energy window by Chebyshev-filtered subspace
+iteration.
+
+Not ported yet, each raising ``NotImplementedError``: a device mesh and the
+variational sector.
 """
 
 from __future__ import annotations
@@ -78,7 +87,11 @@ from quantum_basis_tpu_torch.ops.apply_fullspace import (
     sector_mask,
     supports_fullspace,
 )
-from quantum_basis_tpu_torch.ops.apply_repr import MatvecRepr, ReprBasis
+from quantum_basis_tpu_torch.ops.apply_repr import (
+    MatvecRepr,
+    ReprBasis,
+    mopr_x_vec_repr,
+)
 from quantum_basis_tpu_torch.ops.bsr import bsr_fill_stats, ell_to_bsr
 from quantum_basis_tpu_torch.ops.compile import (
     compile_diagonal,
@@ -98,7 +111,11 @@ from quantum_basis_tpu_torch.ops.translate_fullspace import (
     ProjectedFullOp,
     RollTranslations,
 )
-from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
+from quantum_basis_tpu_torch.solvers.chebyshev import eigs_window, kpm_moments
+from quantum_basis_tpu_torch.solvers.lanczos import (
+    lanczos_dynamics,
+    lanczos_ground,
+)
 from quantum_basis_tpu_torch.solvers.restarted import (
     _projected,
     _solver_log,
@@ -706,9 +723,24 @@ class Model:
         self._store(which, sector, evals, vecs)
         return evals
 
-    def locate_Es(self, *args, **kwargs):
-        raise _not_ported("locate_Es (interior windows)",
-                          "the dynamics and spectra slice")
+    def locate_Es(self, e_lo: float, e_hi: float, which: str = "full",
+                  sec: int = 0, nev_max: int = 10, degree: int = 200,
+                  maxit: int = 40, seed: int = 7):
+        """Interior eigenpairs in [e_lo, e_hi] — the FEAST replacement
+        (cf. model::locate_Es_feast, src/model.cc:1424-1466), via
+        Chebyshev-filtered subspace iteration (applies only, no
+        factorization) on the sector's matvec, or a momentum sector's f64
+        explicit engine (``_repr_spmv``). Returns the eigenvalues, ascending.
+        """
+        self._check_which(which)
+        sector = self.sec_full[sec] if which == "full" else self.sec_repr[sec]
+        complex_h = sector.matvec.is_complex if which == "full" else True
+        mv = self._repr_spmv(sector) if which == "repr" else sector.matvec
+        evals, vecs = eigs_window(
+            mv, sector.dim, e_lo, e_hi, nev_max=nev_max, degree=degree,
+            n_iter=maxit, seed=seed, complex_vec=complex_h)
+        self._store(which, sector, evals, vecs)
+        return evals
 
     def _locate_E0_lanczos_repr(self, nev, ncv, maxit, sec, seed):
         sector = self.sec_repr[sec]
@@ -842,13 +874,112 @@ class Model:
             y = mopr_x_vec(self.compile_op(op), sector.dbasis, sector.dbasis, y)
         return complex(torch.vdot(phi.to(y.dtype), y))
 
-    def measure_full_dynamic(self, *args, **kwargs):
-        raise _not_ported("measure_full_dynamic",
-                          "the dynamics and spectra slice")
+    def _injected(self, A, src, dst, which, repr_):
+        """|v> = A|phi> in the target sector and its norm; phi is the source
+        sector's eigenvector ``which``."""
+        if repr_:
+            phi = src.evecs[which] if src.evecs else \
+                self.eigenvecs_repr[which]
+            v = mopr_x_vec_repr(self.compile_op(A), src.dbasis, dst.dbasis,
+                                phi)
+        else:
+            phi = src.evecs[which] if src.evecs else \
+                self.eigenvecs_full[which]
+            v = mopr_x_vec(self.compile_op(A), src.dbasis, dst.dbasis, phi)
+        return v, float(torch.linalg.vector_norm(v))
 
-    def measure_repr_dynamic(self, *args, **kwargs):
-        raise _not_ported("measure_repr_dynamic",
-                          "the dynamics and spectra slice")
+    def measure_full_dynamic(self, A, sec_old: int, sec_new: int,
+                             m_steps: int, which: int = 0, ckpt_key=None):
+        """Continued-fraction data for G_A(z) = <phi|A^dagger (z-H)^{-1}
+        A|phi>.
+
+        Returns (norm, alphas, betas): |v> = A|phi>, norm = ||v||, then a
+        fixed-step Lanczos on the target sector records a/b
+        (cf. model::measure_full_dynamic, src/model.cc:1696-1712). An A that
+        annihilates phi gives (0.0, empty, empty).
+        """
+        dst = self.sec_full[sec_new]
+        v, nrm = self._injected(A, self.sec_full[sec_old], dst, which, False)
+        if nrm < 1e-12:  # A|phi> vanishes (reference: src/model.cc:1704-1706)
+            return 0.0, np.zeros(0), np.zeros(0)
+        alphas, betas = lanczos_dynamics(dst.matvec, v / nrm, m_steps,
+                                         ckpt_key=ckpt_key)
+        return nrm, alphas, betas
+
+    def measure_repr_dynamic(self, A, sec_old: int, sec_new: int,
+                             m_steps: int, which: int = 0, ckpt_key=None):
+        """Continued-fraction data across momentum sectors.
+
+        |v> = A |phi_k> lands in sector ``sec_new`` (momentum k - q for
+        A = sum_x e^{-iq.x} O_x); returns (norm, alphas, betas)
+        (cf. model::measure_repr_dynamic, src/model.cc:1896-1912). An A that
+        annihilates phi gives (0.0, empty, empty), as in the full sector (the
+        JAX package divides by the zero norm here).
+        """
+        dst = self.sec_repr[sec_new]
+        v, nrm = self._injected(A, self.sec_repr[sec_old], dst, which, True)
+        if nrm < 1e-12:
+            return 0.0, np.zeros(0), np.zeros(0)
+        alphas, betas = lanczos_dynamics(dst.matvec, v / nrm, m_steps,
+                                         ckpt_key=ckpt_key)
+        return nrm, alphas, betas
+
+    def measure_full_dynamic_kpm(self, A, sec_old: int, sec_new: int,
+                                 n_moments: int, which: int = 0, bounds=None):
+        """Operator-resolved KPM data for the dynamical structure factor.
+
+        |v> = A|phi>, norm = ||v||, then Chebyshev moments
+        mu_m = <v| T_m(Hs) |v> / norm^2 on the TARGET sector's H — the KPM
+        counterpart of :meth:`measure_full_dynamic` (the reference has no
+        KPM dynamics; its src/kpm.cc:45-99 stops at spectral bounds).
+        Returns (norm, mu, e_min, e_max); reconstruct with
+        :func:`quantum_basis_tpu_torch.postprocess.sqw_kpm`.
+        """
+        dst = self.sec_full[sec_new]
+        v, nrm = self._injected(A, self.sec_full[sec_old], dst, which, False)
+        if nrm < 1e-12:
+            return 0.0, np.zeros(0), 0.0, 0.0
+        mu, e_min, e_max = kpm_moments(dst.matvec, v, n_moments,
+                                       bounds=bounds)
+        return nrm, mu, e_min, e_max
+
+    def measure_repr_dynamic_kpm(self, A, sec_old: int, sec_new: int,
+                                 n_moments: int, which: int = 0, bounds=None):
+        """KPM moments of A|phi> in momentum sectors (repr counterpart of
+        :meth:`measure_full_dynamic_kpm`; cf. model::measure_repr_dynamic,
+        src/model.cc:1896-1912, which only records continued fractions).
+
+        Up to ``config.kpm_fullspace_max_N`` labels the recurrence runs on
+        the sector's float64 projected full-space engine (``P_k H``), with
+        A|phi> expanded to the full label space (the repr basis embeds
+        isometrically there, so the moments are the same). Otherwise, or
+        where the sector has no such engine, it runs at the sector's
+        dimension: on the float32 BSR kernel when the sector is routed there
+        (``_repr_bsr32``, evaluated only up to ``config.bsr_auto_max_dim``
+        rows or under ``config.prefer_bsr``; a sector routed by an earlier
+        solve is reused at any dim), else on the sector's matvec. The
+        rescaled recurrence is contractive, so float32 applies leave moment
+        noise far below the Jackson resolution pi*(e_max-e_min)/n_moments.
+        """
+        dst = self.sec_repr[sec_new]
+        v, nrm = self._injected(A, self.sec_repr[sec_old], dst, which, True)
+        if nrm < 1e-12:
+            return 0.0, np.zeros(0), 0.0, 0.0
+        v = v / nrm
+        fs = None
+        if self.space.label_space <= config.kpm_fullspace_max_N:
+            fs = self._fullspace_repr_op(dst)
+        if fs is not None:
+            mv, v = fs, self._repr_to_full(dst, v, fs=fs)
+        else:
+            mv = dst.bsr32
+            if mv is None and (dst.dim <= config.bsr_auto_max_dim
+                               or config.prefer_bsr):
+                mv = self._repr_bsr32(dst)
+            if mv is None:
+                mv = dst.matvec
+        mu, e_min, e_max = kpm_moments(mv, v, n_moments, bounds=bounds)
+        return nrm, mu, e_min, e_max
 
     def symmetrize_op(self, op):
         """Translation-symmetrize: O_t = (1/G) sum_R T(R) O T(-R).

@@ -92,7 +92,9 @@ def test_port_imports_no_jax():
             "quantum_basis_tpu_torch.basis.io",
             "quantum_basis_tpu_torch.utils.ckpt",
             "quantum_basis_tpu_torch.ops.translate_fullspace",
-            "quantum_basis_tpu_torch.solvers.cg"]
+            "quantum_basis_tpu_torch.solvers.cg",
+            "quantum_basis_tpu_torch.solvers.kpm",
+            "quantum_basis_tpu_torch.postprocess"]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
@@ -101,8 +103,8 @@ def test_port_imports_no_jax():
 
 
 def test_unported_options_raise():
-    """What waits for a later slice raises and names it; checkpointing and
-    the streaming enumeration no longer do."""
+    """What waits for a later slice raises and names it; checkpointing, the
+    streaming enumeration, dynamics and interior windows no longer do."""
     from quantum_basis_tpu_torch import Lattice, Model, config
 
     try:
@@ -115,9 +117,10 @@ def test_unported_options_raise():
     assert m.enumerate_basis_repr([0], method="dnc") == 6
     with pytest.raises(NotImplementedError, match="vrnl"):
         m.locate_E0_lanczos(which="vrnl")
-    with pytest.raises(NotImplementedError, match="dynamics"):
-        m.measure_repr_dynamic()
-    with pytest.raises(NotImplementedError, match="dynamics"):
-        m.locate_Es()
+    m.locate_E0_lanczos(which="repr")
+    nrm, alphas, betas = m.measure_repr_dynamic(
+        m.symmetrize_op(tz.sz_pair(0, 1)), 0, 0, 3)
+    assert nrm > 0 and alphas.shape == betas.shape == (3,)
+    assert m.locate_Es(-3.0, 1.0, which="repr", nev_max=6, degree=40)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Model(Lattice("chain", [4], ["pbc"]), device="cpu", mesh=object())

@@ -227,15 +227,13 @@ def test_unported_routes_name_their_slice(monkeypatch, tmp_path):
     for call, word in (
             (lambda: mt.locate_E0_lanczos("vrnl"), "vrnl"),
             (lambda: mt.locate_E0_iram("vrnl"), "vrnl"),
-            (lambda: mt.locate_Es(-1.0, 0.0), "spectra"),
-            (lambda: mt.measure_full_dynamic(None, 0, 0, 10), "dynamics"),
-            (lambda: mt.measure_repr_dynamic(None, 0, 0, 10), "dynamics"),
             (lambda: qt.Model(mesh=object()), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=word):
             call()
     with pytest.raises(ValueError):
         mt.locate_E0_lanczos("half")
-    # checkpointing is ported (tests/test_torch_ckpt.py): no raise; a dense
+    # dynamics and interior windows are ported (tests/test_torch_dynamics.py)
+    # and so is checkpointing (tests/test_torch_ckpt.py): no raise; a dense
     # sector writes no record
     monkeypatch.setattr(config, "enable_ckpt", True)
     monkeypatch.setattr(config, "ckpt_dir", str(tmp_path))
