@@ -100,18 +100,41 @@ Phases (any failure raises, so the exit code is nonzero):
    window of its lowest 3-6 levels: the eigenvalues of the dense sector
    matrix (eigvalsh on the card) to 1e-9, residuals under 1e-6. Prints
    seconds per q, ms per apply, moments per second and peak memory;
-11. prints the kernel record, the card line, and as the last line
+11. the variational (Trugman) sector at full width on the Holstein polaron
+   chain (L = 16, spinless fermions and bosons with Nmax = 3, t = w = g = 1,
+   label space 2^48; the generator is H, the seed the electron at site 8,
+   the vacuum the ground state at k = 0, N_e = 1) through Model(...,
+   device="cuda"): (a) build_basis_vrnl at depths 8, 12 and 14: dims 475,
+   7,491 and 28,956, the labels and the skeleton arrays bit-equal to the JAX
+   package's (CRC32), E0(k=0) non-increasing with depth and -2.466611199168856
+   at depth 14 (1e-9), MatvecVrnl against at_momentum(k) @ x at depth 8 and
+   9 k (1e-12 of max|y|); (b) the polaron band at k = j/16, j = 0..8, from
+   one skeleton (asserted reused): locate_E0_lanczos(which="vrnl") equal to
+   the JAX package's E(k) (1e-9), residual under 1e-8, measure_vrnl_static
+   of N_e = 1 (1e-9), one MatvecVrnl apply timed; (c) measure_vrnl_dynamic
+   of B_k = sum_x e^(2 pi i k x) c+_x, 100 steps, at the same k: norm 1 and
+   alpha_0 = -2 cos 2 pi k (1e-12), and for j = 0..4 the lowest pole of the
+   tridiagonal matrix at E(k) (1e-8) with the weight |<psi_0(k)|B_k|0>|^2
+   (1e-6); (d) wannier_mat_vrnl of the one-magnon band of a chain of 16
+   spins (A_r = Sz_r, 8 momenta) against its analytic value (1e-9), then
+   again from its per-k records (config.enable_ckpt, a temporary ckpt_dir)
+   with no eigh; (e) 10^5 random labels of the Holstein space canonicalized
+   on the card against a host oracle (labels, displacements, fermion
+   signs). No BSR launch on this path. Prints grow, skeleton, solve, apply
+   and per-k seconds and the peak device memory;
+12. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-Phases 8, 9 and 10 run before phase 7, whose 4x4 solve is the one part that
-is capped when the script would pass its budget.
+Phases 8, 9, 10 and 11 run before phase 7, whose 4x4 solve is the one part
+that is capped when the script would pass its budget.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-11, windows
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-12, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
 P_k H apply at N = 2^24 on both; one q of the tilted cluster's KPM S(q, w) on
-the BSR kernel; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
+the BSR kernel; phase 11's vrnl growth, skeleton, solve and MatvecVrnl
+applies at depth 14; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
 device-busy time, idle share and its three longest device operations, then
 times the matrix-free apply
 at three row-block budgets; it prints no result line.
@@ -126,6 +149,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -163,6 +187,22 @@ KPM_MOMENTS = 192
 CF_STEPS = 40
 SQW_BOUNDS = (-12.964242089650671, 13.487894943231652)
 SQW_NORM2_SUM = 0.8044558613240673
+# phase 11: the Holstein polaron chain L = 16, Nmax = 3, t = w = g = 1, grown
+# from the electron at site 8 over the vacuum. Per depth its dim and the
+# CRC32 of the labels and of the six skeleton arrays as the JAX package
+# builds them (equal bytes, so per-k records load in both packages); the
+# band E(k = j/16), j = 0..8, at depth 14: scipy eigsh (tol 1e-14) of the
+# JAX package's skeleton, which its own locate_E0_lanczos(which="vrnl")
+# reproduces to 3e-14 at every k (E(0) = -2.466611199168856)
+HOLSTEIN_L = 16
+HOLSTEIN_DEPTHS = {8: (475, 1262208224, 2224542107),
+                   12: (7491, 1448417759, 1953454236),
+                   14: (28956, 3071596857, 3562348927)}
+HOLSTEIN_BAND = (-2.4666111991688577, -2.3561659084180966,
+                 -2.0841166783797584, -1.8199887671092105,
+                 -1.6732057133728666, -1.6014926929171571,
+                 -1.5645359820584208, -1.5465537464350307,
+                 -1.5411668934441385)
 
 
 def card_line() -> str:
@@ -1462,6 +1502,232 @@ def dynamics_run(bsr_mod, dev, tilted, wide, gs_sector):
     return launches
 
 
+def _b_k(ops, k):
+    """B_k = sum_x e^{2 pi i k x} c+_x on the Holstein chain's electrons."""
+    from quantum_basis_tpu_torch import Mopr
+
+    out = Mopr()
+    for x, c_dag in ops["c_dag"].items():
+        out += complex(np.exp(2j * np.pi * k * x)) * c_dag
+    return out
+
+
+def holstein_growth(dev, model, ops, seed):
+    """Phase 11a: the basis at depths 8, 12 and 14 (k = 0), the skeleton,
+    E0(k=0); MatvecVrnl against the dense H(k) at depth 8."""
+    from quantum_basis_tpu_torch.ops.apply_vrnl import MatvecVrnl
+
+    e0_prev = np.inf
+    rng = np.random.default_rng(17)
+    for depth, (dim_want, lab_crc, skel_crc) in HOLSTEIN_DEPTHS.items():
+        torch.cuda.reset_peak_memory_stats()
+        dim, t_grow = _timed(lambda: model.build_basis_vrnl(
+            [seed], 0, [0.0], [0.0], depth, [ops["N_e"]], [1.0]))
+        _, t_skel = _timed(lambda: model.generate_Ham_sparse_vrnl(0))
+        s = model.sec_vrnl[0]
+        _, t_solve = _timed(lambda: model.locate_E0_lanczos(which="vrnl"))
+        peak = torch.cuda.max_memory_allocated()
+        vm = s.vmat
+        crc = 0
+        for arr in (vm.rows, vm.cols, vm.amp_re, vm.amp_im, vm.disp,
+                    vm.diag):
+            crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+        e0 = model.eigenvals_vrnl[0]
+        print("vrnl", json.dumps({
+            "model": "holstein_chain16_Nmax3", "depth": depth, "dim": dim,
+            "nnz": int(vm.rows.size), "grow_s": t_grow, "skeleton_s": t_skel,
+            "solve_s": t_solve, "E0_k0": e0, "peak_bytes": peak,
+            "labels_crc": zlib.crc32(s.labels.tobytes()),
+            "skeleton_crc": crc}), flush=True)
+        if dim != dim_want:
+            raise AssertionError(f"depth {depth}: dim {dim}, not {dim_want}")
+        if zlib.crc32(s.labels.tobytes()) != lab_crc or crc != skel_crc:
+            raise AssertionError(f"depth {depth}: labels or skeleton differ "
+                                 "from the JAX package's (CRC32)")
+        if not e0 <= e0_prev + 1e-12:
+            raise AssertionError(f"depth {depth}: E0 {e0!r} rose above "
+                                 f"{e0_prev!r}")
+        e0_prev = e0
+        if depth == 8:
+            errs = []
+            for j in range(9):
+                k = [j / 16]
+                mv = MatvecVrnl(vm, k)
+                x = rng.standard_normal(dim) + 1j * rng.standard_normal(dim)
+                y = mv(torch.as_tensor(x, device=dev)).cpu().numpy()
+                y_ref = vm.at_momentum(k) @ x
+                errs.append(float(np.abs(y - y_ref).max()
+                                  / np.abs(y_ref).max()))
+            print(f"vrnl MatvecVrnl vs dense H(k) x at depth 8, 9 k: max "
+                  f"rel err {max(errs):.3e}", flush=True)
+            if not max(errs) <= 1e-12:
+                raise AssertionError("MatvecVrnl differs from at_momentum")
+    _check("holstein depth 14 E0(k=0)", e0_prev, HOLSTEIN_BAND[0], 1e-9)
+
+
+def holstein_band(dev, model, ops, seed):
+    """Phases 11b and 11c: the polaron band E(k) and the spectral function
+    of B_k|0> at k = j/16, j = 0..8, at depth 14, from one skeleton."""
+    skel = model._vrnl_skel[1]
+    rng = np.random.default_rng(19)
+    rows = []
+    for j, e_want in enumerate(HOLSTEIN_BAND):
+        k = j / 16
+        t0 = time.perf_counter()
+        model.build_basis_vrnl([seed], 0, [0.0], [k], 14, [ops["N_e"]], [1.0])
+        _, t_solve = _timed(lambda: model.locate_E0_lanczos(which="vrnl"))
+        s = model.sec_vrnl[0]
+        solve_applies = s.matvec.n_applies
+        if s.vmat is not skel:
+            raise AssertionError(f"k={k}: the skeleton was rebuilt")
+        e = model.eigenvals_vrnl[0]
+        psi = model.eigenvecs_vrnl[0]
+        resid = float(torch.linalg.vector_norm(s.matvec(psi) - e * psi))
+        n_e = model.measure_vrnl_static(ops["N_e"])
+        x = torch.as_tensor(rng.standard_normal(s.dim)
+                            + 1j * rng.standard_normal(s.dim), device=dev)
+        apply_ms = cuda_ms(lambda: s.matvec(x))
+        # least time of one apply: cols, values, diagonal and x read once,
+        # y written once, over the memory rate
+        ell = s.matvec
+        bound_ms = (ell.cols.numel() * 8 + ell.vals.numel() * 16
+                    + ell.n * (8 + 16 + 16)) / HBM_BYTES_PER_S * 1e3
+        # 11c: the spectral function of B_k|0>
+        bk = _b_k(ops, k)
+        v = model.moprXgs_vrnl(bk)
+        (nrm, alphas, betas), t_dyn = _timed(
+            lambda: model.measure_vrnl_dynamic(bk, 0, m_steps=100))
+        rec = {"k": k, "E": e, "golden": e_want, "residual": resid,
+               "N_e": n_e.real, "matvecs": solve_applies,
+               "solve_s": t_solve, "apply_ms": apply_ms,
+               "apply_bound_ms": bound_ms, "ell_width": ell.width,
+               "norm": nrm,
+               "alpha0": float(alphas[0]), "dynamics_s": t_dyn}
+        if j <= 4:
+            m = alphas.size
+            T = (np.diag(alphas) + np.diag(betas[:m - 1], 1)
+                 + np.diag(betas[:m - 1], -1))
+            w, U = np.linalg.eigh(T)
+            # ghost copies of the converged pole share its weight
+            near = np.abs(w - w[0]) < 1e-6
+            rec["pole_E"] = float(w[0])
+            rec["pole_weight"] = float(nrm ** 2 * np.sum(U[0, near] ** 2))
+            rec["qp_weight"] = float(abs(torch.vdot(psi, v)) ** 2)
+        rec["seconds"] = time.perf_counter() - t0
+        print("vrnl_band", json.dumps(rec), flush=True)
+        _check(f"holstein E(k={k})", e, e_want, 1e-9)
+        if not resid < 1e-8:
+            raise AssertionError(f"k={k}: residual {resid:.3e}")
+        _check(f"holstein N_e at k={k}", n_e.real, 1.0, 1e-9)
+        _check(f"holstein |B_k|0>| at k={k}", nrm, 1.0, 1e-12)
+        _check(f"holstein alpha0 at k={k}", rec["alpha0"],
+               -2.0 * np.cos(2 * np.pi * k), 1e-12)
+        if j <= 4:
+            _check(f"holstein lowest pole at k={k}", rec["pole_E"], e, 1e-8)
+            _check(f"holstein pole weight at k={k}", rec["pole_weight"],
+                   rec["qp_weight"], 1e-6)
+        rows.append(rec)
+    return rows
+
+
+def wannier_magnon(dev, L=16, nk=8):
+    """Phase 11d: the Wannier matrix of the one-magnon band of the
+    ferromagnetic background, against its analytic value, then reloaded
+    from the per-k records with no eigh."""
+    import shutil
+    import tempfile
+
+    from quantum_basis_tpu_torch import Opr, config
+    from torch_zoo import SP_HALF, heisenberg_chain
+
+    m, cons = heisenberg_chain(L, device=dev)
+    vals = np.zeros((1, m.space.n_slots), dtype=np.int64)
+    vals[0, L // 2] = 1
+    m.build_basis_vrnl(m.space.encode(vals), 0, [0.0], [0.0], 2,
+                       [cons["Sz"]], [0.5 * L - 1.0])
+    ar = [([float(r)], Opr(r, 0, False, SP_HALF["Sz"])) for r in range(L)]
+    momenta = [[j / L] for j in range(nk)]
+    c = (L - 1) // 2
+    want = np.array([[0.5 * L - 1.0 if i1 == i2 else
+                      -np.exp(2j * np.pi * (i1 - i2) * c / L)
+                      for i2 in range(nk)] for i1 in range(nk)])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    old = (config.enable_ckpt, config.ckpt_dir, np.linalg.eigh)
+    try:
+        config.enable_ckpt, config.ckpt_dir = True, tmp
+        mu, t_first = _timed(lambda: m.wannier_mat_vrnl(
+            ar, momenta, lambda model, idx: 0))
+        n_rec = len(os.listdir(tmp))
+
+        def no_eigh(*a, **kw):
+            raise AssertionError("eigh ran despite the per-k records")
+
+        np.linalg.eigh = no_eigh
+        mu2, t_second = _timed(lambda: m.wannier_mat_vrnl(
+            ar, momenta, lambda model, idx: 0))
+    finally:
+        config.enable_ckpt, config.ckpt_dir, np.linalg.eigh = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(np.abs(mu - want).max())
+    print("vrnl_wannier", json.dumps({
+        "model": f"chain{L}_one_magnon", "momenta": nk, "records": n_rec,
+        "max_err_analytic": err, "first_s": t_first,
+        "reloaded_s": t_second}), flush=True)
+    if not err <= 1e-9 or n_rec != nk:
+        raise AssertionError(f"Wannier: err {err:.3e}, {n_rec} records")
+    if not np.abs(mu2 - mu).max() <= 1e-12:
+        raise AssertionError("Wannier: the reloaded matrix differs")
+
+
+def fermion_signs(dev, model, n=100_000):
+    """Phase 11e: canonicalize random labels of the Holstein space on the
+    card (0-16 fermions each) against the host oracle."""
+    from torch_zoo import center_oracle
+
+    ct = model.center_translator
+    labels = np.random.default_rng(23).integers(0, model.space.label_space,
+                                                size=n)
+    lab_t = torch.as_tensor(labels, device=dev)
+    (canon, disp, sign), t = _timed(lambda: ct.canonicalize_t(lab_t))
+    ms = cuda_ms(lambda: ct.canonicalize_t(lab_t), samples=5, per_sample=2)
+    want = center_oracle(model.space, model.lattice, labels)
+    got = [canon.cpu().numpy(), disp.cpu().numpy(), sign.cpu().numpy()]
+    nflip = int((got[2] < 0).sum())
+    print("vrnl_signs", json.dumps({
+        "labels": n, "negative_signs": nflip, "first_s": t,
+        "canonicalize_ms": ms}), flush=True)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("canonicalize differs from the host oracle")
+    if nflip == 0:
+        raise AssertionError("no fermion sign was exercised")
+    return ms
+
+
+def vrnl_run(bsr_mod, dev):
+    """Phase 11: the variational sector at full width on the Holstein
+    polaron chain (L = 16, Nmax = 3, t = w = g = 1)."""
+    from torch_zoo import holstein_chain
+
+    bsr_mod.launch_count = 0
+    t0 = time.perf_counter()
+    model, ops = holstein_chain(HOLSTEIN_L, 3, device=dev)
+    seed = int(model.space.strides[model.space.slot(HOLSTEIN_L // 2, 0)])
+    holstein_growth(dev, model, ops, seed)
+    t_a = time.perf_counter() - t0
+    rows = holstein_band(dev, model, ops, seed)
+    t_bc = time.perf_counter() - t0 - t_a
+    wannier_magnon(dev)
+    canon_ms = fermion_signs(dev, model)
+    if bsr_mod.launch_count != 0:
+        raise AssertionError("the vrnl path launched the BSR kernel")
+    print("vrnl_summary", json.dumps({
+        "card": card_line(), "growth_s": t_a, "band_and_spectra_s": t_bc,
+        "s_per_k": t_bc / len(rows),
+        "apply_ms_median": float(np.median([r["apply_ms"] for r in rows])),
+        "canonicalize_1e5_ms": canon_ms,
+        "phase_s": time.perf_counter() - t0}), flush=True)
+
+
 def ell_apply_columns(ell, X, block=128):
     """H X for an ELL matrix and a matrix of column vectors, in column
     blocks (each gather makes an (n, width, block) intermediate)."""
@@ -1627,6 +1893,32 @@ def profile_kpm(dev):
                 lambda: mt.measure_repr_dynamic_kpm(A, 0, 1, KPM_MOMENTS))
 
 
+def profile_vrnl(dev):
+    """The variational sector of phase 11 at depth 14: one k's regrowth,
+    skeleton build and solve, and 20 MatvecVrnl applies."""
+    from torch_zoo import holstein_chain
+
+    m, ops = holstein_chain(HOLSTEIN_L, 3, device=dev)
+    seed = int(m.space.strides[m.space.slot(HOLSTEIN_L // 2, 0)])
+
+    def grow():
+        m.build_basis_vrnl([seed], 0, [0.0], [0.25], 14, [ops["N_e"]], [1.0])
+
+    def skeleton():
+        m._vrnl_skel = None
+        m.generate_Ham_sparse_vrnl(0)
+
+    device_busy("holstein16 vrnl growth to depth 14 (dim 28,956)", grow)
+    device_busy("holstein16 vrnl skeleton (nnz 66,903)", skeleton)
+    device_busy("holstein16 vrnl solve k=1/4",
+                lambda: m.locate_E0_lanczos(which="vrnl"))
+    mv = m.sec_vrnl[0].matvec
+    x = torch.randn(mv.n, dtype=torch.complex128, device=dev)
+    device_busy("holstein16 MatvecVrnl apply x20",
+                lambda: [mv(x) for _ in range(20)])
+    del m, mv, x
+
+
 def profile_windows(dev):
     """--profile: where the device waits for the host on the full route."""
     from torch_zoo import heisenberg_chain
@@ -1685,6 +1977,7 @@ def profile_windows(dev):
         torch.cuda.empty_cache()
     del m
     profile_kpm(dev)
+    profile_vrnl(dev)
 
     pm, _ = hubbard_factorized(4, 4, device=dev)
     fs32 = pm.op(torch.float32)
@@ -1760,8 +2053,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phases 1-6, 8-10: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    vrnl_run(bsr_mod, dev)
+    torch.cuda.empty_cache()
+    print(f"phases 1-6, 8-11: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     product_run(dev, t_start, force_full=False)
-    print(f"phases 1-10: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-11: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")

@@ -187,3 +187,34 @@ def projector_from_numpy(N, momentum, dims, phases, signs_np, specs, *,
              for r, sidx in shifts if sidx is not None}
     rolls = rolls_from_numpy(N, specs, signs, device=device)
     return MomentumProjector.from_arrays(rolls, momentum, dims, phases)
+
+
+def vrnl_sector_from_numpy(model, labels, momentum, gs_label, gs_momentum,
+                           gs_omega, gs_norm, evals=(), evecs=(),
+                           sec: int = 0):
+    """Install a variational (vrnl) sector of the JAX package in a port
+    ``Model``, the vrnl twin of :func:`full_sector_from_numpy`.
+
+    ``labels``: the JAX sector's canonical labels; ``momentum``,
+    ``gs_label``, ``gs_momentum``, ``gs_omega``, ``gs_norm``: its fields of
+    the same names; ``evecs``: eigenvectors over the vrnl basis as split
+    (re, im|None) pairs; ``evals``: their energies. The port builds its own
+    skeleton and matvec over the same labels when a solve or measurement
+    needs them. Returns the port's ``VrnlSector``.
+    """
+    from quantum_basis_tpu_torch.basis.vrnl import VrnlSector
+
+    s = VrnlSector()
+    s.labels = np.array(labels, dtype=np.int64)
+    s.dim = int(s.labels.size)
+    s.momentum = np.array(momentum, dtype=np.float64)
+    s.gs_label = int(gs_label)
+    s.gs_momentum = np.array(gs_momentum, dtype=np.float64)
+    s.gs_omega = int(gs_omega)
+    s.gs_norm = float(gs_norm)
+    s.evals = [float(e) for e in evals]
+    s.evecs = [vec_from_split(re, im, device=model.device).to(torch.complex128)
+               for re, im in evecs]
+    model.sec_vrnl[sec] = s
+    model.eigenvals_vrnl, model.eigenvecs_vrnl = list(s.evals), list(s.evecs)
+    return s

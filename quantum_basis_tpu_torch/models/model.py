@@ -55,8 +55,17 @@ float32 BSR kernel where ``_repr_bsr32`` routes the sector). ``locate_Es``
 finds the eigenpairs inside an energy window by Chebyshev-filtered subspace
 iteration.
 
-Not ported yet, each raising ``NotImplementedError``: a device mesh and the
-variational sector.
+The variational (Trugman) sector: ``build_basis_vrnl`` grows a
+translate-to-center basis from seed states on the device (basis/vrnl.py),
+``generate_Ham_sparse_vrnl`` builds its momentum-independent matrix skeleton
+once per basis, and ``locate_E0_lanczos(which="vrnl")`` /
+``locate_E0_iram(which="vrnl")`` re-phase it for the sector's momentum and
+solve (dense ``eigh`` on the host up to ``_DENSE_CUTOFF`` rows, else
+thick-restart Lanczos on :class:`MatvecVrnl`); ``moprXgs_vrnl``,
+``moprXvec_vrnl``, ``measure_vrnl_static`` / ``measure_vrnl_dynamic`` and
+``wannier_mat_vrnl`` measure over it (ops/apply_vrnl.py).
+
+Not ported yet, raising ``NotImplementedError``: a device mesh.
 """
 
 from __future__ import annotations
@@ -71,6 +80,12 @@ from quantum_basis_tpu_torch.basis.state import StateSpace
 from quantum_basis_tpu_torch.basis.translation import (
     TranslationSet,
     enumerate_reps,
+)
+from quantum_basis_tpu_torch.basis.vrnl import (
+    CenterTranslator,
+    VrnlMatrix,
+    VrnlSector,
+    grow_basis_vrnl,
 )
 from quantum_basis_tpu_torch.basis.weisse import enumerate_reps_dnc
 from quantum_basis_tpu_torch.ops.apply import (
@@ -91,6 +106,13 @@ from quantum_basis_tpu_torch.ops.apply_repr import (
     MatvecRepr,
     ReprBasis,
     mopr_x_vec_repr,
+)
+from quantum_basis_tpu_torch.ops.apply_vrnl import (
+    MatvecVrnl,
+    _images_canon,
+    measure_vrnl_static,
+    mopr_x_gs_vrnl,
+    mopr_x_vec_vrnl,
 )
 from quantum_basis_tpu_torch.ops.bsr import bsr_fill_stats, ell_to_bsr
 from quantum_basis_tpu_torch.ops.compile import (
@@ -176,13 +198,17 @@ class Model:
         self._orbitals: list[tuple[SiteBasis, int]] = []
         self._space: StateSpace | None = None
         self.Ham = Mopr()
+        self.Ham_vrnl = Mopr()  # Trugman-basis generator (qbasis.h:1269)
         self._compiled = None
         self.sec_full: dict[int, Sector] = {}
         self.sec_repr: dict[int, Sector] = {}
+        self.sec_vrnl: dict[int, VrnlSector] = {}
         self.eigenvals_full: list[float] = []
         self.eigenvecs_full: list = []  # 1-d tensors over the sector basis
         self.eigenvals_repr: list[float] = []
         self.eigenvecs_repr: list = []
+        self.eigenvals_vrnl: list[float] = []
+        self.eigenvecs_vrnl: list = []
         self._e0_sec = 0  # sector of the stored ground state
         self._tset = None
         self._repr_cache = None  # (key, sector labels, orbit reps)
@@ -190,6 +216,8 @@ class Model:
         self._rolls = False        # RollTranslations, None = unsupported
         self._fsrepr_bases = {}    # dtype -> engine shared by all momenta
         self._qn_mask_cache = None  # (enumeration key, {dtype: 0/1 mask})
+        self._ct = None
+        self._vrnl_skel = None  # (key, VrnlMatrix) cache across momenta
 
     # ------------------------------------------------------------- building
 
@@ -390,7 +418,8 @@ class Model:
     @staticmethod
     def _check_which(which: str):
         if which == "vrnl":
-            raise _not_ported("the variational sector", "the vrnl slice")
+            raise ValueError("the variational sector is solved by "
+                             "locate_E0_lanczos / locate_E0_iram only")
         if which not in ("full", "repr"):
             raise ValueError(f"which must be 'full' or 'repr', not {which!r}")
 
@@ -414,6 +443,8 @@ class Model:
         both values and vectors to solver tolerance without a separate
         refinement stage. ``nev`` = energies wanted, ``ncv`` = vectors kept.
         """
+        if which == "vrnl":
+            return self._locate_E0_vrnl(nev, ncv, maxit, sec, seed)
         self._check_which(which)
         if which == "repr":
             return self._locate_E0_lanczos_repr(nev, ncv, maxit, sec, seed)
@@ -685,6 +716,8 @@ class Model:
     def locate_E0_iram(self, which: str = "full", nev: int = 2, ncv: int = 6,
                        maxit: int = 1000, sec: int = 0, seed: int = 1):
         """Several lowest eigenpairs via thick-restart Lanczos (ARPACK repl.)."""
+        if which == "vrnl":
+            return self._locate_E0_vrnl(nev, max(ncv, nev), maxit, sec, seed)
         self._check_which(which)
         sector = self.sec_full[sec] if which == "full" else self.sec_repr[sec]
         dense = sector.dim <= _DENSE_CUTOFF and which == "full"
@@ -1023,6 +1056,204 @@ class Model:
                 mv = sector._meas_cache[fp] = MatvecRepr(comp, sector.dbasis)
             out += factor * float(torch.vdot(phi, mv(phi)).real)
         return complex(out)
+
+    # ----------------------------------------------- variational (vrnl) sector
+
+    @property
+    def center_translator(self) -> CenterTranslator:
+        """Batched translate-to-center canonicalizer (built lazily)."""
+        if self._ct is None:
+            self._ct = CenterTranslator(self.space, self.lattice, self.device)
+        return self._ct
+
+    def add_Ham_vrnl(self, op):
+        """Accumulate a term into the vrnl basis *generator* (cf.
+        model::add_Ham_vrnl, src/qbasis.h:1367-1371 — used only to grow
+        Trugman's variational basis, not as the matrix)."""
+        self.Ham_vrnl += self._coerce_mopr(op)
+
+    def build_basis_vrnl(self, initial_labels, gs_label: int, momentum_gs,
+                         momentum, depth: int, conserve_lst=None,
+                         val_lst=None, sec: int = 0):
+        """Grow Trugman's variational basis from seed states.
+
+        cf. model::build_basis_vrnl (src/model.cc:489-616). ``initial_labels``
+        are integer state labels (the encoding of the reference's
+        ``mbasis_elem`` list); ``momentum_gs`` / ``momentum`` are fractional
+        wave vectors per unit cell (phase convention exp(2*pi*i k.disp), see
+        the basis/vrnl.py docstring). The basis does not depend on
+        ``momentum``: the matrix skeleton of an earlier call with the same
+        labels is reused.
+        """
+        ct = self.center_translator
+        gen = compile_operator(self.Ham_vrnl if not self.Ham_vrnl.q_zero()
+                               else self.Ham, self.space)
+        gs_canon, _, _ = ct.canonicalize(np.asarray([gs_label], dtype=np.int64))
+        gs_canon = int(gs_canon[0])
+        labels = grow_basis_vrnl(gen, ct, initial_labels, depth,
+                                 conserve_lst, val_lst)
+        labels = labels[labels != gs_canon]  # basis.remove(gs), model.cc:570
+
+        s = VrnlSector()
+        s.labels = labels
+        s.dim = int(labels.size)
+        s.momentum = np.asarray(momentum, dtype=np.float64)
+        s.gs_label = gs_canon
+        s.gs_momentum = np.asarray(momentum_gs, dtype=np.float64)
+        s.gs_omega = ct.omega_g(gs_canon)
+        # gs only participates at its own momentum (src/model.cc:601-612)
+        dk = np.mod(s.momentum - s.gs_momentum + 1e-10, 1.0)
+        dk = np.minimum(dk, 1.0 - dk)
+        s.gs_norm = float(s.gs_omega) if np.linalg.norm(dk) < 1e-8 else 0.0
+        self.sec_vrnl[sec] = s
+        return s.dim
+
+    def generate_Ham_sparse_vrnl(self, sec: int = 0):
+        """Build the vrnl-sector matrix skeleton (once per basis and H) and
+        the device matvec at the sector momentum; also computes the
+        variational GS energy (cf. generate_Ham_sparse_vrnl,
+        src/model.cc:838-924)."""
+        ct = self.center_translator
+        s = self.sec_vrnl[sec]
+        key = (s.labels.tobytes(), id(self.compiled_Ham))
+        if self._vrnl_skel is None or self._vrnl_skel[0] != key:
+            self._vrnl_skel = (key, VrnlMatrix(self.compiled_Ham, ct, s.labels))
+        s.vmat = self._vrnl_skel[1]
+        s.matvec = MatvecVrnl(s.vmat, s.momentum)
+
+        # variational ground-state energy (src/model.cc:865-888)
+        if s.gs_E0 is None:
+            gs = np.asarray([s.gs_label], dtype=np.int64)
+            e0 = 0.0
+            if not self.compiled_Ham.diag_terms.q_zero():
+                ev = compile_diagonal(self.compiled_Ham.diag_terms, self.space)
+                e0 += float(np.asarray(ev(self.space.decode(gs)))[0])
+            cells = self.lattice.Nsites / self.lattice.num_sub
+            k = torch.as_tensor(s.gs_momentum, device=self.device)
+            for _, amp, canon, disp in _images_canon(
+                    self.compiled_Ham, ct, torch.as_tensor(gs,
+                                                           device=self.device)):
+                hit = canon[0] == s.gs_label
+                ang = 2.0 * np.pi * (disp[0].to(torch.float64) @ k)
+                coeff = (float(s.gs_omega) / cells) * amp[0] * torch.exp(1j * ang)
+                e0 += float(torch.where(hit, coeff, 0.0).sum().real)
+            s.gs_E0 = e0
+        return s.matvec
+
+    def dim_vrnl(self, sec: int = 0) -> int:
+        return self.sec_vrnl[sec].dim
+
+    def _locate_E0_vrnl(self, nev, ncv, maxit, sec, seed):
+        """Dense ``eigh`` on the host up to ``_DENSE_CUTOFF`` rows (the JAX
+        package's gauge of the eigenvectors), else thick-restart Lanczos on
+        the sector's :class:`MatvecVrnl`."""
+        s = self.sec_vrnl[sec]
+        if s.matvec is None:
+            self.generate_Ham_sparse_vrnl(sec)
+        if s.dim <= _DENSE_CUTOFF:
+            evals, evecs = np.linalg.eigh(s.vmat.at_momentum(s.momentum))
+            vecs = [torch.as_tensor(evecs[:, i].copy(), device=self.device)
+                    for i in range(min(max(nev, ncv, 1), s.dim))]
+            evals = evals[: max(nev, 1)].tolist()
+        else:
+            evals, vecs = eigs_smallest(
+                s.matvec, s.dim, nev=nev, ncv=max(12, 2 * nev + 6),
+                maxit=maxit, seed=seed, complex_vec=True)
+        self.eigenvals_vrnl = list(evals)
+        self.eigenvecs_vrnl = vecs
+        s.evals, s.evecs = list(evals), list(vecs)
+
+    def moprXgs_vrnl(self, Bq, sec: int = 0) -> torch.Tensor:
+        """B_q |gs> expressed over the vrnl basis (cf. src/model.cc:1915-1984)."""
+        return mopr_x_gs_vrnl(self._coerce_mopr(Bq), self.sec_vrnl[sec],
+                              self.center_translator)
+
+    def moprXvec_vrnl(self, Bq, sec_old: int, sec_new: int, x):
+        """(y, pG): B_q applied to a vrnl-sector vector (src/model.cc:1987-2074)."""
+        return mopr_x_vec_vrnl(self._coerce_mopr(Bq), self.sec_vrnl[sec_old],
+                               self.sec_vrnl[sec_new], self.center_translator, x)
+
+    def measure_vrnl_static(self, lhs, sec: int = 0, which: int = 0) -> complex:
+        """<phi|lhs|phi> over a vrnl eigenvector (src/model.cc:2077-2129)."""
+        s = self.sec_vrnl[sec]
+        return measure_vrnl_static(self._coerce_mopr(lhs), s,
+                                   self.center_translator, s.evecs[which])
+
+    def measure_vrnl_dynamic(self, Bq, sec: int, m_steps: int):
+        """Continued-fraction data for the vrnl sector: |v> = B_q|gs>,
+        returns (norm, alphas, betas) (cf. src/model.cc:2131-2143); a B_q
+        that leaves nothing in the basis gives (0.0, empty, empty)."""
+        s = self.sec_vrnl[sec]
+        if s.matvec is None:
+            self.generate_Ham_sparse_vrnl(sec)
+        v = self.moprXgs_vrnl(Bq, sec)
+        nrm = float(torch.linalg.vector_norm(v))
+        if nrm < 1e-12:
+            return 0.0, np.zeros(0), np.zeros(0)
+        alphas, betas = lanczos_dynamics(s.matvec, v / nrm, m_steps)
+        return nrm, alphas, betas
+
+    def wannier_mat_vrnl(self, Ar_list, momenta_list, locate_state,
+                         sec: int = 0, nev: int = 8):
+        """mu[k1, k2] = <phi(k1)| B_{k1-k2} |phi(k2)> over a k-grid.
+
+        cf. model::WannierMat_vrnl (src/model.cc:2145-2310): per momentum the
+        vrnl matrix is re-phased (O(nnz), no basis rebuild), diagonalized on
+        the host, a band state selected by ``locate_state(model, idx)``; then
+        the overlap matrix with B_q built from ``Ar_list`` =
+        [(r_i, A_{r_i}), ...] with Hermitian completion. With checkpointing
+        on, each momentum's eigenpairs are a record (the reference's
+        eigenvecs_[k].dat files, src/model.cc:2163-2187) under a key that
+        carries the CRC32 of the skeleton: a record written by either package
+        loads in the other.
+        """
+        import zlib
+
+        s = self.sec_vrnl[sec]
+        if s.vmat is None:
+            self.generate_Ham_sparse_vrnl(sec)
+        momenta = [np.asarray(k, dtype=np.float64) for k in momenta_list]
+        nk = len(momenta)
+        store = ckpt.active_store()
+        # content fingerprint of the vrnl Hamiltonian: a stale out_Qckpt/
+        # from a run with different couplings (same dim/sec/k) is ignored
+        fp = 0
+        for arr in (s.vmat.rows, s.vmat.cols, s.vmat.amp_re, s.vmat.amp_im,
+                    s.vmat.disp, s.vmat.diag):
+            fp = zlib.crc32(np.ascontiguousarray(arr).tobytes(), fp)
+
+        band: list[np.ndarray] = []
+        base_momentum = s.momentum
+        for idx, k in enumerate(momenta):
+            ckey = ("wannier_vrnl_sec%d_dim%d_h%08x_k%s"
+                    % (sec, s.dim, fp, "_".join(f"{v:+.6f}" for v in k)))
+            rec = store.load(ckey) if store is not None else None
+            if rec is not None and rec["evecs"].shape[0] == s.dim:
+                evals, evecs = rec["evals"], rec["evecs"]
+            else:
+                evals, evecs = np.linalg.eigh(s.vmat.at_momentum(k))
+                if store is not None:
+                    store.save(ckey, {"evals": evals, "evecs": evecs})
+            s.momentum = k
+            s.evals = evals[:nev].tolist()
+            s.evecs = [torch.as_tensor(evecs[:, i].copy(), device=self.device)
+                       for i in range(min(nev, s.dim))]
+            which = int(locate_state(self, idx))
+            band.append(evecs[:, which].copy())
+        mu = np.zeros((nk, nk), dtype=np.complex128)
+        for i1 in range(nk):
+            for i2 in range(i1, nk):
+                q = momenta[i1] - momenta[i2]
+                Bq = Mopr()
+                for r, A in Ar_list:
+                    phase = np.exp(2j * np.pi * float(np.dot(q, np.asarray(r))))
+                    Bq += complex(phase) * self._coerce_mopr(A)
+                s.momentum = momenta[i2]
+                y, _ = self.moprXvec_vrnl(Bq, sec, sec, band[i2])
+                mu[i1, i2] = np.vdot(band[i1], y.cpu().numpy())
+                mu[i2, i1] = np.conj(mu[i1, i2])
+        s.momentum = base_momentum
+        return mu
 
     # ------------------------------------------- full <-> momentum vectors
 

@@ -111,9 +111,9 @@ def _group_device(group, device):
     )
 
 
-def _block_images(g, labels, V, F):
-    """Per block: (sign float64, (B, T) or broadcastable to it; amplitudes
-    (B, T, K); target labels (B, T, K))."""
+def _block_lookup(g, labels, V, F):
+    """Per block: (sign float64, (B, T) or broadcastable to it; the row of
+    each term's tables, (B, T); target labels (B, T, K))."""
     c = (V[:, g["slots"]].long() * g["jstrides"]).sum(dim=-1)    # (B, T)
     if g["W"] is None:
         sign = torch.ones((1, 1), dtype=torch.float64, device=V.device)
@@ -121,6 +121,13 @@ def _block_images(g, labels, V, F):
         sign = 1.0 - 2.0 * torch.remainder(F.to(torch.float64) @ g["W"], 2.0)
     flat = torch.arange(g["T"], device=V.device) * g["D"] + c
     tgt = labels[:, None, None] + g["dlt"][flat]                  # (B, T, K)
+    return sign, flat, tgt
+
+
+def _block_images(g, labels, V, F):
+    """Per block: (sign float64, (B, T) or broadcastable to it; amplitudes
+    (B, T, K); target labels (B, T, K))."""
+    sign, flat, tgt = _block_lookup(g, labels, V, F)
     return sign, g["amp"][flat], tgt
 
 

@@ -90,6 +90,39 @@ def compile_diagonal(mopr: Mopr, space: StateSpace):
     return evaluate
 
 
+def compile_diagonal_complex(mopr: Mopr, space: StateSpace):
+    """Complex host-side variant of :func:`compile_diagonal`.
+
+    Needed for diagonal operators with complex coefficients (e.g. the
+    phase-weighted B_q = sum_r e^{i q.r} Sz_r used in vrnl/Wannier
+    measurements, reference src/model.cc:2024-2027 diagonal branch).
+    Returns ``f(V) -> complex128 ndarray`` (numpy, host path).
+    """
+    if not mopr.q_diagonal():
+        raise ValueError("compile_diagonal_complex requires a diagonal operator")
+    terms = []
+    const = 0.0 + 0.0j
+    for t in mopr.terms:
+        if t.q_identity():
+            const += complex(t.coeff)
+            continue
+        slots = np.asarray(t.slots(space), dtype=np.int64)
+        diags = [np.asarray(f.mat, dtype=np.complex128) for f in t.factors]
+        terms.append((complex(t.coeff), slots, diags))
+
+    def evaluate(V):
+        V = np.asarray(V)
+        out = np.full(V.shape[:-1], const, dtype=np.complex128)
+        for coeff, slots, diags in terms:
+            prod = np.full(V.shape[:-1], coeff, dtype=np.complex128)
+            for s, d in zip(slots, diags):
+                prod = prod * d[V[..., s]]
+            out = out + prod
+        return out
+
+    return evaluate
+
+
 # --------------------------------------------------------------------------
 # Off-diagonal term compilation
 # --------------------------------------------------------------------------

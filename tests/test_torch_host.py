@@ -94,7 +94,11 @@ def test_port_imports_no_jax():
             "quantum_basis_tpu_torch.ops.translate_fullspace",
             "quantum_basis_tpu_torch.solvers.cg",
             "quantum_basis_tpu_torch.solvers.kpm",
-            "quantum_basis_tpu_torch.postprocess"]
+            "quantum_basis_tpu_torch.postprocess",
+            "quantum_basis_tpu_torch.basis.vrnl",
+            "quantum_basis_tpu_torch.basis.wavefunction",
+            "quantum_basis_tpu_torch.ops.apply_vrnl",
+            "quantum_basis_tpu_torch.utils.profiling"]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
@@ -102,9 +106,63 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
 
 
+def test_device_defaults_are_cuda():
+    """Every ``device`` parameter of the port is required or defaults to
+    "cuda": nothing picks the CPU on its own."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import quantum_basis_tpu_torch as pkg
+
+    seen = 0
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [obj] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns = [getattr(f, "__func__", f) for f in vars(obj).values()]
+            for f in fns:
+                if not inspect.isfunction(f):
+                    continue
+                p = inspect.signature(f).parameters.get("device")
+                if p is not None:
+                    seen += 1
+                    assert p.default in ("cuda", inspect.Parameter.empty), \
+                        (info.name, f.__qualname__, p.default)
+    assert seen > 20
+
+
+def test_phase_timer_and_trace(tmp_path):
+    from quantum_basis_tpu.utils.profiling import PhaseTimer as JaxPhaseTimer
+    from quantum_basis_tpu_torch.utils.profiling import PhaseTimer, trace
+
+    lines, jax_lines = [], []
+    for cls, out in ((PhaseTimer, lines), (JaxPhaseTimer, jax_lines)):
+        pt = cls(printer=out.append)
+        for _ in range(2):
+            with pt.phase("apply"):
+                pass
+        with pt.phase("solve", verbose=True):
+            pass
+        pt.report()
+        assert pt.counts == {"apply": 2, "solve": 1}
+        assert all(t >= 0.0 for t in pt.times.values())
+    assert [ln.split()[0] for ln in lines] == [ln.split()[0]
+                                               for ln in jax_lines]
+    assert lines[0].startswith("[solve]") and "(x2)" in "".join(lines)
+    with trace(str(tmp_path / "prof")) as prof:
+        torch.ones(64, dtype=torch.float64).cumsum(0).sum()
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    assert any("cumsum" in e.key for e in prof.key_averages())
+
+
 def test_unported_options_raise():
     """What waits for a later slice raises and names it; checkpointing, the
-    streaming enumeration, dynamics and interior windows no longer do."""
+    streaming enumeration, dynamics, interior windows and the variational
+    sector no longer do."""
     from quantum_basis_tpu_torch import Lattice, Model, config
 
     try:
@@ -115,8 +173,9 @@ def test_unported_options_raise():
     assert config.enable_ckpt is False
     m, _ = tz.heisenberg_chain(4)
     assert m.enumerate_basis_repr([0], method="dnc") == 6
-    with pytest.raises(NotImplementedError, match="vrnl"):
-        m.locate_E0_lanczos(which="vrnl")
+    m.build_basis_vrnl([1], 0, [0.0], [0.25], 2)
+    m.locate_E0_lanczos(which="vrnl")
+    assert m.dim_vrnl() == 1 and len(m.eigenvals_vrnl) == 1
     m.locate_E0_lanczos(which="repr")
     nrm, alphas, betas = m.measure_repr_dynamic(
         m.symmetrize_op(tz.sz_pair(0, 1)), 0, 0, 3)

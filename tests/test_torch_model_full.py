@@ -224,12 +224,17 @@ def test_measure_full_static_chained_list(jax_sector_route):
 def test_unported_routes_name_their_slice(monkeypatch, tmp_path):
     mt, ot = tz.heisenberg_chain(8)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
-    for call, word in (
-            (lambda: mt.locate_E0_lanczos("vrnl"), "vrnl"),
-            (lambda: mt.locate_E0_iram("vrnl"), "vrnl"),
-            (lambda: qt.Model(mesh=object()), "multi-GPU")):
-        with pytest.raises(NotImplementedError, match=word):
-            call()
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        qt.Model(mesh=object())
+    # the variational sector is ported (tests/test_torch_vrnl.py): both
+    # solvers run it; the other solvers refuse it
+    mt.build_basis_vrnl([1], 0, [0.0], [0.0], 3, [ot["Sz"]], [3.0], sec=1)
+    mt.locate_E0_lanczos("vrnl", sec=1)
+    mt.locate_E0_iram("vrnl", nev=1, sec=1)
+    # one magnon at k = 0 over the all-up chain of 8: L/4 - 1 + cos 0
+    assert mt.eigenvals_vrnl == pytest.approx([2.0], abs=1e-12)
+    with pytest.raises(ValueError, match="variational"):
+        mt.locate_Emax_iram("vrnl")
     with pytest.raises(ValueError):
         mt.locate_E0_lanczos("half")
     # dynamics and interior windows are ported (tests/test_torch_dynamics.py)
@@ -242,6 +247,16 @@ def test_unported_routes_name_their_slice(monkeypatch, tmp_path):
 
 
 def test_exports_follow_the_jax_package():
+    import importlib
+
     assert set(qj.__all__) == set(qt.__all__)
     for name in qt.__all__:
         assert hasattr(qt, name)
+    # every subpackage exports the JAX subpackage's names (lattice a
+    # superset: TiltedLattice)
+    for sub in ("ops", "basis", "models", "utils", "lattice", "solvers"):
+        jax_sub = importlib.import_module(f"quantum_basis_tpu.{sub}")
+        port_sub = importlib.import_module(f"quantum_basis_tpu_torch.{sub}")
+        assert set(jax_sub.__all__) <= set(port_sub.__all__), sub
+        for name in jax_sub.__all__:
+            assert getattr(port_sub, name).__name__ == name, (sub, name)

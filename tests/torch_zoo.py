@@ -425,3 +425,66 @@ def tilted_heisenberg_with(TiltedLattice, Model, Opr, Mopr, A, **model_kw):
 def tilted_heisenberg(A, device="cpu"):
     return tilted_heisenberg_with(TiltedLattice, Model, Opr, Mopr, A,
                                   device=device)
+
+
+def holstein_chain_with(Lattice, Model, Opr, Mopr, L, Nmax, t=1.0, w=1.0,
+                        g=1.0, **model_kw):
+    """Holstein polaron chain (PBC): orbital 0 spinless fermions, orbital 1
+    bosons with at most ``Nmax`` phonons per site;
+    H = -t sum (c+_i c_{i+1} + h.c.) + w sum n^b_i - g sum n_i (b+_i + b_i).
+    Built with the given package's classes. Returns (model, {"N_e": electron
+    number, "c_dag": {site: c+_site}}); the generator of the variational
+    basis is H itself."""
+    b = np.diag(np.sqrt(np.arange(1, Nmax + 1, dtype=np.float64)), k=1)
+    nb = np.diag(np.arange(Nmax + 1, dtype=np.float64))
+    m = Model(Lattice("chain", [L], ["pbc"]), **model_kw)
+    m.add_orbital(L, "spinless-fermion")
+    m.add_orbital(L, "boson", Nmax=Nmax)
+    n_e = Mopr()
+    c_dag = {}
+    for x in range(L):
+        j = (x + 1) % L
+        m.add_Ham(-t * (Opr(x, 0, True, C_SPINLESS.T) * Opr(j, 0, True, C_SPINLESS)
+                        + Opr(j, 0, True, C_SPINLESS.T)
+                        * Opr(x, 0, True, C_SPINLESS)))
+        m.add_Ham(w * Opr(x, 1, False, nb))
+        m.add_Ham(-g * (Opr(x, 0, False, N_SPINLESS)
+                        * (Opr(x, 1, False, b) + Opr(x, 1, False, b.T))))
+        n_e += Opr(x, 0, False, N_SPINLESS)
+        c_dag[x] = Opr(x, 0, True, C_SPINLESS.T)
+    m.Ham_vrnl = m.Ham
+    return m, {"N_e": n_e, "c_dag": c_dag}
+
+
+def holstein_chain(L, Nmax, t=1.0, w=1.0, g=1.0, device="cpu"):
+    return holstein_chain_with(Lattice, Model, Opr, Mopr, L, Nmax, t, w, g,
+                               device=device)
+
+
+def center_oracle(space, lattice, labels):
+    """Host oracle of the translate-to-center canonical form (reference:
+    translate2center_OBC, src/basis.cc:661-704): per label the mean
+    fractional position of its non-vacuum sites, disp = floor(center0 -
+    center1 + 1e-12) (0 for an all-vacuum state), then the label and the
+    fermion parity of ``StateSpace.transform`` under the translation plan of
+    disp. Returns (canon, disp, sign) numpy arrays."""
+    labels = np.asarray(labels, dtype=np.int64)
+    pos = np.asarray([np.asarray(lattice.site2coor(s)[0], dtype=np.float64)
+                      + lattice.pos_sub[lattice.site2coor(s)[1]]
+                      for s in range(lattice.n_sites)])
+    V = space.decode(labels)
+    occ = np.zeros((labels.size, lattice.n_sites), dtype=bool)
+    for s in range(space.n_slots):
+        occ[:, space.slot_site[s]] |= V[:, s] != 0
+    npos = occ.sum(axis=1)
+    center1 = (occ @ pos) / np.maximum(npos, 1)[:, None]
+    disp = np.floor(pos.mean(axis=0) - center1 + 1e-12).astype(np.int64)
+    disp[npos == 0] = 0
+    canon = np.empty_like(labels)
+    sign = np.empty(labels.size)
+    for d in np.unique(disp, axis=0):
+        rows = np.all(disp == d, axis=1)
+        plan = lattice.translation_plan(list(np.mod(d, lattice.L)))
+        canon[rows], parity = space.transform(labels[rows], plan)
+        sign[rows] = 1.0 - 2.0 * parity
+    return canon, disp, sign
