@@ -122,13 +122,34 @@ Phases (any failure raises, so the exit code is nonzero):
    on the card against a host oracle (labels, displacements, fermion
    signs). No BSR launch on this path. Prints grow, skeleton, solve, apply
    and per-k seconds and the peak device memory;
-12. prints the kernel record, the card line, and as the last line
+12. the multi-device route (parallel/*) on this one card. (a) A 1-rank
+   NCCL group in this process (file:// rendezvous in a temporary
+   directory, destroyed at the end): chain L=24 Sz=0 through Model(mesh=):
+   sharded dnc enumeration + sample sort (labels equal to phase 5's), the
+   router's EllShardedHalo (asserted by type), locate_E0_lanczos() equal
+   to phase 5's ELL E0 (1e-10) with the residual under the gate, <Sz0 Sz1>
+   = E0/72 (1e-9); MatvecSharded, EllShardedHalo and FullSpaceSharded
+   (N = 2^24) H x against the ELL and FullSpaceOp (1e-12 * max|y|);
+   kagome 2x4 Sz=0 k=(0,2) through enumerate_basis_repr(method="dnc") and
+   locate_E0_lanczos(which="repr") on the complex halo engine
+   (-10.759897248084, 1e-8); KronSharded against KronOp on Hubbard 4x4
+   (f64 1e-12, f32 5e-6 * max|y|); ProductModel(mesh=) on Hubbard 4x2,
+   pure f64 and mixed (-14.07605866, 1e-8). Prints the NCCL start-up,
+   enumeration, build and solve seconds, each sharded engine's per-apply
+   ms beside its single-device twin's, and the peak device memory.
+   (b) Two ranks on the card over gloo (which stages CUDA tensors through
+   the host; its point-to-point carries none, so FullSpaceSharded stays
+   out), as processes of this script (``--mesh-rank``): chain-24 through
+   Model(mesh=): E0 equal to 12a's (1e-10), halo_stats() equal to the
+   host's numpy computation for P = 2; its times are labelled as not
+   multi-GPU times;
+13. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-Phases 8, 9, 10 and 11 run before phase 7, whose 4x4 solve is the one part
-that is capped when the script would pass its budget.
+Phases 8, 9, 10, 11 and 12 run before phase 7, whose 4x4 solve is the one
+part that is capped when the script would pass its budget.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-12, windows
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-13, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
@@ -139,7 +160,8 @@ device-busy time, idle share and its three longest device operations, then
 times the matrix-free apply
 at three row-block budgets; it prints no result line.
 ``python3 chip_smoke.py --hubbard4x4`` runs phase 7 alone with the full 4x4
-solve, whatever its projected time. Imports nothing of JAX.
+solve, whatever its projected time; ``--mesh`` runs phase 12 alone (after
+the chain-24 ELL solve it compares with). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1728,6 +1750,337 @@ def vrnl_run(bsr_mod, dev):
         "phase_s": time.perf_counter() - t0}), flush=True)
 
 
+def _ceil_to(x, m):
+    return -(-int(x) // m) * m
+
+
+def halo_stats_host(ell, P):
+    """The JAX package's halo_stats() of an ELL split over P ranks, computed
+    on the host with numpy as parallel/halo_sharded.py of the JAX package
+    does (per-pair np.unique of the live columns each rank reads from
+    another)."""
+    n = ell.n
+    nl = _ceil_to(max(n, 1), 8 * P) // P
+    cols = ell.cols.cpu().numpy()
+    live = (ell.vals != 0).cpu().numpy()
+    cap, nnz = 1, 0
+    for q in range(P):
+        rows = slice(q * nl, min((q + 1) * nl, n))
+        c_q = cols[rows][live[rows]]
+        o_q = c_q // nl
+        for p in range(P):
+            if p != q:
+                u = np.unique(c_q[o_q == p])
+                cap, nnz = max(cap, u.size), nnz + u.size
+    cap = _ceil_to(cap, 8)
+    exchanged, allgather = P * (P - 1) * cap, nl * P * (P - 1)
+    return {"halo_nnz": nnz, "pair_capacity": cap,
+            "exchanged_per_apply": exchanged,
+            "allgather_per_apply": allgather,
+            "traffic_ratio": exchanged / max(allgather, 1)}
+
+
+def mesh_chain24(dev, mesh, chain_labels, chain_e0, rec):
+    """12a, chain L=24 Sz=0: sharded enumeration, the halo engine through
+    Model, MatvecSharded and FullSpaceSharded against their single-device
+    twins. Returns the sector's ELL (for 12b's host halo statistics)."""
+    from quantum_basis_tpu_torch.ops.apply_fullspace import FullSpaceOp
+    from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
+    from quantum_basis_tpu_torch.parallel import (EllShardedHalo,
+                                                  MatvecSharded)
+    from quantum_basis_tpu_torch.parallel.fullspace_sharded import (
+        FullSpaceSharded)
+    from torch_zoo import heisenberg_chain, sz_pair
+
+    m, ops = heisenberg_chain(24, device=dev)
+    m.set_mesh(mesh)
+    dim, rec["chain24_enumerate_s"] = _timed(
+        lambda: m.enumerate_basis_full([ops["Sz"]], [0.0]))
+    sec = m.sec_full[0]
+    same = dim == DIM_24 and np.array_equal(sec.labels, chain_labels)
+    print(f"check 12a chain24 labels (sharded dnc + sample sort) equal "
+          f"phase 5's: {same}", flush=True)
+    if not same:
+        raise AssertionError("12a: the sharded enumeration differs")
+    sec.ell, rec["chain24_ell_build_s"] = _timed(
+        lambda: build_sparse_full(sec.matvec))
+    (mv, _), rec["chain24_halo_build_s"] = _timed(
+        lambda: m._mesh_engine(sec, "full"))
+    if not isinstance(mv, EllShardedHalo):
+        raise AssertionError(f"12a: chain24 routed to {mv!r}")
+    rec["chain24_halo_stats"] = mv.halo_stats()
+    _, rec["chain24_solve_s"] = _timed(lambda: m.locate_E0_lanczos())
+    rec["chain24_applies"] = mv.n_applies
+    e0 = rec["chain24_E0"] = m.eigenvals_full[0]
+    _check("12a chain24 E0 on the mesh vs phase 5's ELL", e0, chain_e0,
+           1e-10)
+    v = m.eigenvecs_full[0]
+    rec["chain24_residual"] = float(torch.linalg.vector_norm(
+        sec.ell(v) - e0 * v))
+    gate = max(1e3 * 2e-12 * abs(e0), 5e-10)
+    if not rec["chain24_residual"] < gate:
+        raise AssertionError(f"12a: residual {rec['chain24_residual']:.3e} "
+                             f"over the gate {gate:.3e}")
+    _check("12a chain24 <Sz0 Sz1> = E0 / 72",
+           m.measure_full_static(sz_pair(0, 1), 0, 0).real, e0 / 72.0, 1e-9)
+
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(dim),
+                        device=dev)
+    y_ell = sec.ell(x)
+    xl = mv.pad(x)
+    _hx_check("12a chain24 H x, EllShardedHalo vs ELL", mv.unpad(mv(xl)),
+              y_ell, 1e-12)
+    rec["halo_ms"] = cuda_ms(lambda: mv(xl), samples=10, per_sample=3)
+    rec["ell_ms"] = cuda_ms(lambda: sec.ell(x), samples=10, per_sample=3)
+    mvs, rec["allgather_build_s"] = _timed(
+        lambda: MatvecSharded(m.compiled_Ham, sec.dbasis, mesh))
+    xs = mvs.pad(x)
+    _hx_check("12a chain24 H x, MatvecSharded vs ELL", mvs.unpad(mvs(xs)),
+              y_ell, 1e-12)
+    rec["allgather_ms"] = cuda_ms(lambda: mvs(xs), samples=3, per_sample=1)
+    rec["matvec_free_ms"] = cuda_ms(lambda: sec.matvec(x), samples=3,
+                                    per_sample=1)
+    del mvs, xs
+
+    fs = FullSpaceOp(m.compiled_Ham, sec.labels, device=dev)
+    fss, rec["fullspace_sharded_build_s"] = _timed(
+        lambda: FullSpaceSharded(fs, mesh))
+    xf = fs.to_full(x)
+    yf = fs(xf)
+    xfl = fss.pad(xf)
+    yfs = fss(xfl)
+    _hx_check("12a chain24 H x (N = 2^24), FullSpaceSharded vs FullSpaceOp",
+              fss.unpad(yfs), yf, 1e-12)
+    _hx_check("12a chain24 FullSpaceSharded to_sector vs ELL",
+              fss.to_sector(yfs), y_ell, 1e-12)
+    rec["fullspace_sharded_ms"] = cuda_ms(lambda: fss(xfl), samples=5,
+                                          per_sample=2)
+    rec["fullspace_ms"] = cuda_ms(lambda: fs(xf), samples=5, per_sample=2)
+    return sec.ell
+
+
+def mesh_kagome(dev, mesh, rec):
+    """12a, kagome 2x4 Sz=0 k=(0,2): dnc representatives over the mesh, the
+    solve on the complex halo engine."""
+    from quantum_basis_tpu_torch.parallel import EllShardedHalo
+    from torch_zoo import kagome_heisenberg
+
+    m, ops = kagome_heisenberg(2, 4, device=dev)
+    m.set_mesh(mesh)
+    dim, rec["kagome_enumerate_s"] = _timed(lambda: m.enumerate_basis_repr(
+        [0, 2], [ops["Sz"]], [0.0], method="dnc"))
+    if dim != KAGOME24_DIMS[(0, 2)]:
+        raise AssertionError(f"12a kagome k=(0,2): dim {dim}")
+    sec = m.sec_repr[0]
+    (mv, _), rec["kagome_engine_build_s"] = _timed(
+        lambda: m._mesh_engine(sec, "repr"))
+    if not (isinstance(mv, EllShardedHalo) and mv.is_complex):
+        raise AssertionError(f"12a kagome: routed to {mv!r}")
+    _, rec["kagome_solve_s"] = _timed(
+        lambda: m.locate_E0_lanczos(which="repr"))
+    rec["kagome_applies"] = mv.n_applies
+    rec["kagome_E0"] = m.eigenvals_repr[0]
+    _check("12a kagome24 k=(0,2) E0 on the halo engine", rec["kagome_E0"],
+           E0_KAGOME24, 1e-8)
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.standard_normal(dim)
+                        + 1j * rng.standard_normal(dim), device=dev)
+    xl = mv.pad(x)
+    _hx_check("12a kagome H x, EllShardedHalo vs ELL", mv.unpad(mv(xl)),
+              sec.ell(x), 1e-12)
+    rec["kagome_halo_ms"] = cuda_ms(lambda: mv(xl), samples=10, per_sample=3)
+    rec["kagome_ell_ms"] = cuda_ms(lambda: sec.ell(x), samples=10,
+                                   per_sample=3)
+
+
+def mesh_kron(dev, mesh, rec):
+    """12a: KronSharded on Hubbard 4x4 against KronOp (f64 and f32), then
+    ProductModel(mesh=) on Hubbard 4x2, pure f64 and mixed."""
+    from quantum_basis_tpu_torch.ops.apply_kron import KronOp
+    from quantum_basis_tpu_torch.parallel.kron_sharded import KronSharded
+    from torch_zoo import hubbard_factorized
+
+    pm, _ = hubbard_factorized(4, 4, device=dev)
+    ell_a, ell_b = pm._factor_ells()
+    P = pm._coupling_matrix()
+    for dt, tol, tag in ((torch.float64, 1e-12, "f64"),
+                         (torch.float32, 5e-6, "f32")):
+        ref = KronOp(ell_a, ell_b, coupling=P,
+                     coupling_scale=pm.coupling_scale, dtype=dt)
+        sh, rec[f"kron_sharded_{tag}_build_s"] = _timed(
+            lambda: KronSharded(ell_a, ell_b, coupling=P,
+                                coupling_scale=pm.coupling_scale, mesh=mesh,
+                                dtype=dt))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        psi = torch.randn(pm.dim, dtype=dt, device=dev, generator=gen)
+        y_ref = ref(psi)
+        xl = sh.pad(psi)
+        _hx_check(f"12a hubbard 4x4 H x, KronSharded vs KronOp {tag}",
+                  sh.unpad(sh(xl)).double(), y_ref.double(), tol)
+        del y_ref
+        rec[f"kron_sharded_{tag}_ms"] = cuda_ms(lambda: sh(xl), samples=3,
+                                                per_sample=1)
+        rec[f"kron_{tag}_ms"] = cuda_ms(lambda: ref(psi), samples=3,
+                                        per_sample=1)
+        del ref, sh, psi, xl
+        torch.cuda.empty_cache()
+    del pm, ell_a, ell_b, P
+
+    for mixed in (False, True):
+        pm, _ = hubbard_factorized(4, 2, device=dev)
+        pm.set_mesh(mesh)
+        e0, rec[f"product_4x2_{'mixed' if mixed else 'f64'}_s"] = _timed(
+            lambda: pm.locate_E0_lanczos(mixed=mixed,
+                                         ncv=6 if mixed else 16))
+        if not isinstance(pm.op(), KronSharded):
+            raise AssertionError("ProductModel(mesh=) did not solve on a "
+                                 "KronSharded")
+        _check(f"12a hubbard 4x2 E0 on the mesh, mixed={mixed}", e0,
+               E0_HUBBARD_4X2, 1e-8)
+
+
+def mesh_one_rank(dev, chain_labels, chain_e0):
+    """Phase 12a: the multi-device route on a 1-rank NCCL group in this
+    process (file:// rendezvous in a temporary directory, destroyed at the
+    end). Returns its record and the chain-24 ELL."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from quantum_basis_tpu_torch.parallel import basis_mesh, init_distributed
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"phase": "12a", "card": card_line(), "ranks": 1}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        t0 = time.perf_counter()
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        mesh = basis_mesh(device=dev)
+        one = torch.ones(1, dtype=torch.float64, device=mesh.device)
+        mesh.all_reduce(one)  # NCCL builds its communicator at first use
+        torch.cuda.synchronize()
+        rec["nccl_init_s"] = time.perf_counter() - t0
+        rec["backend"] = mesh.backend
+        if mesh.backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"12a: {mesh!r} is not a 1-rank NCCL group")
+        rec["all_reduce_scalar_ms"] = cuda_ms(lambda: mesh.all_reduce(one))
+        ell = mesh_chain24(dev, mesh, chain_labels, chain_e0, rec)
+        torch.cuda.empty_cache()
+        mesh_kagome(dev, mesh, rec)
+        torch.cuda.empty_cache()
+        mesh_kron(dev, mesh, rec)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("mesh", json.dumps(rec), flush=True)
+    return rec, ell
+
+
+def mesh_rank(argv) -> int:
+    """One rank of phase 12b (``--mesh-rank <rank> <rendezvous> <out>``):
+    a 2-rank gloo group with both ranks on cuda:0, chain-24 through
+    Model(mesh=); rank 0 writes its record to <out>."""
+    import torch.distributed as dist
+    from quantum_basis_tpu_torch.parallel import basis_mesh, init_distributed
+    from torch_zoo import heisenberg_chain
+
+    rank, rdv, out = int(argv[0]), argv[1], argv[2]
+    dev = "cuda:0"
+    init_distributed(f"file://{rdv}", 2, rank, device=dev, backend="gloo")
+    try:
+        mesh = basis_mesh(2, device=dev)
+        rec = {"rank": rank, "backend": mesh.backend}
+        m, ops = heisenberg_chain(24, device=dev)
+        m.set_mesh(mesh)
+        _, rec["enumerate_s"] = _timed(
+            lambda: m.enumerate_basis_full([ops["Sz"]], [0.0]))
+        (mv, _), rec["engine_build_s"] = _timed(
+            lambda: m._mesh_engine(m.sec_full[0], "full"))
+        rec["engine"] = type(mv).__name__
+        rec["halo_stats"] = mv.halo_stats()
+        _, rec["solve_s"] = _timed(lambda: m.locate_E0_lanczos())
+        rec["applies"] = mv.n_applies
+        rec["E0"] = m.eigenvals_full[0]
+        xl = mv.pad(torch.as_tensor(np.random.default_rng(5).standard_normal(
+            m.dim_full()), device=dev))
+        mv(xl)
+        _, t = _timed(lambda: [mv(xl) for _ in range(10)])
+        rec["apply_ms"] = t * 100.0
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_ranks(e0_one_rank, ell):
+    """Phase 12b: two ranks on the one card over gloo, which stages CUDA
+    tensors through the host (its all-reduce, all-gather and all-to-all
+    carry CUDA tensors; its point-to-point does not, so FullSpaceSharded
+    stays out). Spawns the ranks as processes of this script and kills any
+    that outlive the phase. Not a multi-GPU time."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    out = os.path.join(tmp, "rank0.json")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         os.path.join(tmp, "rendezvous"), out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        want, t_host = _timed(lambda: halo_stats_host(ell, 2))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"12b rank {r} exited {p.returncode}:\n"
+                                 + "\n".join(text.splitlines()[-25:]))
+    with open(out) as f:
+        rec = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec.update({"phase": "12b", "card": card_line(), "ranks": 2,
+                "label": "2 ranks on one card over gloo, host-staged: not a "
+                         "multi-GPU time",
+                "host_halo_stats_s": t_host, "phase_wall_s": wall})
+    print("mesh", json.dumps(rec), flush=True)
+    if rec["engine"] != "EllShardedHalo" or rec["backend"] != "gloo":
+        raise AssertionError(f"12b: {rec['engine']} over {rec['backend']}")
+    print(f"check 12b halo_stats vs the host's for P = 2: "
+          f"{rec['halo_stats']} vs {want}", flush=True)
+    if rec["halo_stats"] != want:
+        raise AssertionError("12b: halo_stats differ from the host's")
+    _check("12b chain24 E0, 2 ranks vs 1 rank", rec["E0"], e0_one_rank,
+           1e-10)
+    return rec
+
+
+def mesh_run(dev, chain_labels, chain_e0):
+    """Phase 12: the multi-device route (parallel/*). 12a on a 1-rank NCCL
+    group in this process, 12b on two gloo ranks of the one card."""
+    t0 = time.perf_counter()
+    rec, ell = mesh_one_rank(dev, chain_labels, chain_e0)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    mesh_two_ranks(rec["chain24_E0"], ell)
+    del ell
+    torch.cuda.empty_cache()
+    print(f"phase 12: 12a {t_a:.1f} s, 12b "
+          f"{time.perf_counter() - t0 - t_a:.1f} s", flush=True)
+
+
 def ell_apply_columns(ell, X, block=128):
     """H X for an ELL matrix and a matrix of column vectors, in column
     blocks (each gather makes an (n, width, block) intermediate)."""
@@ -2015,20 +2368,32 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # the model builders live beside the tests (tests/torch_zoo.py)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "tests"))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
     card = card_line()
     print("card:", card)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0], flush=True)
 
-    # the model builders live beside the tests (tests/torch_zoo.py)
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "tests"))
     t_start = time.perf_counter()
     if "--profile" in sys.argv[1:]:
         profile_windows("cuda")
         return 0
     if "--hubbard4x4" in sys.argv[1:]:
         product_run("cuda", t_start, force_full=True)
+        return 0
+    if "--mesh" in sys.argv[1:]:
+        from torch_zoo import heisenberg_chain
+
+        m, ops = heisenberg_chain(24, device="cuda")
+        m.enumerate_basis_full([ops["Sz"]], [0.0])
+        m.generate_Ham_sparse_full(check="probe")
+        m.locate_E0_lanczos("full", maxit=4000)
+        print(f"chain24 ELL E0 {m.eigenvals_full[0]!r}", flush=True)
+        mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
@@ -2049,6 +2414,8 @@ def main() -> int:
     print(f"phases 1-6, 8, 9: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     launches += dynamics_run(bsr_mod, dev, tilted, wide, gs_sector)
+    # phase 12 holds the sharded route against phase 5's chain-24 sector
+    chain_labels, chain_e0 = wide[0][1].sec_full[0].labels, wide[0][3]["E0_ell"]
     del wide, tilted, gs_sector
     torch.cuda.empty_cache()
     print(f"phases 1-6, 8-10: {time.perf_counter() - t_start:.1f} s",
@@ -2057,8 +2424,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phases 1-6, 8-11: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    before = bsr_mod.launch_count
+    mesh_run(dev, chain_labels, chain_e0)
+    if bsr_mod.launch_count != before:
+        raise AssertionError("the mesh route launched the BSR kernel")
+    del chain_labels
+    print(f"phases 1-6, 8-12: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     product_run(dev, t_start, force_full=False)
-    print(f"phases 1-11: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-12: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")

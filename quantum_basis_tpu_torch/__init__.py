@@ -20,10 +20,14 @@ translations (ops/translate_fullspace.py), or, on a tilted cluster
 (``TiltedLattice``) and wherever that gives no engine, the explicit route with
 the CUDA BSR SpMV kernel (ops/bsr.py, csrc/bsr_spmv.cu); crash-consistent
 checkpoint and resume of every solve (``initialize(enable_checkpoint=True)``,
-``CkptStore``, ``basis_save`` / ``basis_load``); and dynamics and spectra
+``CkptStore``, ``basis_save`` / ``basis_load``); dynamics and spectra
 (``Model.measure_full_dynamic`` / ``measure_repr_dynamic`` continued
 fractions, ``measure_*_dynamic_kpm`` Chebyshev moments, ``locate_Es`` interior
-windows; solvers/chebyshev.py, solvers/kpm.py, postprocess.py).
+windows; solvers/chebyshev.py, solvers/kpm.py, postprocess.py); the
+variational (Trugman) sector; and the multi-device route on
+``torch.distributed``, one rank per device (``Model(mesh=)``,
+``ProductModel(mesh=)``, the sharded engines and the distributed enumeration
+of parallel/).
 """
 
 from quantum_basis_tpu_torch import config as config

@@ -56,7 +56,9 @@ def _per_slot_tables(mopr, space):
 
 
 def enumerate_basis_dnc(space: StateSpace, conserve_lst, val_lst,
-                        leaf: int = 1 << 22, tol: float = _QN_TOL):
+                        leaf: int = 1 << 22, tol: float = _QN_TOL,
+                        tile_select=None, sort: bool = True,
+                        n_parts: int | None = None):
     """Combinatorial sector enumeration by divide-and-conquer over slots.
 
     The chunked scan is O(d^N) regardless of sector size — hopeless
@@ -70,6 +72,13 @@ def enumerate_basis_dnc(space: StateSpace, conserve_lst, val_lst,
     vectorized over whole slot groups. Returns None when any conserved
     operator is not separable (caller falls back to the scan). Host numpy;
     the sorted int64 labels equal the scan's.
+
+    The top-level join is a list of cross-product tiles in a fixed order
+    (sorted bucket keys). ``tile_select=(rank, nranks)`` computes only the
+    tiles i with i % nranks == rank (``sort=False`` leaves them unsorted),
+    for a rank of a group enumerating its share
+    (parallel/enumerate_sharded.py); ``n_parts`` returns every rank's share
+    from one pass, as a list.
     """
     ops = []
     for m, v in zip(conserve_lst, val_lst):
@@ -148,13 +157,46 @@ def enumerate_basis_dnc(space: StateSpace, conserve_lst, val_lst,
                     out[key] = (lab, q)
         return out
 
+    def tiles():
+        """The top-level join's tiles (left, right) in a fixed order."""
+        mid = S // 2
+        left = rec(0, mid)
+        right = rec(mid, S)
+        for kl in sorted(left):
+            ll, ql = left[kl]
+            for kr in sorted(right):
+                lr, qr = right[kr]
+                if np.all(np.abs(ql + qr - targets) < tol):
+                    yield ll, lr
 
-    top = rec(0, S)
-    keep = [lab for lab, q in top.values()
-            if np.all(np.abs(q - targets) < tol)]
+    top_size = int(np.prod(dims, dtype=np.int64))
+    if n_parts is not None:
+        # ONE pass producing every rank's round-robin tile subset: the
+        # meet-in-the-middle halves are computed once and shared, instead
+        # of once per rank as a tile_select loop would pay
+        parts = [[] for _ in range(n_parts)]
+        for i, (ll, lr) in enumerate(tiles()):
+            parts[i % n_parts].append((ll[:, None] + lr[None, :]).ravel())
+        return [np.concatenate(p) if p else np.empty(0, np.int64)
+                for p in parts]
+    keep = []
+    if tile_select is None and (top_size <= leaf or S < 2):
+        top = rec(0, S)
+        keep = [lab for lab, q in top.values()
+                if np.all(np.abs(q - targets) < tol)]
+    else:
+        # explicit top-level join, so that the tiles can be distributed:
+        # tile i is computed only when i % nranks == rank; the union over
+        # ranks is exactly the single-rank output
+        for i, (ll, lr) in enumerate(tiles()):
+            if tile_select is not None \
+                    and i % tile_select[1] != tile_select[0]:
+                continue
+            keep.append((ll[:, None] + lr[None, :]).ravel())
     if not keep:
         return np.empty(0, dtype=np.int64)
-    return np.sort(np.concatenate(keep))
+    out = np.concatenate(keep)
+    return np.sort(out) if sort else out
 
 
 def enumerate_basis(space: StateSpace, conserve_lst=None, val_lst=None,

@@ -59,11 +59,13 @@ def enumerate_reps_dnc(tset, conserve_lst=None, val_lst=None,
     sector dimension (counted during the stream). Matches
     ``enumerate_reps(tset, enumerate_basis(...))`` exactly. The candidates
     of a block go to ``tset.device``; only the kept labels come back.
+
+    The streamed tiles are numbered in a fixed order;
+    ``tile_select=(rank, nranks)`` processes only the tiles i with
+    i % nranks == rank (and counts only their states in the dim), for a rank
+    of a group enumerating its share (parallel/enumerate_sharded.py);
+    ``sort=False`` leaves the kept labels in stream order.
     """
-    if tile_select is not None:
-        raise NotImplementedError(
-            "tile_select (streamed tiles distributed over ranks) is not "
-            "ported yet (the multi-GPU slice)")
     space = tset.space
     conserve_lst = list(conserve_lst or [])
     vals = np.asarray([float(v) for v in (val_lst or [])])
@@ -81,10 +83,15 @@ def enumerate_reps_dnc(tset, conserve_lst=None, val_lst=None,
 
     reps = []
     dim = 0
+    tile_no = 0
 
     def process(cands):
-        """One streamed tile."""
-        nonlocal dim
+        """One streamed tile, distributable round-robin by its number."""
+        nonlocal dim, tile_no
+        i = tile_no
+        tile_no += 1
+        if tile_select is not None and i % tile_select[1] != tile_select[0]:
+            return
         dim += cands.size
         for start in range(0, cands.size, block):
             lab = torch.as_tensor(cands[start:start + block],

@@ -23,7 +23,11 @@ With ``config.enable_ckpt`` the finished solve is kept as a stage record
 whose key carries both factors' Hamiltonian fingerprints and the coupling's
 bytes, and each stage's solver keeps its restart state (utils/ckpt.py).
 
-Not ported yet: a device mesh (``mesh=`` raises, the multi-GPU slice).
+With a basis mesh (``mesh=`` or :meth:`ProductModel.set_mesh`) both routes
+run on the row-sharded :class:`~quantum_basis_tpu_torch.parallel.
+kron_sharded.KronSharded` (zero-row padding where the first factor's dim
+does not divide into the ranks), with every reduction summed over the
+ranks; the published eigenvectors are whole logical vectors on every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
-from quantum_basis_tpu_torch.models.model import Model, _not_ported
+from quantum_basis_tpu_torch.models.model import Model, checked_mesh
 from quantum_basis_tpu_torch.ops.apply import MatvecFull
 from quantum_basis_tpu_torch.ops.apply_kron import (
     KronOp,
@@ -43,7 +47,13 @@ from quantum_basis_tpu_torch.ops.apply_kron import (
     diagonal_product_coupling,
 )
 from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
+from quantum_basis_tpu_torch.parallel.kron_sharded import KronSharded
 from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
+from quantum_basis_tpu_torch.solvers.reduce import (
+    mesh_of,
+    norm,
+    refuse_sharded_ckpt,
+)
 from quantum_basis_tpu_torch.solvers.restarted import _solver_log, eigs_smallest
 from quantum_basis_tpu_torch.solvers.rqi import rqi_polish
 from quantum_basis_tpu_torch.utils import ckpt
@@ -58,8 +68,7 @@ class ProductModel:
     def __init__(self, model_a, model_b=None, coupling=(),
                  coupling_scale: float = 1.0, sec: int = 0,
                  hermiticity="exact", mesh=None):
-        if mesh is not None:
-            raise _not_ported("ProductModel(mesh=)", "the multi-GPU slice")
+        self.mesh = checked_mesh(mesh)  # solves route to KronSharded
         self.model_a = model_a
         self.model_b = model_b  # None => same factor twice (Hubbard)
         self.device = model_a.device
@@ -102,18 +111,32 @@ class ProductModel:
                 mb.sec_full[self._sec].labels, self.coupling)
         return self._P
 
-    def op(self, dtype=None) -> KronOp:
-        """The device engine at a given precision (cached per dtype)."""
+    def op(self, dtype=None):
+        """The device engine at a given precision (cached per dtype).
+
+        With a mesh attached this is the row-sharded
+        :class:`~quantum_basis_tpu_torch.parallel.kron_sharded.KronSharded`
+        (same protocol; ``N`` and ``mask`` count the mesh-padded space)."""
         dtype = dtype or torch.float64
-        if dtype not in self._ops:
+        key = (dtype, self.mesh is not None)
+        if key not in self._ops:
             ell_a, ell_b = self._factor_ells()
-            self._ops[dtype] = KronOp(
-                ell_a, ell_b, coupling=self._coupling_matrix(),
-                coupling_scale=self.coupling_scale, dtype=dtype)
-        return self._ops[dtype]
+            if self.mesh is not None:
+                self._ops[key] = KronSharded(
+                    ell_a, ell_b, coupling=self._coupling_matrix(),
+                    coupling_scale=self.coupling_scale, mesh=self.mesh,
+                    dtype=dtype)
+            else:
+                self._ops[key] = KronOp(
+                    ell_a, ell_b, coupling=self._coupling_matrix(),
+                    coupling_scale=self.coupling_scale, dtype=dtype)
+        return self._ops[key]
 
     def set_mesh(self, mesh):
-        raise _not_ported("ProductModel.set_mesh", "the multi-GPU slice")
+        """Attach, replace or (None) drop the basis mesh; the sharded engines
+        rebuild on the next solve (mirrors Model.set_mesh)."""
+        self.mesh = checked_mesh(mesh)
+        self._ops = {k: v for k, v in self._ops.items() if not k[1]}
 
     def _fingerprint(self) -> int:
         """Content CRC of the product Hamiltonian: both factors' and the
@@ -147,6 +170,10 @@ class ProductModel:
         # factor split (and the coupling bytes) tells them apart
         key = (f"prodE0_{self.na}x{self.nb}_nev{nev}"
                f"_h{self._fingerprint():08x}")
+        if self.mesh is not None:
+            if config.enable_ckpt:
+                refuse_sharded_ckpt(self.mesh)
+            key += f"_mesh{self.mesh.size}"
         done = self._stage_load(key)
         if done is not None:
             self.eigenvals, self.eigenvecs, self._last_residual = done
@@ -159,7 +186,7 @@ class ProductModel:
                 fs, fs.N, nev=nev, ncv=max(ncv, 2 * nev + 4), maxit=maxit,
                 seed=seed, complex_vec=False, mask=fs.mask,
                 ckpt_key=key + "_krylov")
-            self._publish(key, evals, vecs)
+            self._publish(key, evals, [self._unpad(fs, v) for v in vecs])
             return self.eigenvals[0]
 
         # stage 1: f32 bulk on the dense float32 engine
@@ -179,7 +206,9 @@ class ProductModel:
             log("f32 thick-restart out of device memory; falling back to "
                 "rolling 2-vector Lanczos")
             re, _ = vec_randomize(self.dim, seed=seed)
-            v32 = torch.as_tensor(re, device=self.device).to(torch.float32)
+            v32 = (fs32.pad(re) if self.mesh is not None
+                   else torch.as_tensor(re, device=self.device))
+            v32 = v32.to(torch.float32)
             v0 = lanczos_ground(fs32, v32, maxit=maxit, inner=48, tol=1e-8,
                                 ckpt_key=key + "_f32roll")["vector"]
         if fs32.device.type == "cuda":
@@ -192,7 +221,7 @@ class ProductModel:
         fs64 = self.op(torch.float64)
         n64 = fs64.n_applies
         v0 = v0.to(torch.float64)
-        v0 = v0 / torch.linalg.vector_norm(v0)
+        v0 = v0 / norm(v0, mesh_of(fs64))
         tp = time.time()
         out = rqi_polish(fs64, v0, fs32=fs32, ckpt_key=key + "_rqi",
                          log=lambda i, th, rn, ni: _solver_log(
@@ -206,7 +235,7 @@ class ProductModel:
             "rqi_converged": out.get("converged"),
         }
         if not out["converged"]:
-            v0 = out["vector"] / torch.linalg.vector_norm(out["vector"])
+            v0 = out["vector"] / norm(out["vector"], mesh_of(fs64))
             out = lanczos_ground(fs64, v0, maxit=maxit, inner=60,
                                  ckpt_key=key + "_polish")
         if fs64.device.type == "cuda":
@@ -223,10 +252,17 @@ class ProductModel:
             err.E0 = out["E0"]
             err.residual = out["residual"]
             raise err
-        self._publish(key, [out["E0"]], [out["vector"]],
+        self._publish(key, [out["E0"]], [self._unpad(fs64, out["vector"])],
                       resid=out["residual"])
         self._last_residual = out["residual"]
         return self.eigenvals[0]
+
+    def _unpad(self, fs, v):
+        """A solver vector as the whole logical vector on this model's
+        device (the mesh padding stripped; as it is without a mesh)."""
+        if self.mesh is None:
+            return v
+        return fs.unpad(v).to(self.device)
 
     def _publish(self, key, evals, vecs, resid=None):
         self.eigenvals = [float(e) for e in evals]

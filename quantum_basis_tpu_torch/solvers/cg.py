@@ -4,7 +4,9 @@ Port of ``quantum_basis_tpu.solvers.cg`` (the reference's ``eigenvec_CG``,
 src/lanczos.cc:281-341): given a converged eigenvalue E0, drive
 (H - E0) v -> 0 by CG with the restart-on-renormalize logic of the reference
 (re-normalize v, recompute r = (E0 - H) v, restart the Krylov direction).
-The loop runs on the host and reads the residual norm once per iteration.
+The loop runs on the host and reads the residual norm once per iteration;
+on an operator that carries a basis mesh the inner products and norms are
+summed over the ranks (solvers/reduce.py).
 
 Use cases match the reference: polish an eigenvector from a coarser solve
 (e.g. a mixed-precision Lanczos run) to full f64 solver tolerance, or
@@ -16,6 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quantum_basis_tpu_torch.solvers.reduce import (
+    ckpt_store,
+    dot,
+    mesh_of,
+    norm,
+)
 from quantum_basis_tpu_torch.utils import ckpt
 
 
@@ -35,16 +43,17 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
     """
     E0 = float(E0)
     complex_vec = v0.is_complex()
-    store = ckpt.active_store() if ckpt_key else None
+    store = ckpt_store(matvec, ckpt_key)
+    mesh = mesh_of(matvec)
 
     def hs(x):
         """(H - E0) x."""
         return matvec(x).to(x.dtype) - E0 * x
 
     def restart(v):
-        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-300)
+        v = v / torch.clamp(norm(v, mesh), min=1e-300)
         r = -hs(v)                                      # r = (E0 - H) v
-        return v, r, r, float(torch.linalg.vector_norm(r))
+        return v, r, r, float(norm(r, mesh))
 
     def save_state(m_now, vc):
         v_re, v_im = ckpt.split_vec(vc, complex_vec)
@@ -78,18 +87,18 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
         if gamma < tol:
             # done if the fresh residual is already converged, or v was
             # already unit-norm (reference: break without restart)
-            was_unit = abs(float(torch.linalg.vector_norm(v)) - 1.0) <= tol
+            was_unit = abs(float(norm(v, mesh)) - 1.0) <= tol
             v, r, p, gamma = restart(v)
             if gamma < tol or was_unit:
                 done = True
                 break
             continue
         pp = hs(p)
-        delta = float(torch.vdot(p, pp).real)  # Hermitian H: real
+        delta = float(dot(p, pp, mesh).real)  # Hermitian H: real
         alpha = gamma * gamma / delta
         v = v + alpha * p
         r = r - alpha * pp
-        g2 = float(torch.linalg.vector_norm(r))
+        g2 = float(norm(r, mesh))
         beta = g2 / max(gamma, 1e-300)
         p = r + (beta * beta) * p
         gamma = g2
@@ -99,5 +108,5 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
             store.delete(ckpt_key)
         else:
             save_state(m, v)  # unconverged: keep for resume
-    v = v / torch.linalg.vector_norm(v)
-    return v, float(torch.linalg.vector_norm(hs(v))), m
+    v = v / norm(v, mesh)
+    return v, float(norm(hs(v), mesh)), m

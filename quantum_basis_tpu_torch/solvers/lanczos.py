@@ -26,7 +26,8 @@ per cycle. With ``ckpt_key`` set and ``config.enable_ckpt`` on,
 ``lanczos_ground`` saves its iterate after every cycle and
 ``lanczos_dynamics`` its recurrence state every ``ckpt_chunk`` steps, and
 both resume from the record (utils/ckpt.py; same record fields as the JAX
-package).
+package). On an operator that carries a basis mesh every inner product and
+norm is summed over the ranks (solvers/reduce.py).
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ import torch
 from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.config import lanczos_precision
 from quantum_basis_tpu_torch.utils import ckpt
+from quantum_basis_tpu_torch.solvers.reduce import (
+    ckpt_store,
+    dot,
+    mesh_of,
+    norm,
+)
 from quantum_basis_tpu_torch.solvers.restarted import _project_out
 from quantum_basis_tpu_torch.solvers.tridiag import tridiag_eig, tridiag_eigvals
 
@@ -54,11 +61,12 @@ def _step(matvec, v_prev, v_cur, b_prev, anchor, deflate):
     restart, IS the start vector — so this one extra dot+axpy per step
     suppresses the classic Paige drift at 2-vector memory cost.
     Returns (v_next, a, b) with a, b 0-d device tensors."""
+    mesh = mesh_of(matvec)
     w = matvec(v_cur).to(v_cur.dtype) - b_prev * v_prev
-    a = torch.vdot(v_cur, w).real
+    a = dot(v_cur, w, mesh).real
     w = w - a * v_cur
-    w = _project_out(w, (anchor,) + tuple(deflate))
-    b = torch.linalg.vector_norm(w)
+    w = _project_out(w, (anchor,) + tuple(deflate), mesh)
+    b = norm(w, mesh)
     inv = torch.where(b > _TINY, 1.0 / torch.clamp(b, min=_TINY), 0.0)
     return w * inv, a, b
 
@@ -100,12 +108,13 @@ def _second_pass(matvec, v0, s_coeff, deflate):
                                       deflate)
             v_prev, v_cur = v_cur, v_next
         y = y + float(sm) * v_cur
-    y = _project_out(y, deflate)
-    y = y / torch.clamp(torch.linalg.vector_norm(y), min=_TINY)
+    mesh = mesh_of(matvec)
+    y = _project_out(y, deflate, mesh)
+    y = y / torch.clamp(norm(y, mesh), min=_TINY)
     hy = matvec(y).to(y.dtype)
-    theta = torch.vdot(y, hy).real
+    theta = dot(y, hy, mesh).real
     r = hy - theta * y
-    return y, float(theta), float(torch.linalg.vector_norm(r))
+    return y, float(theta), float(norm(r, mesh))
 
 
 def lanczos_ground(
@@ -127,8 +136,9 @@ def lanczos_ground(
     (src/lanczos.cc:218-226). ``maxit`` counts matrix applications.
     """
     deflate = tuple(deflate)
-    v0 = _project_out(v0, deflate)
-    v0 = v0 / torch.linalg.vector_norm(v0)
+    mesh = mesh_of(matvec)
+    v0 = _project_out(v0, deflate, mesh)
+    v0 = v0 / norm(v0, mesh)
     complex_vec = v0.is_complex()
 
     # the residual gate: |theta - lambda| <= ||r|| for Hermitian operators,
@@ -139,7 +149,7 @@ def lanczos_ground(
     best = None  # (theta, vector, explicit residual) across cycles
     used = 0
     alphas_last = betas_last = None
-    store = ckpt.active_store() if ckpt_key else None
+    store = ckpt_store(matvec, ckpt_key)
     if store is not None:
         rec = store.load(ckpt_key)
         if rec is not None and rec["v_re"].shape == tuple(v0.shape) \
@@ -221,7 +231,7 @@ def lanczos_dynamics(matvec, v_start, m_steps: int, ckpt_key=None,
     the coefficients so far, the same record the reference's "dnmcs"
     checkpoint writes (src/ckpt.cc:13-340), and resumes mid-run.
     """
-    store = ckpt.active_store() if ckpt_key else None
+    store = ckpt_store(matvec, ckpt_key)
     if store is None:
         return _first_pass(matvec, v_start, (), m_steps)
 
@@ -275,7 +285,7 @@ def energy_scale(matvec, v0, m_steps: int = 128, slack: float = 0.1):
     ``slack`` — replaces kpm.cc's ``energy_scale`` (src/kpm.cc:45-99); used
     to rescale H for Chebyshev/KPM iterations.
     """
-    v0 = v0 / torch.linalg.vector_norm(v0)
+    v0 = v0 / norm(v0, mesh_of(matvec))
     alphas, betas = lanczos_dynamics(matvec, v0, m_steps)
     keep = np.nonzero(betas < 1e-12)[0]
     mcut = int(keep[0]) + 1 if keep.size else m_steps

@@ -21,6 +21,12 @@ instead, and its projection takes precedence over ``mask``; it runs on the
 device, on the float64 start vector before that is cast to the working
 precision, like the JAX package's host-side hook.
 
+An operator that carries a basis ``mesh`` (the sharded engines of
+parallel/*) is applied to this rank's slice of each vector; the inner
+products and norms are summed over the ranks (solvers/reduce.py), and the
+start and restart vectors are the global ones, generated on every rank and
+sliced, so a P-rank solve starts where the single-device one does.
+
 With ``ckpt_key`` set and ``config.enable_ckpt`` on, the restart-boundary
 state (basis, projected matrix, counters) is saved at most every
 ``_SAVE_PERIOD`` seconds and restored on re-entry: the reference's
@@ -36,6 +42,13 @@ import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
+from quantum_basis_tpu_torch.solvers.reduce import (
+    ckpt_store,
+    dot,
+    mesh_of,
+    norm,
+    span_of,
+)
 from quantum_basis_tpu_torch.utils import ckpt
 from quantum_basis_tpu_torch.utils.rng import vec_randomize
 
@@ -52,10 +65,10 @@ def _vec_dtype(real_dtype, complex_vec: bool):
     return torch.complex64 if real_dtype == torch.float32 else torch.complex128
 
 
-def _project_out(w, deflate):
+def _project_out(w, deflate, mesh=None):
     """w - sum_d <d, w> d."""
     for d in deflate:
-        w = w - torch.vdot(d, w) * d
+        w = w - dot(d, w, mesh) * d
     return w
 
 
@@ -74,14 +87,16 @@ class DeflatedMatvec:
         self.dtype = base.dtype
         self.device = base.device
         self.is_complex = base.is_complex
+        self.mesh = mesh_of(base)
+        self.span = getattr(base, "span", None)
         # forward the sector projection, so that the restarts of the
         # deflate-and-verify pass stay inside the sector
         if getattr(base, "project", None) is not None:
             self.project = base.project
 
     def __call__(self, x):
-        px = _project_out(x, self.vecs)
-        y = _project_out(self.base(px).to(x.dtype), self.vecs)
+        px = _project_out(x, self.vecs, self.mesh)
+        y = _project_out(self.base(px).to(x.dtype), self.vecs, self.mesh)
         return y + self.sigma * (x - px)
 
 
@@ -90,17 +105,19 @@ class _Krylov:
 
     def __init__(self, matvec, n, ncv, complex_vec):
         self.matvec = matvec
+        self.mesh = mesh_of(matvec)
         self.rows = ncv + 1
         self.dtype = _vec_dtype(matvec.dtype, complex_vec)
-        self.V = torch.zeros((self.rows, n), dtype=self.dtype,
+        lo, hi = span_of(matvec, n)
+        self.V = torch.zeros((self.rows, hi - lo), dtype=self.dtype,
                              device=matvec.device)
 
     def _cgs2(self, w, j):
         """Orthogonalize w against rows 0..j twice; returns (w, h (j+1,))."""
         Vj = self.V[: j + 1]
-        h1 = Vj.conj() @ w
+        h1 = dot(Vj, w, self.mesh)
         w = w - h1 @ Vj
-        h2 = Vj.conj() @ w
+        h2 = dot(Vj, w, self.mesh)
         w = w - h2 @ Vj
         return w, h1 + h2
 
@@ -115,7 +132,7 @@ class _Krylov:
         for j in range(m0, ncv):
             y = self.matvec(self.V[j]).to(self.dtype)
             y, h = self._cgs2(y, j)
-            b = torch.linalg.vector_norm(y)
+            b = norm(y, self.mesh)
             inv = torch.where(b > _BREAKDOWN,
                               1.0 / torch.clamp(b, min=_BREAKDOWN), 0.0)
             self.V[j + 1] = y * inv
@@ -128,7 +145,7 @@ class _Krylov:
         """Orthogonalize r against rows 0..j, normalize, put it at ``row``."""
         r, _ = self._cgs2(torch.as_tensor(r, device=self.V.device).to(
             self.dtype), j)
-        b = float(torch.linalg.vector_norm(r))
+        b = float(norm(r, self.mesh))
         self.V[row] = r / max(b, _BREAKDOWN)
         return b
 
@@ -148,19 +165,28 @@ def _host_vec(re, im, complex_vec):
     return re + 1j * im if complex_vec else re
 
 
-def _masked(x, mask):
+def _masked(x, mask, mesh=None):
     """x restricted to the sector support and renormalized (x when no mask)."""
     if mask is None:
         return x
     x = x * mask.to(x.real.dtype)
-    return x / torch.clamp(torch.linalg.vector_norm(x), min=1e-300)
+    return x / torch.clamp(norm(x, mesh), min=1e-300)
 
 
 def _projected(matvec, x, mask):
     """x inside the sector and renormalized: by the operator's own
     ``project`` (the momentum engines) when it has one, else by the mask."""
     project = getattr(matvec, "project", None)
-    return project(x) if project is not None else _masked(x, mask)
+    return (project(x) if project is not None
+            else _masked(x, mask, mesh_of(matvec)))
+
+
+def _random_start(matvec, n, seed, complex_vec, device):
+    """This rank's slice of the global length-n random start vector."""
+    lo, hi = span_of(matvec, n)
+    re, im = vec_randomize(n, seed=seed, complex_valued=complex_vec)
+    return torch.as_tensor(_host_vec(re[lo:hi], im[lo:hi] if complex_vec
+                                     else None, complex_vec), device=device)
 
 
 def _solver_log(purpose, it, theta, resid):
@@ -235,20 +261,20 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         x = _projected(matvec, v0.to(
             device=kry.V.device, dtype=torch.complex128
             if complex_vec else torch.float64), mask)
-        kry.V[0] = (x / torch.linalg.vector_norm(x)).to(kry.dtype)
+        kry.V[0] = (x / norm(x, kry.mesh)).to(kry.dtype)
     else:
-        kry.V[0] = _projected(matvec, torch.as_tensor(_host_vec(
-            *vec_randomize(n, seed=seed, complex_valued=complex_vec),
-            complex_vec), device=kry.V.device), mask).to(kry.dtype)
+        kry.V[0] = _projected(matvec, _random_start(
+            matvec, n, seed, complex_vec, kry.V.device), mask).to(kry.dtype)
     m = 0
     it = 0
-    store = ckpt.active_store() if ckpt_key else None
+    store = ckpt_store(matvec, ckpt_key)
     if store is not None:
         rec = store.load(ckpt_key)
         real_np = np.float32 if matvec.dtype == torch.float32 else np.float64
-        if (rec is not None and rec["Vre"].shape == (rows, n)
+        shape = tuple(kry.V.shape)
+        if (rec is not None and rec["Vre"].shape == shape
                 and rec["Vre"].dtype == real_np
-                and (rec["Vim"].shape == (rows, n)) == bool(complex_vec)):
+                and (rec["Vim"].shape == shape) == bool(complex_vec)):
             kry.V.copy_(ckpt.join_vec(rec["Vre"], rec["Vim"], complex_vec,
                                       kry.V.device))
             Hm = rec["Hm"].astype(np.complex128)
@@ -274,10 +300,8 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
             if stop < ncv:
                 # invariant subspace at step `stop`: inject a random
                 # orthogonal direction and resume
-                r = _projected(matvec, torch.as_tensor(_host_vec(
-                    *vec_randomize(n, seed=rng_seed,
-                                   complex_valued=complex_vec),
-                    complex_vec), device=kry.V.device), mask)
+                r = _projected(matvec, _random_start(
+                    matvec, n, rng_seed, complex_vec, kry.V.device), mask)
                 rng_seed += 7
                 bnorm = kry.insert_random(r, stop, stop + 1)
                 if bnorm < _BREAKDOWN * 10 or m >= n:

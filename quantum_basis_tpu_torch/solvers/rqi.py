@@ -16,7 +16,8 @@ residual is set by the f64 outer evaluation. All vectors stay on the device
 (the JAX package parks them on the host between phases to fit a 16 GB TPU);
 with ``ckpt_key`` set and ``config.enable_ckpt`` on, the iterate is copied to
 the host and saved after every outer evaluation and after every correction,
-and a rerun resumes from the record.
+and a rerun resumes from the record. On operators that carry a basis mesh
+every inner product and norm is summed over the ranks (solvers/reduce.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ import torch
 
 from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.config import lanczos_precision
+from quantum_basis_tpu_torch.solvers.reduce import (
+    ckpt_store,
+    dot,
+    mesh_of,
+    norm,
+)
 from quantum_basis_tpu_torch.utils import ckpt
 
 _TINY = 1e-300
@@ -34,11 +41,12 @@ _CHECK_EVERY = 16  # inner CG steps between host checks of the stop flag
 
 def _outer(fs64, x):
     """x -> (theta, normalized x, residual r, ||r||), all float64."""
-    x = x / torch.clamp(torch.linalg.vector_norm(x), min=_TINY)
+    mesh = mesh_of(fs64)
+    x = x / torch.clamp(norm(x, mesh), min=_TINY)
     y = fs64(x).to(x.dtype)
-    theta = torch.vdot(x, y).real
+    theta = dot(x, y, mesh).real
     r = y - theta * x
-    return float(theta), x, r, float(torch.linalg.vector_norm(r))
+    return float(theta), x, r, float(norm(r, mesh))
 
 
 def _inner(fs32, x, b, theta, nsteps):
@@ -49,11 +57,13 @@ def _inner(fs32, x, b, theta, nsteps):
     relative residual is below 1e-10; stopped state is frozen (alpha = 0),
     so the host checks the stop flag only every few steps.
     """
+    mesh = mesh_of(fs32)
+
     def proj(v):
-        return v - torch.vdot(x, v) * x
+        return v - dot(x, v, mesh) * x
 
     b = proj(b)
-    bn = float(torch.linalg.vector_norm(b))
+    bn = float(norm(b, mesh))
     b = b / max(bn, _TINY)
 
     def A(v):
@@ -62,17 +72,17 @@ def _inner(fs32, x, b, theta, nsteps):
     t = torch.zeros_like(b)
     r = b
     p = b
-    rs = torch.vdot(b, b).real
+    rs = dot(b, b, mesh).real
     live = torch.ones((), dtype=torch.bool, device=b.device)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     for step in range(nsteps):
         Ap = A(p)
-        pAp = torch.vdot(p, Ap).real
+        pAp = dot(p, Ap, mesh).real
         ok = (pAp > 1e-30) & live
         alpha = torch.where(ok, rs / torch.clamp(pAp, min=1e-30), 0.0)
         t = t + alpha * p
         r = r - alpha * Ap
-        rs2 = torch.vdot(r, r).real
+        rs2 = dot(r, r, mesh).real
         beta = torch.where(ok, rs2 / torch.clamp(rs, min=1e-30), 0.0)
         p = r + beta * p
         k = k + live
@@ -119,7 +129,7 @@ def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
     prev_rn = None
     best = None  # (rnorm, theta, x)
     n_outer0 = 0
-    store = ckpt.active_store() if ckpt_key else None
+    store = ckpt_store(fs64, ckpt_key)
     if store is not None:
         rec = store.load(ckpt_key)
         if rec is not None and rec["x_re"].shape == tuple(x.shape) \

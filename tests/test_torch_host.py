@@ -98,7 +98,11 @@ def test_port_imports_no_jax():
             "quantum_basis_tpu_torch.basis.vrnl",
             "quantum_basis_tpu_torch.basis.wavefunction",
             "quantum_basis_tpu_torch.ops.apply_vrnl",
-            "quantum_basis_tpu_torch.utils.profiling"]
+            "quantum_basis_tpu_torch.utils.profiling",
+            "quantum_basis_tpu_torch.parallel",
+            "quantum_basis_tpu_torch.parallel.fullspace_sharded",
+            "quantum_basis_tpu_torch.parallel.kron_sharded",
+            "quantum_basis_tpu_torch.solvers.reduce"]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
@@ -116,6 +120,7 @@ def test_device_defaults_are_cuda():
     import quantum_basis_tpu_torch as pkg
 
     seen = 0
+    names = set()
     for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         mod = importlib.import_module(info.name)
         for name, obj in vars(mod).items():
@@ -130,9 +135,15 @@ def test_device_defaults_are_cuda():
                 p = inspect.signature(f).parameters.get("device")
                 if p is not None:
                     seen += 1
+                    names.add(f"{info.name}.{f.__qualname__}")
                     assert p.default in ("cuda", inspect.Parameter.empty), \
                         (info.name, f.__qualname__, p.default)
     assert seen > 20
+    # the basis mesh and its start-up (parallel/*) are among them
+    par = "quantum_basis_tpu_torch.parallel."
+    assert {par + "mesh.BasisMesh.__init__", par + "mesh.basis_mesh",
+            par + "distributed.init_distributed",
+            par + "distributed.global_basis_mesh"} <= names
 
 
 def test_phase_timer_and_trace(tmp_path):
@@ -160,9 +171,10 @@ def test_phase_timer_and_trace(tmp_path):
 
 
 def test_unported_options_raise():
-    """What waits for a later slice raises and names it; checkpointing, the
-    streaming enumeration, dynamics, interior windows and the variational
-    sector no longer do."""
+    """Checkpointing, the streaming enumeration, dynamics, interior windows,
+    the variational sector and the basis mesh are ported: none of them
+    raises NotImplementedError; a mesh that is not a BasisMesh is refused
+    with a TypeError."""
     from quantum_basis_tpu_torch import Lattice, Model, config
 
     try:
@@ -181,5 +193,7 @@ def test_unported_options_raise():
         m.symmetrize_op(tz.sz_pair(0, 1)), 0, 0, 3)
     assert nrm > 0 and alphas.shape == betas.shape == (3,)
     assert m.locate_Es(-3.0, 1.0, which="repr", nev_max=6, degree=40)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="BasisMesh"):
         Model(Lattice("chain", [4], ["pbc"]), device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="BasisMesh"):
+        tz.hubbard_factorized(2, 2)[0].set_mesh(object())

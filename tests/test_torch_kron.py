@@ -256,10 +256,12 @@ def test_measure_product_static_matches_jax():
 
 def test_unported_product_routes_name_their_slice(monkeypatch, tmp_path):
     ms = tz.hubbard_factor(2, 2, 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the basis mesh is ported (tests/test_torch_model_mesh.py); a mesh
+    # that is not a BasisMesh is refused
+    with pytest.raises(TypeError, match="BasisMesh"):
         ProductModel(ms, mesh=object())
     pm = ProductModel(ms)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="BasisMesh"):
         pm.set_mesh(object())
     # checkpointing is ported: it writes a stage record instead of raising
     # (tests/test_torch_ckpt.py covers the records)

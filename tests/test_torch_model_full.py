@@ -224,7 +224,9 @@ def test_measure_full_static_chained_list(jax_sector_route):
 def test_unported_routes_name_their_slice(monkeypatch, tmp_path):
     mt, ot = tz.heisenberg_chain(8)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the basis mesh is ported (tests/test_torch_model_mesh.py); a mesh
+    # that is not a BasisMesh is refused
+    with pytest.raises(TypeError, match="BasisMesh"):
         qt.Model(mesh=object())
     # the variational sector is ported (tests/test_torch_vrnl.py): both
     # solvers run it; the other solvers refuse it
@@ -254,7 +256,8 @@ def test_exports_follow_the_jax_package():
         assert hasattr(qt, name)
     # every subpackage exports the JAX subpackage's names (lattice a
     # superset: TiltedLattice)
-    for sub in ("ops", "basis", "models", "utils", "lattice", "solvers"):
+    for sub in ("ops", "basis", "models", "utils", "lattice", "solvers",
+                "parallel"):
         jax_sub = importlib.import_module(f"quantum_basis_tpu.{sub}")
         port_sub = importlib.import_module(f"quantum_basis_tpu_torch.{sub}")
         assert set(jax_sub.__all__) <= set(port_sub.__all__), sub

@@ -51,10 +51,28 @@ def test_dnc_equals_direct_and_jax(name):
 
 
 def test_tile_select_names_its_slice():
+    """``tile_select`` is ported (the multi-device slice): each rank's share
+    of the streamed tiles equals the JAX package's, and the shares make the
+    whole (tests/test_torch_sample_sort.py merges them over gloo groups)."""
     m, c = tz.heisenberg_chain(8)
+    mj, cj = jz.heisenberg_chain(8)
     tset = TranslationSet(m.space, m.lattice, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        enumerate_reps_dnc(tset, [c["Sz"]], [0.0], tile_select=(0, 2))
+    whole, dim = enumerate_reps_dnc(tset, [c["Sz"]], [0.0], block=1 << 4,
+                                    with_dim=True)
+    shares, dims = [], 0
+    for r in range(2):
+        share, d = enumerate_reps_dnc(tset, [c["Sz"]], [0.0], block=1 << 4,
+                                      with_dim=True, tile_select=(r, 2),
+                                      sort=False)
+        jshare, jd = jax_dnc(JaxTset(mj.space, mj.lattice), [cj["Sz"]],
+                             [0.0], block=1 << 4, with_dim=True,
+                             tile_select=(r, 2), sort=False)
+        np.testing.assert_array_equal(share, jshare)
+        assert d == jd and share.size
+        shares.append(share)
+        dims += d
+    np.testing.assert_array_equal(np.sort(np.concatenate(shares)), whole)
+    assert dims == dim == 70
 
 
 def test_model_dnc_gives_the_direct_sector_and_energy():

@@ -7,13 +7,18 @@ test can run one model through both packages. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import json
 import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import (Lattice, Model, Mopr, Opr, ProductModel,
                                      TiltedLattice)
+from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
 
 # Under pytest-xdist several test processes run side by side. With PyTorch's
 # default of one intra-op thread per core each of them starts a full OpenMP
@@ -488,3 +493,107 @@ def center_oracle(space, lattice, labels):
         canon[rows], parity = space.transform(labels[rows], plan)
         sign[rows] = 1.0 - 2.0 * parity
     return canon, disp, sign
+
+
+# Inputs of the multi-process tests, made from seeds as the JAX package's
+# tests make them (tests/test_sample_sort.py, tests/test_halo_sharded.py).
+
+
+def sort_inputs() -> dict:
+    """The inputs of tests/test_sample_sort.py."""
+    out = {}
+    for n in (64, 1000, 40000):
+        rng = np.random.default_rng(11 + n)
+        out[f"random_{n}"] = rng.integers(0, 1 << 48, size=n, dtype=np.int64)
+    rng = np.random.default_rng(3)
+    vals = np.concatenate([
+        np.zeros(5000, dtype=np.int64),
+        rng.integers(0, 100, size=5000, dtype=np.int64),
+        rng.integers(1 << 40, (1 << 40) + 50, size=5000, dtype=np.int64)])
+    rng.shuffle(vals)
+    out["skewed"] = vals
+    m, c = heisenberg_chain(14)
+    labels = enumerate_basis(m.space, [c["Sz"]], [0.0], device="cpu")
+    np.random.default_rng(0).shuffle(labels)
+    out["labels"] = labels
+    out["overflow"] = np.full(2048, 42, dtype=np.int64)
+    out["duplicates"] = np.full(512, 7, dtype=np.int64)
+    return out
+
+
+def rand_vec(n, complex_vec, seed):
+    rng = np.random.default_rng(seed)
+    re = rng.normal(size=n)
+    return re + 1j * rng.normal(size=n) if complex_vec else re
+
+
+def banded_ell(n=8192, W=6, band=40, seed=2):
+    """tests/test_halo_sharded.py's banded matrix: (cols, vals, diag)."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(n)[:, None]
+    cols = np.clip(rows + rng.integers(-band, band + 1, size=(n, W)), 0,
+                   n - 1)
+    return cols, rng.normal(size=(n, W)), rng.normal(size=n)
+
+
+def odd_ell(n=37, W=3, seed=0):
+    """tests/test_halo_sharded.py's matrix of odd size."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, size=(n, W)), rng.normal(size=(n, W)),
+            rng.normal(size=n))
+
+
+_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_mp_worker.py")
+
+
+class WorkerGroup:
+    """A gloo group of ``ranks`` processes of tests/torch_mp_worker.py that
+    runs one suite, started at once; :meth:`results` waits for it (at most
+    ``timeout`` seconds, then every process still running is killed) and
+    returns each rank's (arrays, scalars). The rendezvous file and the
+    results live in ``out_dir``, one per group, so parallel test workers
+    never share a port or a file."""
+
+    def __init__(self, suite: str, ranks: int, out_dir, timeout: float = 240):
+        self.suite, self.ranks, self.out_dir = suite, ranks, str(out_dir)
+        self.deadline = time.monotonic() + timeout
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        rdv = os.path.join(self.out_dir, "rendezvous")
+        self.procs = [subprocess.Popen(
+            [sys.executable, _WORKER, str(r), str(ranks), rdv, suite,
+             self.out_dir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(ranks)]
+        self._results = None
+
+    def close(self):
+        """Kill every process of the group that still runs."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def results(self):
+        if self._results is None:
+            outs = []
+            try:
+                for p in self.procs:
+                    left = max(self.deadline - time.monotonic(), 1.0)
+                    outs.append(p.communicate(timeout=left)[0])
+            finally:
+                self.close()
+            for r, (p, out) in enumerate(zip(self.procs, outs)):
+                if p.returncode != 0:
+                    raise AssertionError(
+                        f"{self.suite} rank {r}/{self.ranks} exited "
+                        f"{p.returncode}:\n" + "\n".join(
+                            out.splitlines()[-20:]))
+            self._results = []
+            for r in range(self.ranks):
+                base = os.path.join(self.out_dir, f"{self.suite}_r{r}")
+                with np.load(base + ".npz") as z:
+                    arrays = dict(z)
+                with open(base + ".json") as f:
+                    self._results.append((arrays, json.load(f)))
+        return self._results
