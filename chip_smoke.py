@@ -85,7 +85,7 @@ Phases (any failure raises, so the exit code is nonzero):
    measure_repr_dynamic (40 steps) the same norm (1e-12); (b) the flagship
    benchmarks/flagship_kagome24_sqw.py at N = 2^24: the 8 q of the cell zone
    from phase 8's k0 = (0,2) ground state, 192 moments each on the float64
-   P_k H engine (config.kpm_fullspace_max_N = 2^24, as the flagship sets it)
+   P_k H engine (kpm_fullspace_max_N pinned to 2^24, as the flagship sets it)
    with the shared bounds of SQW_kagome24.json: norms within 1e-7 and
    moments within 1e-4 of that file, sum_q norm^2 = 0.8044558613240673
    (1e-7), |mu_n| <= 1 + 1e-9, the target sector k = (0,0)'s own
@@ -143,13 +143,30 @@ Phases (any failure raises, so the exit code is nonzero):
    Model(mesh=): E0 equal to 12a's (1e-10), halo_stats() equal to the
    host's numpy computation for P = 2; its times are labelled as not
    multi-GPU times;
-13. prints the kernel record, the card line, and as the last line
+13. the drivers (quantum_basis_tpu_torch.examples and .benchmarks) on the
+   card's own routing bounds (config.ROUTING["cuda"]): the main() of the 11
+   example drivers that run here (every one but the triangular-31 KPM
+   driver, whose cluster file the repository does not hold) at their golden
+   sizes, each asserting its goldens (1e-8) and printing the engine and
+   seconds of every sector; chain S(q, w) sum rule (1e-10); the kagome-24
+   flagship (full sector and its 8 momenta: sum of dims = 2,704,156, min_k
+   E0 = E0(full) to 1e-10, -10.759897248084 to 1e-8); its S(q, w) at 8 q x
+   192 moments against SQW_kagome24.json (norms 1e-7, moments 1e-4, each
+   target sector's own bounds inside the shared ones, |mu_n| <= 1 + 1e-9);
+   the Hubbard gaps driver on the 4x2 cluster (four sectors, residuals under
+   the gate); bsr_bench on its widened cases (the kernel against the ELL on
+   the card, f32 tolerance), whose launches count in the kernel record;
+14. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
-Phases 8, 9, 10, 11 and 12 run before phase 7, whose 4x4 solve is the one
-part that is capped when the script would pass its budget.
+Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
+on purpose: they pin the JAX package's values of the bounds that select
+those routes (config.ROUTING["cpu"]), as phase 5 does for its two goldens on
+ContractOp. Phases 8 to 13 run before phase 7, whose 4x4 solve (through
+benchmarks/hubbard4x4.py) is the one part that is capped when the script
+would pass its budget.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-13, windows
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-14, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
@@ -161,7 +178,10 @@ times the matrix-free apply
 at three row-block budgets; it prints no result line.
 ``python3 chip_smoke.py --hubbard4x4`` runs phase 7 alone with the full 4x4
 solve, whatever its projected time; ``--mesh`` runs phase 12 alone (after
-the chain-24 ELL solve it compares with). Imports nothing of JAX.
+the chain-24 ELL solve it compares with); ``--gaps`` runs the Hubbard gaps
+driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
+-20.497352266554); ``--bsr-bench`` runs bsr_bench alone. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -194,6 +214,13 @@ E0_HUBBARD_4X4 = -20.497352266554
 DIM_24 = 2704156
 SCRIPT_BUDGET_S = 900.0  # the 4x4 solve is capped if the script would pass it
 HUBBARD4X4_DIMS = (12870, 165636900)  # factor dim C(16,8), sector dim
+# phase 13: the example drivers that run on the card (the triangular-31
+# driver needs its cluster's TOML file, which the repository does not hold)
+EXAMPLES = ("chain_heisenberg_spin_half", "chain_dynamics_sqw",
+            "chain_heisenberg_spin_one", "chain_tj", "chain_kondo",
+            "square_bose_hubbard", "square_fermi_hubbard", "square_kondo",
+            "honeycomb_spinless_fermion", "triangular_heisenberg",
+            "kagome_heisenberg_tj")
 # applies of the full Hubbard 4x4 solve (ProductModel defaults, seed 1), as
 # counted on an NVIDIA H100 80GB HBM3 (381 in the f32 bulk, 121 in the RQI
 # inner solves and up to 16 uncounted ones per outer step; 2 f64 outer steps
@@ -356,7 +383,8 @@ def kernel_checks(bsr_mod, dev):
                 bsr.blocks_re, bsr.blocks_im, bsr.bi, bsr.bj, x2d))
             bound_ms, bound_by = bsr_bound(bsr, C)
             # the f64 ELL apply on the same matrix and vector kind: what
-            # the BSR routing bounds (config.bsr_blowup_max) weigh against
+            # the BSR routing bounds (bsr_blowup_max, config.ROUTING) weigh
+            # against
             xe = torch.as_tensor(
                 rng.standard_normal(ell.n) + (1j * rng.standard_normal(ell.n)
                                               if C == 2 else 0.0), device=dev)
@@ -648,7 +676,8 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
     from torch_zoo import (heisenberg_chain, kagome_heisenberg, sz_pair)
 
     bsr_mod.launch_count = 0
-    full_goldens(dev)
+    with jax_bounds("fullspace_max_blowup"):  # both on ContractOp
+        full_goldens(dev)
 
     m, ops = heisenberg_chain(24, device=dev)
     rec = full_width(dev, "chain24_Sz0", m, ops["Sz"], True, 4000)
@@ -1294,12 +1323,11 @@ def kagome_sqw(dev, kagome_case, gs_sector, art, bounds):
     Lx, Ly = lat.L
     coords = np.asarray([lat.site2coor(s)[0] for s in range(lat.n_sites)])
     km.sec_repr[0] = gs_sector
-    old = config.kpm_fullspace_max_N
-    config.kpm_fullspace_max_N = 1 << 24   # as the flagship script sets it
     rows, norms2, extra = [], [], {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    try:
+    # kpm_fullspace_max_N as the JAX flagship script sets it
+    with config.pinned(kpm_fullspace_max_N=1 << 24):
         for qx in range(Lx):
             for qy in range(Ly):
                 ph = np.exp(-2j * np.pi * (qx * coords[:, 0] / Lx
@@ -1368,8 +1396,6 @@ def kagome_sqw(dev, kagome_case, gs_sector, art, bounds):
                             f"(slack 0.05) leave the shared ones")
                     extra["matvec_repr_ms"] = _time_matvec_repr(dst, dev)
                 rows.append(row)
-    finally:
-        config.kpm_fullspace_max_N = old
     rec = {"model": tag, "card": card_line(), "k0": list(k0),
            "n_moments": KPM_MOMENTS, "bounds": list(bounds),
            "norm2_sum": sum(norms2), "peak_bytes":
@@ -1511,17 +1537,20 @@ def interior_window(dev, L=16):
 
 def dynamics_run(bsr_mod, dev, tilted, wide, gs_sector):
     """Phase 10: dynamics and spectra. Returns the kernel's launches (10a)."""
-    launches, _ = tilted_dynamics(bsr_mod, dev, tilted)
+    with jax_bounds("bsr_blowup_max", "bsr_stored_max_bytes",
+                    "bsr_auto_max_dim"):
+        launches, _ = tilted_dynamics(bsr_mod, dev, tilted)
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "SQW_kagome24.json")) as f:
         art = json.load(f)
     if tuple(art["k0"]) != (0, 2) or \
             art["sum_rule"]["norms2"] != SQW_NORM2_SUM:
         raise AssertionError("SQW_kagome24.json is not the flagship's")
-    kagome_sqw(dev, wide[1], gs_sector, art, SQW_BOUNDS)
+    with jax_bounds("fullspace_repr_max_blowup"):
+        kagome_sqw(dev, wide[1], gs_sector, art, SQW_BOUNDS)
     chain_contfrac(dev, wide[0])
     interior_window(dev)
-    return launches
+    return launches, art
 
 
 def _b_k(ops, k):
@@ -2091,8 +2120,114 @@ def ell_apply_columns(ell, X, block=128):
     return Y
 
 
+def jax_bounds(*names):
+    """Pin the named routing bounds to the JAX package's values (the "cpu"
+    table of config.ROUTING) for a phase that drives, on purpose, the route
+    those values select on this card (P_k H, the BSR bulk stage)."""
+    from quantum_basis_tpu_torch import config
+
+    return config.pinned(**{n: config.ROUTING["cpu"][n] for n in names})
+
+
+def drivers_run(bsr_mod, dev, art):
+    """Phase 13: the drivers of quantum_basis_tpu_torch.examples and
+    .benchmarks on the card's own routing bounds. Returns the kernel's
+    launches (bsr_bench's included) and the bench record."""
+    import importlib
+
+    from quantum_basis_tpu_torch.benchmarks import (
+        flagship_kagome24, flagship_kagome24_sqw, hubbard4x4_gaps, out_path)
+
+    bsr_mod.launch_count = 0
+    t13 = time.perf_counter()
+    for name in EXAMPLES:
+        mod = importlib.import_module(
+            f"quantum_basis_tpu_torch.examples.{name}")
+        kw = ({"out": out_path("sqw_chain")}
+              if name == "chain_dynamics_sqw" else {})
+        torch.cuda.reset_peak_memory_stats()
+        out, dt = _timed(lambda: mod.main(device=dev, **kw))
+        rows, extra = (out if isinstance(out, tuple) else (out, None))
+        print("driver", json.dumps({
+            "example": name, "s": dt, "sectors": rows,
+            "peak_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+        if name == "chain_dynamics_sqw":
+            # sum over q != 0 of |Sz(q)|gs>|^2 = L/4 in the singlet
+            n2 = sum(n * n for n in extra["norms"])
+            _check("chain-12 S(q,w): sum_q norm^2", n2, extra["L"] / 4, 1e-10)
+            if not np.all(np.isfinite(extra["S"])):
+                raise AssertionError("chain-12 S(q,w) is not finite")
+        torch.cuda.empty_cache()
+    print(f"phase 13 examples: {time.perf_counter() - t13:.1f} s",
+          flush=True)
+
+    rec, dt = _timed(lambda: flagship_kagome24.main(
+        device=dev, out=out_path("FLAGSHIP_kagome24_torch.json")))
+    print("driver", json.dumps({"benchmark": "flagship_kagome24", "s": dt,
+                                **{k: rec[k] for k in (
+                                    "dim_full", "E0_full", "full_engine",
+                                    "sectors", "checks", "timings_s")}}),
+          flush=True)
+    if rec["dim_full"] != DIM_24 or sum(x["dim"] for x in rec["sectors"]) \
+            != DIM_24:
+        raise AssertionError("kagome-24: sector dims do not add up")
+    _check("kagome-24 flagship: min_k E0(k) vs E0(full)",
+           min(x["E0"] for x in rec["sectors"]), rec["E0_full"], 1e-10)
+    _check("kagome-24 flagship: E0(full)", rec["E0_full"], E0_KAGOME24, 1e-8)
+    torch.cuda.empty_cache()
+
+    sqw, dt = _timed(lambda: flagship_kagome24_sqw.main(
+        device=dev, reference=art,
+        out=out_path("SQW_kagome24_torch.json")))
+    print("driver", json.dumps({
+        "benchmark": "flagship_kagome24_sqw", "s": dt,
+        "gs_engine": sqw["gs_engine"], "gs_s": sqw["gs_s"],
+        "sum_rule": sqw["sum_rule"],
+        "runs": [{k: r[k] for k in ("q", "engine", "s", "norm_err", "mu_err")}
+                 for r in sqw["runs"]]}), flush=True)
+    _check("kagome-24 S(q,w): sum_q norm^2", sqw["sum_rule"]["norms2"],
+           SQW_NORM2_SUM, 1e-7)
+    torch.cuda.empty_cache()
+
+    gaps, dt = _timed(lambda: hubbard4x4_gaps.main(
+        4, 2, device=dev,
+        out=out_path("HUBBARD4x2_GAPS_torch.json")))
+    print("driver", json.dumps({"benchmark": "hubbard4x4_gaps", "lattice":
+                                "4x2", "s": dt, **gaps}), flush=True)
+    _check("hubbard 4x2 gaps: E0(4,4)", gaps["sectors"]["4,4"]["E0"],
+           E0_HUBBARD_4X2, 1e-8)
+
+    bench, dt = _timed(lambda: bsr_bench_run(dev))
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    return bsr_mod.launch_count, bench
+
+
+def bsr_bench_run(dev):
+    """bsr_bench on its widened cases (the shapes of phase 3 and kagome-24
+    k=(0,2)): the kernel against the ELL, agreement checked on the card."""
+    from quantum_basis_tpu_torch.benchmarks import bsr_bench
+
+    rec = bsr_bench.main(device=dev)
+    print("bsr_bench", json.dumps(rec["calibration"]), flush=True)
+    return rec
+
+
+def gaps_run(dev):
+    """``--gaps``: the four sectors of the 4x4 Hubbard gaps at full width."""
+    from quantum_basis_tpu_torch.benchmarks import hubbard4x4_gaps
+
+    rec = hubbard4x4_gaps.main(4, 4, device=dev)
+    print("gaps", json.dumps(rec), flush=True)
+    _check("hubbard 4x4 E0(8,8)", rec["sectors"]["8,8"]["E0"],
+           E0_HUBBARD_4X4, 1e-8)
+    return rec
+
+
 def product_run(dev, t_start, force_full):
     """Phase 7: the factorized route through ProductModel."""
+    from quantum_basis_tpu_torch.benchmarks import hubbard4x4
+    from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
+        build_factorized)
     from quantum_basis_tpu_torch.ops.apply_kron import KronOp
     from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
     from quantum_basis_tpu_torch.utils.rng import vec_randomize
@@ -2114,7 +2249,7 @@ def product_run(dev, t_start, force_full):
     torch.cuda.reset_peak_memory_stats()
     rec = {"model": "hubbard_4x4_half_U1.1", "card": card_line()}
     (pm, ms), rec["factor_build_s"] = _timed(
-        lambda: hubbard_factorized(4, 4, device=dev))
+        lambda: build_factorized(4, 4, device=dev))
     if (pm.na, pm.dim) != HUBBARD4X4_DIMS:
         raise AssertionError(f"4x4: factor dim {pm.na}, dim {pm.dim}")
     rec["dim"], rec["factor_dim"] = pm.dim, pm.na
@@ -2169,9 +2304,11 @@ def product_run(dev, t_start, force_full):
         rec["capped_steps"], rec["E0"] = steps, out["E0"]
         rec["residual"] = out["residual"]
     else:
-        e0, rec["solve_s"] = _timed(lambda: pm.locate_E0_lanczos())
-        rec["E0"], rec["residual"] = e0, pm._last_residual
-        rec["residual_gate"] = max(1e3 * 2e-12 * abs(e0), 5e-10)
+        # the ported driver's solve (benchmarks/hubbard4x4.py)
+        out = hubbard4x4.solve_sector(pm)
+        rec["solve_s"], rec["E0"] = out["solve_s"], out["E0"]
+        rec["residual"] = out["residual_f64"]
+        rec["residual_gate"] = out["residual_gate"]
         n0 = site_occupation(0)
         rec["double_occupancy_site0"], rec["measure_s"] = _timed(
             lambda: pm.measure_product_static(n0, n0))
@@ -2229,7 +2366,13 @@ def device_busy(tag, fn):
 def profile_kpm(dev):
     """--profile: the KPM path of phase 10a, one q of the tilted cluster's
     S(q, w) (192 moments and their bounds on the BSR kernel) from the
-    ground-state sector phase 4b finds."""
+    ground-state sector phase 4b finds, on phase 10a's pinned bounds."""
+    with jax_bounds("bsr_blowup_max", "bsr_stored_max_bytes",
+                    "bsr_auto_max_dim"):
+        _profile_kpm(dev)
+
+
+def _profile_kpm(dev):
     from torch_zoo import tilted_heisenberg, tilted_momenta
 
     mt, opt = tilted_heisenberg(TILTED_A, device=dev)
@@ -2241,7 +2384,8 @@ def profile_kpm(dev):
         q, [lat.site2coor(s)[0] for s in range(lat.n_sites)])))
     mt.enumerate_basis_repr((np.asarray(TILTED_K_GS) - q).tolist(),
                             [opt["Sz"]], [0.0], sec=1)
-    mt._repr_bsr32(mt.sec_repr[1])
+    if mt._repr_bsr32(mt.sec_repr[1]) is None:
+        raise AssertionError("tilted-20 KPM: the sector is not on the BSR")
     device_busy("tilted-20 S(q,w), one q: 192 KPM moments on the BSR kernel",
                 lambda: mt.measure_repr_dynamic_kpm(A, 0, 1, KPM_MOMENTS))
 
@@ -2270,6 +2414,33 @@ def profile_vrnl(dev):
     device_busy("holstein16 MatvecVrnl apply x20",
                 lambda: [mv(x) for _ in range(20)])
     del m, mv, x
+
+
+def profile_pkh(dev, m, ops):
+    """--profile: P_k, P_k H applies and a P_k H solve at N = 2^24 on the
+    kagome cluster ``m`` (k=(0,2)) and chain-24 (k=0)."""
+    from torch_zoo import heisenberg_chain
+
+    for tag, mk, opk, k in (
+            ("kagome24 k=(0,2)", m, ops, [0, 2]),
+            ("chain24 k=0", *heisenberg_chain(24, device=dev), [0])):
+        mk.enumerate_basis_repr(k, [opk["Sz"]], [0.0])
+        pk = mk._fullspace_repr_op(mk.sec_repr[0])
+        if pk is None:
+            raise AssertionError(f"{tag}: no P_k H engine")
+        g = torch.Generator(device=dev).manual_seed(3)
+        xk = pk.project(torch.randn(pk.N, dtype=torch.complex128, device=dev,
+                                    generator=g))
+        device_busy(f"{tag} P_k apply (N 2^24)",
+                    lambda: pk.projector.apply(xk))
+        device_busy(f"{tag} P_k H f64 apply (N 2^24)", lambda: pk(xk))
+        if len(k) == 1:
+            # host share of a whole projected solve (Lehmer start vectors
+            # made on the host over all labels, projected on the device)
+            device_busy(f"{tag} P_k H f64 solve",
+                        lambda: mk.locate_E0_lanczos(which="repr"))
+        del mk, pk, xk
+        torch.cuda.empty_cache()
 
 
 def profile_windows(dev):
@@ -2309,25 +2480,10 @@ def profile_windows(dev):
     m.sec_full.clear()
     torch.cuda.empty_cache()
 
-    # P_k H at N = 2^24: kagome k=(0,2), then chain-24 k=0
-    for tag, mk, opk, k in (
-            ("kagome24 k=(0,2)", m, ops, [0, 2]),
-            ("chain24 k=0", *heisenberg_chain(24, device=dev), [0])):
-        mk.enumerate_basis_repr(k, [opk["Sz"]], [0.0])
-        pk = mk._fullspace_repr_op(mk.sec_repr[0])
-        g = torch.Generator(device=dev).manual_seed(3)
-        xk = pk.project(torch.randn(pk.N, dtype=torch.complex128, device=dev,
-                                    generator=g))
-        device_busy(f"{tag} P_k apply (N 2^24)",
-                    lambda: pk.projector.apply(xk))
-        device_busy(f"{tag} P_k H f64 apply (N 2^24)", lambda: pk(xk))
-        if len(k) == 1:
-            # host share of a whole projected solve (Lehmer start vectors
-            # made on the host over all labels, projected on the device)
-            device_busy(f"{tag} P_k H f64 solve",
-                        lambda: mk.locate_E0_lanczos(which="repr"))
-        del mk, pk, xk
-        torch.cuda.empty_cache()
+    # P_k H at N = 2^24: kagome k=(0,2), then chain-24 k=0, on phase 8's
+    # pinned bound
+    with jax_bounds("fullspace_repr_max_blowup"):
+        profile_pkh(dev, m, ops)
     del m
     profile_kpm(dev)
     profile_vrnl(dev)
@@ -2385,6 +2541,15 @@ def main() -> int:
     if "--hubbard4x4" in sys.argv[1:]:
         product_run("cuda", t_start, force_full=True)
         return 0
+    if "--gaps" in sys.argv[1:]:
+        gaps_run("cuda")
+        return 0
+    if "--bsr-bench" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import bsr as bsr_mod
+
+        bsr_mod.build_library(verbose=True)
+        bsr_bench_run("cuda")
+        return 0
     if "--mesh" in sys.argv[1:]:
         from torch_zoo import heisenberg_chain
 
@@ -2403,17 +2568,21 @@ def main() -> int:
 
     dev = "cuda"
     rows = kernel_checks(bsr_mod, dev)
-    launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
+    with jax_bounds("fullspace_repr_max_blowup", "bsr_blowup_max",
+                    "bsr_stored_max_bytes"):
+        launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
     launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
     launches += launches5
     engines_run(dev, wide)
     print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
-    gs_sector = momentum_run(bsr_mod, dev, wide, t_start)
+    with jax_bounds("fullspace_repr_max_blowup"):
+        gs_sector = momentum_run(bsr_mod, dev, wide, t_start)
     print(f"phases 1-6, 8: {time.perf_counter() - t_start:.1f} s", flush=True)
     resume_run(dev, wide[0])
     print(f"phases 1-6, 8, 9: {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    launches += dynamics_run(bsr_mod, dev, tilted, wide, gs_sector)
+    launches10, art = dynamics_run(bsr_mod, dev, tilted, wide, gs_sector)
+    launches += launches10
     # phase 12 holds the sharded route against phase 5's chain-24 sector
     chain_labels, chain_e0 = wide[0][1].sec_full[0].labels, wide[0][3]["E0_ell"]
     del wide, tilted, gs_sector
@@ -2431,8 +2600,13 @@ def main() -> int:
     del chain_labels
     print(f"phases 1-6, 8-12: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    launches13, _ = drivers_run(bsr_mod, dev, art)
+    launches += launches13
+    torch.cuda.empty_cache()
+    print(f"phases 1-6, 8-13: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     product_run(dev, t_start, force_full=False)
-    print(f"phases 1-12: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")

@@ -11,6 +11,8 @@ needs true float32, the way the JAX package forces ``Precision.HIGHEST``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,32 +66,133 @@ direct_lookup_max = 1 << 26
 # re-measured on the GPU, where each intermediate is a separate allocation.
 apply_block_budget = 1 << 24
 
-# --------------------------------------------------------- BSR engine routing
-# Explicit momentum-sector solves on a CUDA device run their f32 bulk Krylov
-# stage on the hand-written BSR SpMV kernel (ops/bsr.py) when the block
-# fill-in blowup (stored / nnz, bsr_fill_stats) is at most bsr_blowup_max
-# and the stored f32 block bytes (x2 when complex) at most
-# bsr_stored_max_bytes. Both bounds are the JAX package's TPU calibrations
-# (measured break-even blowup ~690 on a v5e; 2 GiB sized for a 16 GB chip)
-# and have not been re-measured on the H100. prefer_bsr = True/False
-# overrides the routing on any device (the CPU tests force True).
-bsr_blowup_max = 400.0
+# ------------------------------------------------------------ engine routing
+# The six bounds that decide which engine a sector runs on, one table per
+# device type; a model reads the table of its own device (route()).
+# - fullspace_max_blowup: a full sector runs on the full-label-space engines
+#   (ContractOp / FullSpaceOp) when label_space <= it * dim, else on the
+#   sector's matvec (Model._fullspace_op).
+# - fullspace_repr_max_blowup: a momentum sector runs as P_k H in the full
+#   label space when label_space <= it * dim, else on the explicit route
+#   (Model._fullspace_repr_op).
+# - bsr_blowup_max, bsr_stored_max_bytes: an explicit momentum solve runs
+#   its f32 bulk Krylov stage on the BSR SpMV kernel (ops/bsr.py) when the
+#   block fill-in blowup (stored / nnz, bsr_fill_stats) and the stored f32
+#   block bytes (x2 when complex) are at most these; the route is considered
+#   on a CUDA device only (Model._repr_bsr32).
+# - bsr_auto_max_dim: KPM dynamics on a momentum sector with no P_k H
+#   engine builds the sector's explicit f64 ELL, and from it considers the
+#   BSR route, only up to this dim; above it the recurrence runs on the
+#   sector's matrix-free MatvecRepr. An ELL or BSR engine that an earlier
+#   solve built is reused at any dim.
+# - kpm_fullspace_max_N: KPM dynamics on momentum sectors runs on the float64
+#   P_k H engine up to this many labels, else on the sector-dim engine.
+# "cpu" keeps the JAX package's values (its TPU calibrations), so a CPU run
+# routes as the JAX package does. "cuda" holds the values measured on the
+# H100 by quantum_basis_tpu_torch/benchmarks/routing.py in whole solves, the
+# set-up included (PERF.md, the routing table).
+ROUTING = {
+    "cpu": {
+        "fullspace_max_blowup": 64.0,
+        "fullspace_repr_max_blowup": 256.0,
+        "bsr_blowup_max": 400.0,
+        "bsr_stored_max_bytes": 2 << 30,
+        "bsr_auto_max_dim": 1 << 16,
+        "kpm_fullspace_max_N": 1 << 23,
+    },
+    # NVIDIA H100 80GB HBM3, 700.00 W: whole solves in s, set-up included,
+    # each pair "the route named first / the other" (PERF.md section 5):
+    "cuda": {
+        # ContractOp against the matrix-free matvec. Below 8: chain-24 Sz=0
+        # (blowup 6.2) 2.81 / 14.94, spin-1 chain-10 (6.6) 0.26 / 0.19;
+        # above: Hubbard 4x2 (13.4) 0.36 / 0.30, kagome t-J 2x2 (15.3)
+        # 0.99 / 0.80, kagome-24 Sz=-4 (22.8) 19.8 / 14.4, chain-24 Sz=-6
+        # (124.6) 2.93 / 1.12, Sz=-7 (394.7) 3.14 / 0.70. Against the
+        # bound: t-J chain-12 (15.3) 0.45 / 0.51, chain-24 Sz=-4 (22.8)
+        # 2.81 / 4.43.
+        "fullspace_max_blowup": 8.0,
+        # P_k H against the explicit f64 ELL: the ELL wins at every
+        # measured sector, blowup 8.0 (kagome-24, all Sz, k=(0,2)) 42.27 /
+        # 5.25, 15.9 and 20.0 (chain-16, -20, all Sz) 0.21 / 0.08 and 0.63 /
+        # 0.19, 24.0 (chain-24, all Sz) 10.08 / 1.56, 49.6 (kagome-24
+        # k=(0,2)) 40.96 / 1.18, 60.9 (kagome t-J) 2.08 / 0.30, 80.9 to
+        # 113.3, 148.8 (chain-24 k=0) 9.73 / 0.81; the bound sits below the
+        # smallest measured blowup.
+        "fullspace_repr_max_blowup": 6.0,
+        # f32 BSR bulk + f64 polish against the f64 ELL. Off on this card
+        # by policy: the bound sits below every measured fill. Per apply
+        # the ELL is faster at every fill (benchmarks/bsr_bench.py: 84 to
+        # 834, break-even 29.8-31.9 in three runs, whence 31). Whole
+        # solves: fill 84 (chain-16 k=0) 0.44 / 0.10, 199 (kagome t-J)
+        # 0.24 / 0.24, 308 (kagome-24 k=(0,2)) 1.80 / 0.92 at 53.2 / 22.4
+        # GB peak, 340 (tilted-20) 0.48 / 0.49, 374 (chain-20) 0.40 / 0.49,
+        # 620 (chain-22) 2.15 / 2.48, 834 (chain-24 k=0) 0.53 / 0.49. Under
+        # the rule's form (fill <= bound) every bound from 84 up sends
+        # chain-16 k=0 to the BSR (4.4x slower), and the seven sectors
+        # together lose 0.34-1.22 s at every such bound, for 2-3x the peak
+        # memory.
+        "bsr_blowup_max": 31.0,
+        # the largest measured stored size (kagome-24 k=(0,2): 20.9 GB of
+        # f32 blocks, 53.2 GB peak in the solve). It binds only where
+        # bsr_blowup_max admits a sector, which none measured here is,
+        # or where a caller pins bsr_blowup_max higher.
+        "bsr_stored_max_bytes": 20_865_220_608,
+        # KPM (192 moments) on the explicit route (the ELL, or the BSR
+        # where bsr_blowup_max admits it: the ELL at every measured fill)
+        # against the sector's MatvecRepr, enumeration and ELL build
+        # included: the ELL wins at every measured dim, 800 (chain-16)
+        # 0.04 / 0.22, 8,640 (kagome t-J) 0.06 / 0.32, 9,252 (chain-20)
+        # 0.05 / 0.27, 338,356 (kagome-24) 0.55 / 4.70; the route this
+        # table takes (the ELL, after the fill statistics turn the BSR
+        # down), in one later run against MatvecRepr: 0.044 / 0.162,
+        # 0.058 / 0.251, 0.063 / 0.378, 0.605 / 4.911 (2.2 / 1.5 GB peak).
+        # The bound is the largest measured dim.
+        "bsr_auto_max_dim": 338_356,
+        # KPM on P_k H against the sector-dim engines (ELL / BSR /
+        # MatvecRepr): 2^16 labels (chain-16) 0.29 against 0.04 / 0.07 /
+        # 0.22, 3^12 (kagome t-J) 0.60 against 0.06 / 0.08 / 0.32, 2^20
+        # (chain-20) 0.48 against 0.05 / 0.07 / 0.27, 2^24 (kagome-24) 13.9
+        # against 0.55 / 1.91 / 4.70; the bound sits below the smallest
+        # measured label space.
+        "kpm_fullspace_max_N": 1 << 15,
+    },
+}
+
+# prefer_bsr = True/False overrides the BSR routing on any device (the CPU
+# tests force True).
 prefer_bsr = None
-bsr_stored_max_bytes = 2 << 30
 
-# KPM dynamics only CONSIDERS the BSR route for a momentum sector at or below
-# this dim (Model.measure_repr_dynamic_kpm): deciding costs an explicit ELL
-# build; a sector routed by an earlier solve is reused at any dim. The JAX
-# package's TPU calibration (sector sizes of its measured winners), not
-# re-measured on the H100.
-bsr_auto_max_dim = 1 << 16
 
-# KPM dynamics on momentum sectors runs the Chebyshev recurrence on the
-# projected full-space engine (float64 P_k H) when the label space has at
-# most this many states, else on the sector-dim engine (the BSR kernel where
-# routed, else the sector's matvec). The JAX package's value, set there by
-# the device memory of a 16 GB TPU; not re-measured on the H100.
-kpm_fullspace_max_N = 1 << 23
+def route(name: str, device) -> float:
+    """The routing bound ``name`` for a model on ``device``: the entry of
+    its device type's table in ROUTING."""
+    return ROUTING[torch.device(device).type][name]
+
+
+@contextlib.contextmanager
+def pinned(**values):
+    """Hold config values for a block, then restore them. A routing bound
+    (a key of ROUTING's tables) is held in every device type's table, so a
+    caller that wants one route on purpose gets it on any device; any other
+    name (``prefer_bsr``, ``mixed_precision``, ...) is this module's
+    attribute."""
+    g = globals()
+    saved = []
+    try:
+        for name, v in values.items():
+            if name in ROUTING["cpu"]:
+                for table in ROUTING.values():
+                    saved.append((table, name, table[name]))
+                    table[name] = v
+            elif name in g:
+                saved.append((g, name, g[name]))
+                g[name] = v
+            else:
+                raise AttributeError(f"config has no {name!r}")
+        yield
+    finally:
+        for where, name, v in reversed(saved):
+            where[name] = v
 
 
 def initialize(enable_checkpoint: bool = False, quiet: bool = False,

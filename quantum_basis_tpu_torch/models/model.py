@@ -18,9 +18,10 @@ Sectors are kept per integer index ``sec``. Every device object lives on
 ``device``; nothing moves to another device when that one is missing. A
 sector at or below ``_DENSE_CUTOFF`` rows is solved densely on the host.
 
-A larger full sector whose label space is at most 64 times its dimension is
-solved over the FULL label space (``_fullspace_op``): on the
-window-contraction engine (ops/apply_contract.py) in float64, or, under
+A larger full sector whose label space is at most ``fullspace_max_blowup``
+times its dimension (one value per device type, ``config.ROUTING``) is solved
+over the FULL label space (``_fullspace_op``): on the window-contraction
+engine (ops/apply_contract.py) in float64, or, under
 ``config.mixed_precision``, with the Krylov bulk on its float32 twin and a
 float64 polish (Rayleigh-quotient iteration above ``_POLISH_N`` labels) under
 a hard residual gate; the masked-roll engine (ops/apply_fullspace.py) is the
@@ -29,17 +30,18 @@ full sectors, and every sector after ``generate_Ham_sparse_full``, run
 thick-restart Lanczos in float64 on the sector's own ``matvec``: the
 matrix-free :class:`MatvecFull` or the explicit ELL.
 
-A larger momentum sector whose label space is at most 256 times its dimension
-is solved the same way as ``P_k H`` (``_fullspace_repr_op``: the same engines
-with the block-transpose momentum projector of ops/translate_fullspace.py,
-pure float64 or mixed), and its eigenvector is read back at the
-representative labels. Where that gives no engine (a tilted cluster, a larger
-blowup, an operator neither engine takes) the sector takes the
-explicit-sparse route: the f32 bulk Krylov stage on the BSR kernel
-(ops/bsr.py) with an f64 Rayleigh-quotient polish on the ELL matrix when
-``_repr_bsr32`` routes the sector there, else thick-restart Lanczos on the
-f64 ELL. ``enumerate_basis_repr(method="dnc")`` streams the representatives
-without materializing the sector (basis/weisse.py).
+A larger momentum sector whose label space is at most
+``fullspace_repr_max_blowup`` times its dimension is solved the same way as
+``P_k H`` (``_fullspace_repr_op``: the same engines with the block-transpose
+momentum projector of ops/translate_fullspace.py, pure float64 or mixed),
+and its eigenvector is read back at the representative labels. Where that
+gives no engine (a tilted cluster, a larger blowup, an operator neither
+engine takes) the sector takes the explicit-sparse route: the f32 bulk
+Krylov stage on the BSR kernel (ops/bsr.py) with an f64 Rayleigh-quotient
+polish on the ELL matrix when ``_repr_bsr32`` routes the sector there, else
+thick-restart Lanczos on the f64 ELL. ``enumerate_basis_repr(method="dnc")``
+streams the representatives without materializing the sector
+(basis/weisse.py).
 
 With ``config.enable_ckpt`` every solve stage persists its result under a key
 that carries the Hamiltonian's fingerprint, and the solvers persist their
@@ -50,7 +52,7 @@ Dynamics: ``measure_full_dynamic`` / ``measure_repr_dynamic`` record the
 continued fraction of <phi|A^dagger (z - H)^{-1} A|phi> on the target sector's
 matvec; ``measure_full_dynamic_kpm`` / ``measure_repr_dynamic_kpm`` record its
 Chebyshev (KPM) moments, a momentum sector on the float64 ``P_k H`` engine up
-to ``config.kpm_fullspace_max_N`` labels, else on the sector-dim engine (the
+to ``kpm_fullspace_max_N`` labels, else on the sector-dim engine (the
 float32 BSR kernel where ``_repr_bsr32`` routes the sector). ``locate_Es``
 finds the eigenpairs inside an energy window by Chebyshev-filtered subspace
 iteration.
@@ -532,7 +534,8 @@ class Model:
         self._store("full", sector, evals, vecs, nev, max(ncv, 1))
         self._e0_sec = sec
 
-    def _fullspace_op(self, sector, max_blowup: float = 64.0, dtype=None):
+    def _fullspace_op(self, sector, max_blowup: float | None = None,
+                      dtype=None):
         """Full-label-space engine for this sector when supported and the
         label-space blowup is worth it; None otherwise. Cached per dtype.
 
@@ -540,15 +543,17 @@ class Model:
         window-contraction engine serves both precisions (the JAX package
         routes the same way on its CPU and GPU backends); the roll engine is
         the float64 fallback for operators the contraction engine cannot
-        take. ``max_blowup`` is the JAX package's TPU calibration, not
-        re-measured on the GPU. An explicit ELL (``generate_Ham_sparse_full``)
-        is honoured: None.
+        take. ``max_blowup`` defaults to the device's
+        ``fullspace_max_blowup`` (``config.route``). An explicit ELL
+        (``generate_Ham_sparse_full``) is honoured: None.
         """
         dtype = dtype or torch.float64
         if not isinstance(sector.matvec, MatvecFull):
             return None  # explicit sparse was requested; honor it
         if dtype in sector._fs_cache:
             return sector._fs_cache[dtype]
+        if max_blowup is None:
+            max_blowup = config.route("fullspace_max_blowup", self.device)
         if self.space.label_space > max_blowup * max(sector.dim, 1):
             return None
         op = self._base_engine(dtype, sector.labels)
@@ -602,7 +607,7 @@ class Model:
                 masks[dtype] = out
         return masks[dtype]
 
-    def _fullspace_repr_op(self, sector, max_blowup: float = 256.0,
+    def _fullspace_repr_op(self, sector, max_blowup: float | None = None,
                            dtype=None):
         """Momentum-sector solve operator in the FULL label space: P_k H on
         the fast full-space engine with the block-transpose momentum
@@ -610,10 +615,8 @@ class Model:
         (tilted lattices, oversized blowup, engine constraints): callers
         then take the explicit ELL/BSR route. Cached per sector and dtype.
 
-        The blowup budget is larger than the full-sector path's because the
-        alternative there (the gather-bound repr apply) is far slower per
-        nonzero; the value is the JAX package's TPU calibration, not
-        re-measured on the GPU.
+        ``max_blowup`` defaults to the device's ``fullspace_repr_max_blowup``
+        (``config.route``).
 
         ONE base engine per dtype is built per model and shared by every
         momentum sector (it depends on H alone); one projector per sector;
@@ -626,6 +629,9 @@ class Model:
         if dtype in cache:
             return cache[dtype]
         op = None
+        if max_blowup is None:
+            max_blowup = config.route("fullspace_repr_max_blowup",
+                                      self.device)
         if self.space.label_space <= max_blowup * max(sector.dim, 1):
             if self._rolls is False:
                 try:
@@ -973,9 +979,10 @@ class Model:
     def _repr_bsr32(self, sector):
         """f32 BSR bulk engine for a momentum sector, or None.
 
-        On a CUDA device the fill statistics decide (config.bsr_blowup_max,
-        config.bsr_stored_max_bytes); elsewhere the route is off unless
-        ``config.prefer_bsr`` is set. ``prefer_bsr`` overrides on any device.
+        On a CUDA device the fill statistics decide (the device's
+        ``bsr_blowup_max`` and ``bsr_stored_max_bytes``, ``config.route``);
+        elsewhere the route is off unless ``config.prefer_bsr`` is set.
+        ``prefer_bsr`` overrides on any device.
         """
         if sector._routed:
             return sector.bsr32
@@ -986,8 +993,10 @@ class Model:
             if self.device.type == "cuda" and ell.width > 0:
                 st = bsr_fill_stats(ell)
                 stored_bytes = st["stored"] * 4 * (2 if ell.is_complex else 1)
-                use = (st["blowup"] <= config.bsr_blowup_max
-                       and stored_bytes <= config.bsr_stored_max_bytes)
+                use = (st["blowup"] <= config.route("bsr_blowup_max",
+                                                    self.device)
+                       and stored_bytes <= config.route(
+                           "bsr_stored_max_bytes", self.device))
         if use and ell.width > 0:
             sector.bsr32 = ell_to_bsr(ell, dtype=torch.float32)
         sector._routed = True
@@ -1101,15 +1110,17 @@ class Model:
         :meth:`measure_full_dynamic_kpm`; cf. model::measure_repr_dynamic,
         src/model.cc:1896-1912, which only records continued fractions).
 
-        Up to ``config.kpm_fullspace_max_N`` labels the recurrence runs on
-        the sector's float64 projected full-space engine (``P_k H``), with
-        A|phi> expanded to the full label space (the repr basis embeds
-        isometrically there, so the moments are the same). Otherwise, or
-        where the sector has no such engine, it runs at the sector's
-        dimension: on the float32 BSR kernel when the sector is routed there
-        (``_repr_bsr32``, evaluated only up to ``config.bsr_auto_max_dim``
-        rows or under ``config.prefer_bsr``; a sector routed by an earlier
-        solve is reused at any dim), else on the sector's matvec. The
+        Up to the device's ``kpm_fullspace_max_N`` labels (``config.route``)
+        the recurrence runs on the sector's float64 projected full-space
+        engine (``P_k H``), with A|phi> expanded to the full label space
+        (the repr basis embeds isometrically there, so the moments are the
+        same). Otherwise, or where the sector has no such engine, it runs at
+        the sector's dimension: on the float32 BSR kernel when the sector is
+        routed there (``_repr_bsr32``, evaluated only up to the device's
+        ``bsr_auto_max_dim`` rows or under ``config.prefer_bsr``; a sector
+        routed by an earlier solve is reused at any dim), else on the
+        sector's explicit float64 ELL where one was built (by that routing
+        decision or an earlier solve), else on the sector's matvec. The
         rescaled recurrence is contractive, so float32 applies leave moment
         noise far below the Jackson resolution pi*(e_max-e_min)/n_moments.
         """
@@ -1119,17 +1130,19 @@ class Model:
             return 0.0, np.zeros(0), 0.0, 0.0
         v = v / nrm
         fs = None
-        if self.space.label_space <= config.kpm_fullspace_max_N:
+        if self.space.label_space <= config.route("kpm_fullspace_max_N",
+                                                  self.device):
             fs = self._fullspace_repr_op(dst)
         if fs is not None:
             mv, v = fs, self._repr_to_full(dst, v, fs=fs)
         else:
             mv = dst.bsr32
-            if mv is None and (dst.dim <= config.bsr_auto_max_dim
+            if mv is None and (dst.dim <= config.route("bsr_auto_max_dim",
+                                                       self.device)
                                or config.prefer_bsr):
                 mv = self._repr_bsr32(dst)
             if mv is None:
-                mv = dst.matvec
+                mv = dst.ell if dst.ell is not None else dst.matvec
         mu, e_min, e_max = kpm_moments(mv, v, n_moments, bounds=bounds)
         return nrm, mu, e_min, e_max
 

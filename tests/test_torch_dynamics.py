@@ -154,7 +154,7 @@ def _chain10_pair():
 def test_kpm_routes_match_jax(route, monkeypatch):
     bounds = (-8.0, 8.0)
     if route != "fullspace":
-        monkeypatch.setattr(config, "kpm_fullspace_max_N", 1)
+        monkeypatch.setitem(config.ROUTING["cpu"], "kpm_fullspace_max_N", 1)
         monkeypatch.setattr(jax_config, "kpm_fullspace_max_N", 1)
     if route == "bsr32":
         monkeypatch.setattr(config, "prefer_bsr", True)

@@ -103,6 +103,16 @@ def test_port_imports_no_jax():
             "quantum_basis_tpu_torch.parallel.fullspace_sharded",
             "quantum_basis_tpu_torch.parallel.kron_sharded",
             "quantum_basis_tpu_torch.solvers.reduce"]
+    # every module of the drivers' subpackages
+    import pkgutil
+
+    import quantum_basis_tpu_torch.benchmarks as bench
+    import quantum_basis_tpu_torch.examples as ex
+
+    for pkg in (ex, bench):
+        mods += [pkg.__name__] + [
+            info.name for info in pkgutil.iter_modules(pkg.__path__,
+                                                       pkg.__name__ + ".")]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_basis_tpu')]; assert not bad, bad")
