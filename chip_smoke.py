@@ -137,12 +137,12 @@ Phases (any failure raises, so the exit code is nonzero):
    pure f64 and mixed (-14.07605866, 1e-8). Prints the NCCL start-up,
    enumeration, build and solve seconds, each sharded engine's per-apply
    ms beside its single-device twin's, and the peak device memory.
-   (b) Two ranks on the card over gloo (which stages CUDA tensors through
-   the host; its point-to-point carries none, so FullSpaceSharded stays
-   out), as processes of this script (``--mesh-rank``): chain-24 through
-   Model(mesh=): E0 equal to 12a's (1e-10), halo_stats() equal to the
-   host's numpy computation for P = 2; its times are labelled as not
-   multi-GPU times;
+   (b) Two ranks on the card over gloo, which stages CUDA tensors through
+   the host, as processes of this script (``--mesh-rank``): chain-24
+   through Model(mesh=): E0 equal to 12a's (1e-10), halo_stats() equal to
+   the host's numpy computation for P = 2; its times are labelled as not
+   multi-GPU times. Groups of 2 and 4 cards over NCCL, FullSpaceSharded's
+   point-to-point included, are phase 14 (``--ranks N``);
 13. the drivers (quantum_basis_tpu_torch.examples and .benchmarks) on the
    card's own routing bounds (config.ROUTING["cuda"]): the main() of the 11
    example drivers that run here (every one but the triangular-31 KPM
@@ -156,8 +156,36 @@ Phases (any failure raises, so the exit code is nonzero):
    the Hubbard gaps driver on the 4x2 cluster (four sectors, residuals under
    the gate); bsr_bench on its widened cases (the kernel against the ELL on
    the card, f32 tolerance), whose launches count in the kernel record;
-14. prints the kernel record, the card line, and as the last line
-   {"ok": true, "device": {...}}.
+14. (``python3 chip_smoke.py --ranks N`` only, on N cards of one host:
+   not part of the default run) the multi-device route over NCCL: a group
+   of N ranks, then (N > 2) one of 2, each rank a process of this script
+   (``--ranks-worker``) on its own card. Against the single-device chain-24
+   ELL solve made first on card 0: chain L=24 Sz=0 through Model(mesh=)
+   (sharded dnc enumeration equal to the single-device labels,
+   EllShardedHalo by type, E0 to 1e-10 and bit-equal on every rank,
+   residual under the gate, <Sz0 Sz1> = E0/72 to 1e-9, halo_stats() equal
+   to the host's numpy values for P; MatvecSharded, halo and
+   FullSpaceSharded (2^24) H x against the rank's own MatvecFull / ELL /
+   FullSpaceOp to 1e-12 max|y|); the chain-24 resume on the mesh
+   (config.enable_ckpt: interrupted after a save on every rank at once,
+   rank 0 holding the whole (13, n_pad) restart record; resumed to the cold
+   E0, 1e-10, with fewer applies, the record deleted, the next call without
+   an apply, the temporary ckpt_dir removed); kagome 2x4 Sz=0 k=(0,2) by
+   dnc on the mesh (-10.759897248084, 1e-8); KronSharded against KronOp on
+   Hubbard 4x4 (f64 1e-12, f32 5e-6) and ProductModel(mesh=) 4x2; the
+   Hubbard 4x4 solve through ProductModel(mesh=) (-20.497352266554, 1e-8,
+   f64 residual under its gate). Prints one ``mesh<P>`` record per
+   workload (NCCL start-up s, a scalar all-reduce ms, enumeration, build
+   and solve s, applies, per-apply ms beside the single-device engine's,
+   peak bytes of the largest rank, the card line). Then the drivers
+   benchmarks/scaling.py (1, 2, 4, ..., N ranks; JSON lines in
+   scaling.jsonl of the benchmarks' output directory) and
+   benchmarks/comm_roofline.py (comm_roofline.jsonl). Raises when the
+   machine has fewer than N cards; there is no fallback to fewer ranks or
+   to gloo;
+15. prints the kernel record, the card line, and as the last line
+   {"ok": true, "device": {...}} (with ``--ranks N``: the card line and
+   the last line, whose count is N, the cards the run used).
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -166,7 +194,7 @@ ContractOp. Phases 8 to 13 run before phase 7, whose 4x4 solve (through
 benchmarks/hubbard4x4.py) is the one part that is capped when the script
 would pass its budget.
 
-``python3 chip_smoke.py --profile`` runs, instead of phases 2-14, windows
+``python3 chip_smoke.py --profile`` runs, instead of phases 2-15, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
 apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
@@ -180,21 +208,22 @@ at three row-block budgets; it prints no result line.
 solve, whatever its projected time; ``--mesh`` runs phase 12 alone (after
 the chain-24 ELL solve it compares with); ``--gaps`` runs the Hubbard gaps
 driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
--20.497352266554); ``--bsr-bench`` runs bsr_bench alone. Imports nothing of
-JAX.
+-20.497352266554); ``--bsr-bench`` runs bsr_bench alone; ``--ranks N``
+runs phase 14 alone. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import zlib
 
 import numpy as np
 import torch
+
+from quantum_basis_tpu_torch.benchmarks import card_line
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, published peak
 PEAK_FLOPS = {torch.float32: 67e12,       # outside the tensor cores
@@ -252,13 +281,6 @@ HOLSTEIN_BAND = (-2.4666111991688577, -2.3561659084180966,
                  -1.6732057133728666, -1.6014926929171571,
                  -1.5645359820584208, -1.5465537464350307,
                  -1.5411668934441385)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, samples=25, per_sample=5):
@@ -1096,12 +1118,15 @@ def momentum_run(bsr_mod, dev, wide, t_start):
 
 
 class _Interrupting:
-    """A matvec that raises after ``limit`` applies: stands for a crash."""
+    """A matvec that raises after ``limit`` applies: stands for a crash (on
+    a mesh, of every rank at the same step). Other attributes are the
+    wrapped engine's."""
 
     def __init__(self, base, limit):
         self.base, self.limit, self.calls = base, limit, 0
-        self.n, self.dtype, self.device = base.n, base.dtype, base.device
-        self.is_complex = base.is_complex
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
 
     def __call__(self, x):
         self.calls += 1
@@ -1812,7 +1837,8 @@ def halo_stats_host(ell, P):
 def mesh_chain24(dev, mesh, chain_labels, chain_e0, rec):
     """12a, chain L=24 Sz=0: sharded enumeration, the halo engine through
     Model, MatvecSharded and FullSpaceSharded against their single-device
-    twins. Returns the sector's ELL (for 12b's host halo statistics)."""
+    twins. Returns the model (its sector's ELL serves 12b's host halo
+    statistics, and phase 14's resume solves it again)."""
     from quantum_basis_tpu_torch.ops.apply_fullspace import FullSpaceOp
     from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
     from quantum_basis_tpu_torch.parallel import (EllShardedHalo,
@@ -1885,7 +1911,7 @@ def mesh_chain24(dev, mesh, chain_labels, chain_e0, rec):
     rec["fullspace_sharded_ms"] = cuda_ms(lambda: fss(xfl), samples=5,
                                           per_sample=2)
     rec["fullspace_ms"] = cuda_ms(lambda: fs(xf), samples=5, per_sample=2)
-    return sec.ell
+    return m
 
 
 def mesh_kagome(dev, mesh, rec):
@@ -1994,7 +2020,8 @@ def mesh_one_rank(dev, chain_labels, chain_e0):
         if mesh.backend != "nccl" or mesh.size != 1:
             raise AssertionError(f"12a: {mesh!r} is not a 1-rank NCCL group")
         rec["all_reduce_scalar_ms"] = cuda_ms(lambda: mesh.all_reduce(one))
-        ell = mesh_chain24(dev, mesh, chain_labels, chain_e0, rec)
+        ell = mesh_chain24(dev, mesh, chain_labels, chain_e0,
+                           rec).sec_full[0].ell
         torch.cuda.empty_cache()
         mesh_kagome(dev, mesh, rec)
         torch.cuda.empty_cache()
@@ -2009,14 +2036,14 @@ def mesh_one_rank(dev, chain_labels, chain_e0):
 
 
 def mesh_rank(argv) -> int:
-    """One rank of phase 12b (``--mesh-rank <rank> <rendezvous> <out>``):
+    """One rank of phase 12b (``--mesh-rank <out> <rank> 2 <rendezvous>``):
     a 2-rank gloo group with both ranks on cuda:0, chain-24 through
     Model(mesh=); rank 0 writes its record to <out>."""
     import torch.distributed as dist
     from quantum_basis_tpu_torch.parallel import basis_mesh, init_distributed
     from torch_zoo import heisenberg_chain
 
-    rank, rdv, out = int(argv[0]), argv[1], argv[2]
+    out, rank, rdv = argv[0], int(argv[1]), argv[3]
     dev = "cuda:0"
     init_distributed(f"file://{rdv}", 2, rank, device=dev, backend="gloo")
     try:
@@ -2050,33 +2077,21 @@ def mesh_rank(argv) -> int:
 def mesh_two_ranks(e0_one_rank, ell):
     """Phase 12b: two ranks on the one card over gloo, which stages CUDA
     tensors through the host (its all-reduce, all-gather and all-to-all
-    carry CUDA tensors; its point-to-point does not, so FullSpaceSharded
-    stays out). Spawns the ranks as processes of this script and kills any
-    that outlive the phase. Not a multi-GPU time."""
+    carry CUDA tensors; FullSpaceSharded's point-to-point runs over NCCL
+    in phase 14). Spawns the ranks as processes of this script and kills
+    any that outlive the phase. Not a multi-GPU time."""
     import shutil
     import tempfile
 
+    from quantum_basis_tpu_torch.parallel import run_ranks
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     out = os.path.join(tmp, "rank0.json")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-         os.path.join(tmp, "rendezvous"), out],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    try:
-        t0 = time.perf_counter()
-        want, t_host = _timed(lambda: halo_stats_host(ell, 2))
-        outs = [p.communicate(timeout=300)[0] for p in procs]
-        wall = time.perf_counter() - t0
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"12b rank {r} exited {p.returncode}:\n"
-                                 + "\n".join(text.splitlines()[-25:]))
+    t0 = time.perf_counter()
+    run_ranks([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+               out], 2, timeout=300)
+    wall = time.perf_counter() - t0
+    want, t_host = _timed(lambda: halo_stats_host(ell, 2))
     with open(out) as f:
         rec = json.load(f)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2108,6 +2123,243 @@ def mesh_run(dev, chain_labels, chain_e0):
     torch.cuda.empty_cache()
     print(f"phase 12: 12a {t_a:.1f} s, 12b "
           f"{time.perf_counter() - t0 - t_a:.1f} s", flush=True)
+
+
+def _bit_equal(mesh, tag, value):
+    """Every rank's float ``value`` must be the same bit for bit."""
+    got = mesh.all_gather(torch.tensor([float(value)], dtype=torch.float64,
+                                       device=mesh.device)).tolist()
+    if any(v != got[0] for v in got):
+        raise AssertionError(f"{tag}: the ranks disagree: {got}")
+
+
+def _peak_all(mesh) -> int:
+    """The largest rank's peak device bytes since the last reset."""
+    t = torch.tensor([float(torch.cuda.max_memory_allocated())],
+                     dtype=torch.float64, device=mesh.device)
+    return int(mesh.all_reduce(t, "max")[0])
+
+
+def ranks_resume(dev, mesh, m, rec, ckpt_dir):
+    """Phase 14, the resume on the mesh: the chain-24 solve of ``m`` (already
+    solved cold, record ``rec``) with config.enable_ckpt, interrupted after
+    a save by an engine that raises on every rank at the same apply, then
+    resumed; rank 0 writes the records and removes ``ckpt_dir``."""
+    import shutil
+
+    from quantum_basis_tpu_torch import CkptStore, config
+    from quantum_basis_tpu_torch.solvers import restarted
+    from quantum_basis_tpu_torch.utils import ckpt as ckpt_mod
+
+    P, sec = mesh.size, m.sec_full[0]
+    grp, mv, mask = sec._mesh_mv
+    saves = []
+
+    class TimedStore(CkptStore):
+        def save(self, key, payload):
+            t0 = time.perf_counter()
+            super().save(key, payload)
+            saves.append((time.perf_counter() - t0,
+                          os.path.getsize(self._path(key))))
+
+    out = {"workload": "chain24_resume", "E0_cold": rec["chain24_E0"],
+           "applies_cold": rec["chain24_applies"]}
+    old = (config.enable_ckpt, config.ckpt_dir, restarted._SAVE_PERIOD,
+           ckpt_mod.active_store)
+    key = (f"lczsE0_full_sec0_K_nev1_mesh{P}"
+           f"_h{m._ham_fingerprint():08x}")
+    store = CkptStore(ckpt_dir)
+    try:
+        config.enable_ckpt, config.ckpt_dir = True, ckpt_dir
+        ckpt_mod.active_store = lambda: TimedStore(ckpt_dir)
+        restarted._SAVE_PERIOD = 0.0     # every restart boundary saves
+        sec._mesh_mv = (grp, _Interrupting(mv, 40), mask)
+        try:
+            m.locate_E0_lanczos("full", maxit=4000)
+        except InterruptedError:
+            pass
+        else:
+            raise AssertionError("14: the interrupting engine never raised")
+        finally:
+            sec._mesh_mv = (grp, mv, mask)
+        krylov = store.load(key + "_krylov")
+        if krylov is None or store.load(key) is not None:
+            raise AssertionError("14: after the interruption there must be "
+                                 "a restart record and no stage record")
+        out["record_shape"] = list(krylov["Vre"].shape)
+        out["record_it"] = int(krylov["it"])
+        del krylov
+        out["save_s_bytes_rank0"] = saves[:]
+        restarted._SAVE_PERIOD = old[2]
+        n0 = mv.n_applies
+        _, out["resume_s"] = _timed(
+            lambda: m.locate_E0_lanczos("full", maxit=4000))
+        out["applies_resumed"] = mv.n_applies - n0
+        out["E0_resumed"] = m.eigenvals_full[0]
+        if store.load(key + "_krylov") is not None or store.load(key) is None:
+            raise AssertionError("14: after the resume the restart record "
+                                 "must be gone and the stage record there")
+        n0 = mv.n_applies
+        _, out["stage_load_s"] = _timed(
+            lambda: m.locate_E0_lanczos("full", maxit=4000))
+        out["applies_after_stage"] = mv.n_applies - n0
+    finally:
+        (config.enable_ckpt, config.ckpt_dir, restarted._SAVE_PERIOD,
+         ckpt_mod.active_store) = old
+        mesh.all_reduce(torch.zeros(1, device=dev)).item()  # all are done
+        if mesh.rank == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if mesh.rank == 0 and os.path.exists(ckpt_dir):
+        raise AssertionError(f"14: {ckpt_dir} outlived the resume")
+    if out["record_shape"] != [13, mv.n_pad]:
+        raise AssertionError(f"14: restart record {out['record_shape']}")
+    _check(f"14 chain24 E0 resumed on {P} ranks vs cold", out["E0_resumed"],
+           out["E0_cold"], 1e-10)
+    _bit_equal(mesh, "14 chain24 resumed E0", out["E0_resumed"])
+    if not 0 < out["applies_resumed"] < out["applies_cold"] \
+            or out["applies_after_stage"] != 0:
+        raise AssertionError(f"14 resume: {out}")
+    return out
+
+
+def ranks_worker(argv) -> int:
+    """One rank of phase 14 (``--ranks-worker <dir> <rank> <ranks>
+    <rendezvous>``): the workloads of the multi-device route on this rank's
+    own card of an NCCL group; rank 0 writes the records to <dir>."""
+    import torch.distributed as dist
+    from quantum_basis_tpu_torch.benchmarks import hubbard4x4
+    from quantum_basis_tpu_torch.parallel import basis_mesh, init_distributed
+    from torch_zoo import hubbard_factorized
+
+    work, rank, P, rdv = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    with open(os.path.join(work, "reference.json")) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    init_distributed(f"file://{rdv}", P, rank, device="cuda")
+    try:
+        mesh = basis_mesh(P, device="cuda")
+        dev = mesh.device
+        one = torch.ones(1, dtype=torch.float64, device=dev)
+        mesh.all_reduce(one)
+        torch.cuda.synchronize()
+        group = {"ranks": P, "backend": mesh.backend, "card": card_line(),
+                 "nccl_init_s": time.perf_counter() - t0,
+                 "all_reduce_scalar_ms": cuda_ms(
+                     lambda: mesh.all_reduce(one))}
+        cards = mesh.all_gather(torch.tensor([dev.index], device=dev))
+        if mesh.backend != "nccl" or sorted(cards.tolist()) != list(range(P)):
+            raise AssertionError(f"14: {mesh!r} on cards {cards.tolist()}")
+        recs = []
+
+        def workload(name, fn):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rec = dict(group, workload=name)
+            t = time.perf_counter()
+            got = fn(rec)
+            rec["workload_s"] = time.perf_counter() - t
+            rec["peak_bytes_per_rank"] = _peak_all(mesh)
+            recs.append(rec)
+            return got
+
+        labels = np.load(os.path.join(work, "chain24_labels.npy"))
+
+        def chain(rec):
+            m = mesh_chain24(dev, mesh, labels, ref["chain24_E0"], rec)
+            _bit_equal(mesh, "14 chain24 E0", rec["chain24_E0"])
+            want = halo_stats_host(m.sec_full[0].ell, P)
+            print(f"check 14 halo_stats vs the host's for P = {P}: "
+                  f"{rec['chain24_halo_stats']} vs {want}", flush=True)
+            if rec["chain24_halo_stats"] != want:
+                raise AssertionError("14: halo_stats differ from the host's")
+            return m
+
+        m = workload("chain24", chain)
+        workload("chain24_resume", lambda rec: rec.update(ranks_resume(
+            dev, mesh, m, recs[0], os.path.join(work, "ckpt"))))
+        del m, labels
+
+        def kagome(rec):
+            mesh_kagome(dev, mesh, rec)
+            _bit_equal(mesh, "14 kagome E0", rec["kagome_E0"])
+
+        workload("kagome24_k02", kagome)
+        workload("kron", lambda rec: mesh_kron(dev, mesh, rec))
+
+        def hubbard(rec):
+            pm, _ = hubbard_factorized(4, 4, device=dev)
+            pm.set_mesh(mesh)
+            out = hubbard4x4.solve_sector(pm)
+            rec.update({k: out[k] for k in ("dim", "E0", "residual_f64",
+                                            "residual_gate", "solve_s",
+                                            "solver")})
+            _check(f"14 hubbard 4x4 E0 on {P} ranks", out["E0"],
+                   E0_HUBBARD_4X4, 1e-8)
+            _bit_equal(mesh, "14 hubbard 4x4 E0", out["E0"])
+            if not out["residual_f64"] < out["residual_gate"]:
+                raise AssertionError(f"14 hubbard 4x4: residual "
+                                     f"{out['residual_f64']:.3e}")
+
+        workload("hubbard4x4", hubbard)
+        if rank == 0:
+            with open(os.path.join(work, "records.json"), "w") as f:
+                json.dump(recs, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def ranks_run(n_cards: int, t_start: float) -> None:
+    """Phase 14 (``--ranks N``): the multi-device route on N cards of this
+    host over NCCL, as a group of N ranks and then (N > 2) of 2, each rank a
+    process of this script on its own card; then the scaling and
+    communication-roofline drivers on 1, 2, ..., N ranks."""
+    import shutil
+    import tempfile
+
+    from quantum_basis_tpu_torch.benchmarks import comm_roofline, scaling
+    from quantum_basis_tpu_torch.parallel import run_ranks
+    from torch_zoo import heisenberg_chain
+
+    have = torch.cuda.device_count()
+    if have < n_cards:
+        raise RuntimeError(f"--ranks {n_cards} needs {n_cards} cards, this "
+                           f"machine has {have}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        # the single-device reference (phase 5's chain-24 ELL solve)
+        m, ops = heisenberg_chain(24, device="cuda")
+        m.enumerate_basis_full([ops["Sz"]], [0.0])
+        m.generate_Ham_sparse_full(check="probe")
+        _, t_ref = _timed(lambda: m.locate_E0_lanczos("full", maxit=4000))
+        ref = {"chain24_E0": m.eigenvals_full[0], "chain24_ell_solve_s": t_ref}
+        np.save(os.path.join(work, "chain24_labels.npy"), m.sec_full[0].labels)
+        with open(os.path.join(work, "reference.json"), "w") as f:
+            json.dump(ref, f)
+        print("14 reference", json.dumps(ref), flush=True)
+        del m, ops
+        torch.cuda.empty_cache()
+        for P in [n_cards] + ([2] if n_cards > 2 else []):
+            t0 = time.perf_counter()
+            outs = run_ranks([sys.executable, os.path.abspath(__file__),
+                              "--ranks-worker", work], P, timeout=900)
+            print("\n".join(f"[rank 0 of {P}] {line}"
+                            for line in outs[0].splitlines()), flush=True)
+            with open(os.path.join(work, "records.json")) as f:
+                recs = json.load(f)
+            os.remove(os.path.join(work, "records.json"))
+            for rec in recs:
+                print(f"mesh{P}", json.dumps(rec), flush=True)
+            print(f"phase 14, {P} ranks: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    scaling.main(["--L", "24", "--ranks", str(n_cards), "--hubbard", "4x4"])
+    comm_roofline.main([])
+    print(f"phase 14, scaling and comm_roofline: "
+          f"{time.perf_counter() - t0:.1f} s; phase 14 "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def ell_apply_columns(ell, X, block=128):
@@ -2521,6 +2773,11 @@ def profile_windows(dev):
 
 
 def main() -> int:
+    """Phases 1-13 and 15 on one card; or one mode: ``--profile``,
+    ``--hubbard4x4`` (phase 7), ``--gaps``, ``--bsr-bench``, ``--mesh``
+    (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
+    then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
+    rank processes those phases start."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2529,12 +2786,22 @@ def main() -> int:
                                     "tests"))
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(sys.argv[2:])
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        return ranks_worker(sys.argv[2:])
     card = card_line()
     print("card:", card)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0], flush=True)
 
     t_start = time.perf_counter()
+    if "--ranks" in sys.argv[1:]:
+        n = int(sys.argv[sys.argv.index("--ranks") + 1])
+        ranks_run(n, t_start)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": n}}))
+        return 0
     if "--profile" in sys.argv[1:]:
         profile_windows("cuda")
         return 0

@@ -2,8 +2,10 @@
 against the ELL on momentum-sector matrices), ``routing`` (whole solves on
 both sides of each routing bound), ``flagship_kagome24`` (the 24-site kagome
 ground state, full sector and all 8 momenta), ``flagship_kagome24_sqw`` (its
-S(q, w)), ``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900) and
-``hubbard4x4_gaps`` (its spin and charge gaps). Each runs as
+S(q, w)), ``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900),
+``hubbard4x4_gaps`` (its spin and charge gaps), ``scaling`` (the sharded
+engines on 1, 2, 4, ... ranks) and ``comm_roofline`` (their communication
+against their compute). Each runs as
 
     python -m quantum_basis_tpu_torch.benchmarks.<name> [--device cpu]
 
@@ -15,6 +17,7 @@ never written.
 from __future__ import annotations
 
 import os
+import subprocess
 import time
 
 import numpy as np
@@ -67,3 +70,14 @@ def device_name(device) -> str:
     if torch.device(device).type == "cuda":
         return torch.cuda.get_device_name(torch.device(device))
     return "cpu"
+
+
+def card_line(device="cuda") -> str:
+    """The card's name and power limit as nvidia-smi gives them; "cpu" for
+    a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]

@@ -27,7 +27,8 @@ With a basis mesh (``mesh=`` or :meth:`ProductModel.set_mesh`) both routes
 run on the row-sharded :class:`~quantum_basis_tpu_torch.parallel.
 kron_sharded.KronSharded` (zero-row padding where the first factor's dim
 does not divide into the ranks), with every reduction summed over the
-ranks; the published eigenvectors are whole logical vectors on every rank.
+ranks; the published eigenvectors are whole logical vectors on every rank,
+and the records hold whole vectors (rank 0 writes them, solvers/reduce.py).
 """
 
 from __future__ import annotations
@@ -49,11 +50,7 @@ from quantum_basis_tpu_torch.ops.apply_kron import (
 from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
 from quantum_basis_tpu_torch.parallel.kron_sharded import KronSharded
 from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
-from quantum_basis_tpu_torch.solvers.reduce import (
-    mesh_of,
-    norm,
-    refuse_sharded_ckpt,
-)
+from quantum_basis_tpu_torch.solvers.reduce import GroupStore, mesh_of, norm
 from quantum_basis_tpu_torch.solvers.restarted import _solver_log, eigs_smallest
 from quantum_basis_tpu_torch.solvers.rqi import rqi_polish
 from quantum_basis_tpu_torch.utils import ckpt
@@ -171,8 +168,6 @@ class ProductModel:
         key = (f"prodE0_{self.na}x{self.nb}_nev{nev}"
                f"_h{self._fingerprint():08x}")
         if self.mesh is not None:
-            if config.enable_ckpt:
-                refuse_sharded_ckpt(self.mesh)
             key += f"_mesh{self.mesh.size}"
         done = self._stage_load(key)
         if done is not None:
@@ -198,6 +193,10 @@ class ProductModel:
             v0 = Model._f32_stage_cached(fs32, nev, ncv, maxit, seed, False,
                                          key)
         except torch.OutOfMemoryError:
+            if self.mesh is not None and self.mesh.size > 1:
+                # a rank that fell back alone would leave the others
+                # waiting in a collective: the group fails instead
+                raise
             # the (ncv+1, N) thick-restart buffer overflowed the device; the
             # rolling 2-vector kernel needs ~5 vectors in all. tol=1e-8 makes
             # its residual gate match the thick path's f32 gate
@@ -272,7 +271,8 @@ class ProductModel:
     # ------------------------------------------------- stage checkpointing
     def _stage_load(self, key):
         store = ckpt.active_store()
-        rec = store.load(key) if store is not None else None
+        rec = (GroupStore(store, self.mesh).load(key) if store is not None
+               else None)
         if rec is None:
             return None
         evals = [float(x) for x in rec["evals"]]
@@ -293,7 +293,7 @@ class ProductModel:
             return
         for i, v in enumerate(vecs):
             payload[f"v{i}_re"] = ckpt.split_vec(v, False)[0]
-        store.save(key, payload)
+        GroupStore(store, self.mesh).save(key, payload)
 
     # ------------------------------------------------------- measurements
     def _factor_dense(self, model, op):

@@ -22,6 +22,7 @@ from quantum_basis_tpu_torch.parallel.distributed import (
     global_basis_mesh,
     init_distributed,
     process_info,
+    run_ranks,
     shard_array_over_mesh,
 )
 
@@ -31,5 +32,5 @@ __all__ = ["basis_mesh", "MatvecSharded", "EllShardedHalo",
            "enumerate_basis_dnc_sharded", "enumerate_reps_dnc_sharded",
            "init_distributed",
            "global_basis_mesh", "process_info", "shard_array_over_mesh",
-           "BasisMesh", "FullSpaceSharded", "KronSharded", "sample_sort",
-           "sample_sort_sharded"]
+           "BasisMesh", "FullSpaceSharded", "KronSharded", "run_ranks",
+           "sample_sort", "sample_sort_sharded"]

@@ -21,6 +21,10 @@ single-rank runs.
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
+import tempfile
+import time
 import warnings
 
 import numpy as np
@@ -92,6 +96,62 @@ def init_distributed(coordinator_address: str | None = None,
                       "single process")
         return False
     return dist.get_world_size() > 1
+
+
+def run_ranks(argv, ranks: int, timeout: float) -> list[str]:
+    """Run one group: ``ranks`` processes ``argv + [rank, ranks,
+    rendezvous]`` with a file:// rendezvous in a fresh temporary directory.
+    Waits for all of them, kills every one still running after ``timeout``
+    seconds or after a rank failed, and returns their outputs in rank
+    order; raises, with the end of its output, when a rank fails.
+
+    The group lives on one host, so NCCL's bootstrap is pinned to the
+    loopback interface (``NCCL_SOCKET_IFNAME=lo`` unless the caller's
+    environment sets it): the data moves over NVLink or shared memory
+    either way.
+    """
+    tmp = tempfile.mkdtemp(prefix="qbt_ranks_")
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    # the ranks import this package wherever they start
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    rdv = os.path.join(tmp, "rendezvous")
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(ranks)]
+    procs = [subprocess.Popen([*argv, str(r), str(ranks), rdv], env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(ranks)]
+    deadline = time.monotonic() + timeout
+    try:
+        # a rank that fails leaves the others waiting in a collective: stop
+        # the group at the first failure
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    codes = [p.returncode for p in procs]
+    # the rank that failed first, not one killed after it
+    bad = ([r for r, c in enumerate(codes) if c not in (0, -9)]
+           or [r for r, c in enumerate(codes) if c])
+    if bad:
+        r = bad[0]
+        raise RuntimeError(f"rank {r} of {ranks} exited {codes[r]}:\n"
+                           + "\n".join(outs[r].splitlines()[-30:]))
+    return outs
 
 
 def process_info():

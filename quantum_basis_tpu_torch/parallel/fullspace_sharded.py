@@ -70,6 +70,14 @@ class FullSpaceSharded(RowSharded):
             send.append(((t_rank + 1) % P, nl - o2, nl))
         return recv, send
 
+    def sent_per_apply(self) -> tuple[int, int]:
+        """(vector entries, messages) this rank sends to other ranks per
+        apply: the boundary pieces of every pass."""
+        me = self.mesh.rank
+        pieces = [s1 - s0 for *_, send in self._passes
+                  for p, s0, s1 in send if p != me]
+        return sum(pieces), len(pieces)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of H x from this rank's slice of x."""
         if self.is_complex or x.is_complex():

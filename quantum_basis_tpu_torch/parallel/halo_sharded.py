@@ -90,6 +90,7 @@ class EllShardedHalo(RowSharded):
         self._send_idx = asked - lo
         self._send_counts = send_counts.tolist()
         self._recv_counts = recv_counts.tolist()
+        self.n_halo = need.numel()  # entries this rank receives per apply
 
         # columns remapped into the buffer [x_local (nl) | halo]
         rm = torch.where(owner == mesh.rank, cols - lo, 0)

@@ -65,6 +65,9 @@ class BasisMesh:
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an NCCL group carries CUDA tensors only; "
                              f"device {self.device} needs a gloo group")
+        # one collective of every rank first: NCCL requires it before a
+        # point-to-point batch in which not every rank takes part
+        self.all_reduce(torch.zeros(1, device=self.device))
 
     @property
     def shape(self) -> dict:
@@ -103,6 +106,21 @@ class BasisMesh:
                                         group=self.group)
         return out
 
+    def gather_root(self, x: torch.Tensor):
+        """Every rank's ``x`` (equal shapes) concatenated along the last
+        axis, as a host tensor on rank 0; None on the other ranks."""
+        x = x.contiguous()
+        parts = ([torch.empty_like(x) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        root = (0 if self.group is None
+                else dist.get_global_rank(self.group, 0))
+        dist.gather(_as_real(x), [_as_real(p) for p in parts]
+                    if parts is not None else None, dst=root,
+                    group=self.group)
+        if parts is None:
+            return None
+        return torch.cat([p.cpu() for p in parts], dim=-1)
+
     def all_gather_ragged(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's 1-d ``x`` (any lengths) concatenated in rank order."""
         n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
@@ -127,7 +145,9 @@ class BasisMesh:
 
     def exchange(self, sends, recvs) -> None:
         """Point-to-point: ``sends`` / ``recvs`` are lists of (peer rank,
-        tensor); the receive tensors are filled in place."""
+        tensor); the receive tensors are filled in place. At most one send
+        and one receive per peer: NCCL matches the messages between two
+        ranks in the order they were posted."""
         ops = [dist.P2POp(dist.isend, _as_real(t.contiguous()), peer,
                           self.group) for peer, t in sends]
         ops += [dist.P2POp(dist.irecv, _as_real(t), peer, self.group)

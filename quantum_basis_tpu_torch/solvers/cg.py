@@ -56,19 +56,20 @@ def eigenvec_cg(matvec, E0: float, v0: torch.Tensor, maxit: int = 1000,
         return v, r, r, float(norm(r, mesh))
 
     def save_state(m_now, vc):
-        v_re, v_im = ckpt.split_vec(vc, complex_vec)
+        v_re, v_im = ckpt.split_vec(store.whole(vc), complex_vec)
         store.save(ckpt_key, {"m": m_now, "E0": E0, "v_re": v_re,
                               "v_im": v_im})
 
     m = 1
     if store is not None:
-        rec = store.load(ckpt_key)
         # Resume only when the record matches THIS problem: shape AND the
         # eigenvalue it was polishing toward. A same-key record from a run
         # with a different E0/Hamiltonian would converge to a wrong vector.
-        if (rec is not None and rec["v_re"].shape == tuple(v0.shape)
-                and abs(float(rec.get("E0", E0)) - E0)
-                <= 1e-8 * max(1.0, abs(E0))):
+        shape = (store.length(v0),)
+        rec = store.load(ckpt_key, vectors=("v_re", "v_im"), fits=lambda r: (
+            r["v_re"].shape == shape and abs(float(r.get("E0", E0)) - E0)
+            <= 1e-8 * max(1.0, abs(E0))))
+        if rec is not None:
             m = int(rec["m"]) + 1
             v0 = ckpt.join_vec(rec["v_re"], rec["v_im"], complex_vec,
                                v0.device, v0.real.dtype)

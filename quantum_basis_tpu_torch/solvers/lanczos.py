@@ -151,9 +151,11 @@ def lanczos_ground(
     alphas_last = betas_last = None
     store = ckpt_store(matvec, ckpt_key)
     if store is not None:
-        rec = store.load(ckpt_key)
-        if rec is not None and rec["v_re"].shape == tuple(v0.shape) \
-                and (rec["v_im"].shape == tuple(v0.shape)) == complex_vec:
+        shape = (store.length(v0),)
+        rec = store.load(ckpt_key, vectors=("v_re", "v_im", "b_re", "b_im"),
+                         fits=lambda r: r["v_re"].shape == shape and (
+                             r["v_im"].shape == shape) == complex_vec)
+        if rec is not None:
             real_dt = v0.real.dtype
             v = ckpt.join_vec(rec["v_re"], rec["v_im"], complex_vec,
                               v0.device, real_dt)
@@ -189,15 +191,16 @@ def lanczos_ground(
             log(used, theta, rnorm)
         if best is None or rnorm < best[2]:
             best = (theta, v, rnorm)
-        if store is not None:
-            # capped like every per-iteration save (config.ckpt_max_bytes);
-            # the stage records still persist
-            v_re, v_im = ckpt.split_vec(v, complex_vec)
-            b_re, b_im = ckpt.split_vec(best[1], complex_vec)
-            rec = {"v_re": v_re, "v_im": v_im, "b_re": b_re, "b_im": b_im,
-                   "theta": best[0], "rnorm": best[2], "used": used}
-            if ckpt.payload_nbytes(rec) <= config.ckpt_max_bytes:
-                store.save(ckpt_key, rec)
+        if store is not None and (
+                store.nbytes(v, complex_vec) + store.nbytes(best[1], complex_vec)
+                <= config.ckpt_max_bytes):
+            # capped like every per-iteration save (config.ckpt_max_bytes),
+            # before the gather; the stage records still persist
+            v_re, v_im = ckpt.split_vec(store.whole(v), complex_vec)
+            b_re, b_im = ckpt.split_vec(store.whole(best[1]), complex_vec)
+            store.save(ckpt_key, {"v_re": v_re, "v_im": v_im, "b_re": b_re,
+                                  "b_im": b_im, "theta": best[0],
+                                  "rnorm": best[2], "used": used})
         if r_tol_abs is None:
             r_tol_abs = max(1e3 * tol * max(abs(theta), 1.0), 5e-10)
         if rnorm < r_tol_abs:
@@ -244,14 +247,17 @@ def lanczos_dynamics(matvec, v_start, m_steps: int, ckpt_key=None,
     # Fingerprint of the start vector: a same-key record from a run against
     # a different source vector (same dim) must not be resumed, because the
     # a/b coefficients would describe a different resolvent.
-    s_re, s_im = ckpt.split_vec(v_start, complex_vec)
+    # (rank 0's, of the whole vector: rank 0 decides about records)
+    s_re, s_im = ckpt.split_vec(store.whole(v_start), complex_vec)
     v_fp = zlib.crc32(s_re.tobytes())
     if complex_vec:
         v_fp = zlib.crc32(s_im.tobytes(), v_fp)
-    rec = store.load(ckpt_key)
-    if rec is not None and rec["v_cur_re"].shape == tuple(v_start.shape) \
-            and int(rec["m_steps"]) == m_steps \
-            and int(rec.get("v_fp", v_fp)) == v_fp:
+    shape = (store.length(v_start),)
+    rec = store.load(ckpt_key, vectors=(
+        "v_prev_re", "v_prev_im", "v_cur_re", "v_cur_im"), fits=lambda r: (
+            r["v_cur_re"].shape == shape and int(r["m_steps"]) == m_steps
+            and int(r.get("v_fp", v_fp)) == v_fp))
+    if rec is not None:
         k = int(rec["k"])
         alphas, betas = np.asarray(rec["alphas"]), np.asarray(rec["betas"])
         v_prev = ckpt.join_vec(rec["v_prev_re"], rec["v_prev_im"],
@@ -269,8 +275,8 @@ def lanczos_dynamics(matvec, v_start, m_steps: int, ckpt_key=None,
         betas = np.concatenate([betas, b_np])
         k += n
         if k < m_steps:
-            pr, pi = ckpt.split_vec(v_prev, complex_vec)
-            cr, ci = ckpt.split_vec(v_cur, complex_vec)
+            pr, pi = ckpt.split_vec(store.whole(v_prev), complex_vec)
+            cr, ci = ckpt.split_vec(store.whole(v_cur), complex_vec)
             store.save(ckpt_key, {
                 "k": k, "m_steps": m_steps, "b_prev": float(b_prev),
                 "v_fp": v_fp, "alphas": alphas, "betas": betas,

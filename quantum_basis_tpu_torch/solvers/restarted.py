@@ -31,6 +31,8 @@ With ``ckpt_key`` set and ``config.enable_ckpt`` on, the restart-boundary
 state (basis, projected matrix, counters) is saved at most every
 ``_SAVE_PERIOD`` seconds and restored on re-entry: the reference's
 Lanczos-step-level checkpointing (src/ckpt.cc:13-340) at restart granularity.
+On a mesh the record holds the whole (ncv+1, n) basis, gathered on rank 0,
+and each rank resumes from its own slice (solvers/reduce.py GroupStore).
 """
 
 from __future__ import annotations
@@ -269,12 +271,12 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
     it = 0
     store = ckpt_store(matvec, ckpt_key)
     if store is not None:
-        rec = store.load(ckpt_key)
         real_np = np.float32 if matvec.dtype == torch.float32 else np.float64
-        shape = tuple(kry.V.shape)
-        if (rec is not None and rec["Vre"].shape == shape
-                and rec["Vre"].dtype == real_np
-                and (rec["Vim"].shape == shape) == bool(complex_vec)):
+        shape = (rows, n)  # the whole basis, over every rank's slice
+        rec = store.load(ckpt_key, vectors=("Vre", "Vim"), fits=lambda r: (
+            r["Vre"].shape == shape and r["Vre"].dtype == real_np
+            and (r["Vim"].shape == shape) == bool(complex_vec)))
+        if rec is not None:
             kry.V.copy_(ckpt.join_vec(rec["Vre"], rec["Vim"], complex_vec,
                                       kry.V.device))
             Hm = rec["Hm"].astype(np.complex128)
@@ -344,13 +346,14 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         Hm[keep, :keep] = np.conj(u)
         Hm[:keep, keep] = u
         m = keep
-        if store is not None and time.monotonic() - last_save > _SAVE_PERIOD:
+        if store is not None and store.agree(
+                time.monotonic() - last_save > _SAVE_PERIOD):
             # spaced in time and capped in size (config.ckpt_max_bytes): past
             # the cap the in-progress record is skipped; the stage and
             # completion records still persist, so a crash redoes at most
             # this stage
-            if kry.V.numel() * kry.V.element_size() <= config.ckpt_max_bytes:
-                vre, vim = ckpt.split_vec(kry.V, complex_vec)
+            if rows * n * kry.V.element_size() <= config.ckpt_max_bytes:
+                vre, vim = ckpt.split_vec(store.whole(kry.V), complex_vec)
                 store.save(ckpt_key, {
                     "Vre": vre,
                     "Vim": vim if complex_vec else np.zeros((1, 1)),

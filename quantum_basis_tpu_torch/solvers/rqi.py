@@ -98,14 +98,16 @@ def _save_capped(store, key, best, x, outer, complex_vec, pending):
     (best_*) as separate fields; ``pending`` marks x_* as not yet evaluated,
     so the metadata never claims best's residual for it. Skipped past
     config.ckpt_max_bytes (the stage records still persist, so a crash then
-    redoes this stage only)."""
-    x_re, x_im = ckpt.split_vec(x, complex_vec)
-    b_re, b_im = ckpt.split_vec(best[2], complex_vec)
-    payload = {"x_re": x_re, "x_im": x_im, "outer": outer,
-               "pending": bool(pending), "best_re": b_re, "best_im": b_im,
-               "best_theta": best[1], "best_rnorm": best[0]}
-    if ckpt.payload_nbytes(payload) <= config.ckpt_max_bytes:
-        store.save(key, payload)
+    redoes this stage only). The cap is decided before the gather."""
+    if (store.nbytes(x, complex_vec) + store.nbytes(best[2], complex_vec)
+            > config.ckpt_max_bytes):
+        return
+    x_re, x_im = ckpt.split_vec(store.whole(x), complex_vec)
+    b_re, b_im = ckpt.split_vec(store.whole(best[2]), complex_vec)
+    store.save(key, {"x_re": x_re, "x_im": x_im, "outer": outer,
+                     "pending": bool(pending), "best_re": b_re,
+                     "best_im": b_im, "best_theta": best[1],
+                     "best_rnorm": best[0]})
 
 
 def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
@@ -131,9 +133,12 @@ def rqi_polish(fs64, v0, fs32, tol=None, max_outer: int = 60,
     n_outer0 = 0
     store = ckpt_store(fs64, ckpt_key)
     if store is not None:
-        rec = store.load(ckpt_key)
-        if rec is not None and rec["x_re"].shape == tuple(x.shape) \
-                and (rec["x_im"].shape == tuple(x.shape)) == complex_vec:
+        shape = (store.length(x),)
+        rec = store.load(ckpt_key, vectors=("x_re", "x_im", "best_re",
+                                            "best_im"), fits=lambda r: (
+            r["x_re"].shape == shape
+            and (r["x_im"].shape == shape) == complex_vec))
+        if rec is not None:
             x = ckpt.join_vec(rec["x_re"], rec["x_im"], complex_vec,
                               fs64.device, torch.float64)
             n_outer0 = min(int(rec["outer"]), max_outer - 1)

@@ -120,9 +120,3 @@ def join_vec(re, im, complex_vec: bool, device, dtype=None) -> torch.Tensor:
     xi = (torch.as_tensor(im, device=device).to(x.dtype)
           if im.shape == np.asarray(re).shape else torch.zeros_like(x))
     return torch.complex(x, xi)
-
-
-def payload_nbytes(payload: dict) -> int:
-    """Bytes of the numpy arrays of a record (what ``ckpt_max_bytes`` caps)."""
-    return sum(a.nbytes for a in payload.values()
-               if isinstance(a, np.ndarray))

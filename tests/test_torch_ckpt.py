@@ -292,6 +292,33 @@ def test_lanczos_ground_and_rqi_resume(ckpt_dir):
     assert CkptStore(str(ckpt_dir)).load("rqi_test") is None
 
 
+@pytest.mark.parametrize("over", [0, 1])
+def test_polish_records_capped_before_gathering(ckpt_dir, monkeypatch, over):
+    """lanczos_ground and rqi_polish refuse a record past
+    config.ckpt_max_bytes from the vectors' shapes, before they gather a
+    whole vector (GroupStore.whole); at the cap exactly the record is
+    written. Each record holds two whole complex vectors."""
+    from quantum_basis_tpu_torch.solvers.reduce import GroupStore
+
+    m, c = tz.heisenberg_chain(12)
+    m.enumerate_basis_repr([1], [c["Sz"]], [0.0])
+    ell = m._repr_ell(m.sec_repr[0])
+    monkeypatch.setattr(config, "ckpt_max_bytes", 2 * ell.n * 16 - over)
+    gathered = []
+    whole = GroupStore.whole
+    monkeypatch.setattr(GroupStore, "whole",
+                        lambda self, x: gathered.append(x.shape) or whole(
+                            self, x))
+    re, im = vec_randomize(ell.n, seed=1, complex_valued=True)
+    v0 = torch.as_tensor(re + 1j * im)
+    lanczos_ground(ell, v0, maxit=11, inner=10, ckpt_key="lg_cap")
+    rqi_polish(ell, v0, fs32=ell, max_outer=1, ckpt_key="rqi_cap")
+    store = CkptStore(str(ckpt_dir))
+    written = [store.load(k) is not None for k in ("lg_cap", "rqi_cap")]
+    assert written == [not over] * 2
+    assert bool(gathered) == (not over)
+
+
 def test_product_model_stage_record(ckpt_dir, monkeypatch):
     pm, _ = tz.hubbard_factorized(4, 2)
     e0 = pm.locate_E0_lanczos(mixed=False, ncv=16, log=lambda *a: None)

@@ -9,8 +9,9 @@ one-rank gloo group inside this process (file:// rendezvous, destroyed at
 module teardown): ``process_info``, the global mesh, the
 ``shard_array_over_mesh`` round-trip, ``FullSpaceSharded`` on it against
 the JAX engine on the global 8-device mesh, and ``Model(mesh=)`` against the
-single-device port. The ``cuda``-marked test runs the same one-rank route
-over NCCL on a card (``python -m pytest --noconftest
+single-device port. The ``cuda``-marked tests run the same one-rank route
+over NCCL on a card, and ``FullSpaceSharded`` on a 4-rank NCCL group where
+the machine has 4 cards (``python -m pytest --noconftest
 tests/test_torch_distributed.py -m cuda`` on the GPU machine; JAX is
 imported only inside the tests that compare with it).
 """
@@ -35,6 +36,7 @@ from quantum_basis_tpu_torch.parallel import (
     global_basis_mesh,
     init_distributed,
     process_info,
+    run_ranks,
     shard_array_over_mesh,
 )
 from quantum_basis_tpu_torch.parallel.fullspace_sharded import (
@@ -217,3 +219,43 @@ def test_one_rank_nccl_group_on_cuda(tmp_path):
                          text=True, timeout=600)
     assert out.returncode == 0 and "NCCL_OK" in out.stdout, \
         out.stdout[-2000:] + out.stderr[-2000:]
+
+
+_NCCL4_SCRIPT = """
+import sys
+sys.path[:0] = [{root!r}, {tests!r}]
+import torch, torch.distributed as dist
+import torch_zoo as tz
+from quantum_basis_tpu_torch.ops.apply_fullspace import FullSpaceOp
+from quantum_basis_tpu_torch.parallel import (FullSpaceSharded, basis_mesh,
+                                              init_distributed)
+rank, ranks, rdv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed("file://" + rdv, ranks, rank, device="cuda")
+mesh = basis_mesh(4, device="cuda")
+assert mesh.backend == "nccl" and mesh.device.index == rank, mesh
+m, c = tz.heisenberg_chain(16, device=mesh.device)
+m.enumerate_basis_full([c["Sz"]], [0.0])
+fs = FullSpaceOp(m.compiled_Ham, m.sec_full[0].labels, device=mesh.device)
+fss = FullSpaceSharded(fs, mesh)
+x = torch.as_tensor(tz.rand_vec(m.dim_full(), False, 11), device=mesh.device)
+xf = fs.to_full(x)
+want = fs(xf)
+got = fss.unpad(fss(fss.pad(xf)))
+err = float((got - want).abs().max() / want.abs().max())
+assert err < 1e-12, err
+dist.destroy_process_group()
+print("NCCL4_OK", err)
+"""
+
+
+@pytest.mark.cuda
+def test_four_rank_nccl_group_fullspace():
+    """FullSpaceSharded on a 4-rank NCCL group, one card a rank (the
+    boundary pieces go point to point), against FullSpaceOp (1e-12)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = _NCCL4_SCRIPT.format(root=os.path.dirname(here), tests=here)
+    outs = run_ranks([sys.executable, "-c", code], 4, timeout=600)
+    for out in outs:
+        assert "NCCL4_OK" in out, out[-3000:]

@@ -15,8 +15,9 @@ suite "model"), drive the public API on a basis mesh:
   alike on every rank;
 - Hubbard 4x2 through ``ProductModel(mesh=)``, pure f64 and mixed: the
   golden -14.07605866 (1e-8) and the single-device port (1e-10), the
-  published vector whole, normalized and an eigenvector;
-- checkpointing on a group of several ranks is refused.
+  published vector whole, normalized and an eigenvector.
+
+Checkpointing on a group is tests/test_torch_mesh_ckpt.py.
 
 Every rank must report the same numbers bit for bit.
 """
@@ -160,8 +161,3 @@ def test_product_model_on_mesh(groups, single_device, P, mixed):
     op = single_device["hubbard_op"]
     x = torch.as_tensor(v)
     assert float(torch.linalg.vector_norm(op(x) - e0 * x)) < 1e-7
-
-
-@pytest.mark.parametrize("P", RANKS)
-def test_checkpointing_refused_on_several_ranks(groups, P):
-    assert f"group of {P} ranks" in _scalar(groups, P, "ckpt")

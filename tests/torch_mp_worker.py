@@ -3,12 +3,12 @@
 Usage: torch_mp_worker.py <rank> <ranks> <rendezvous file> <suite> <out dir>
 
 Starts this rank with ``init_distributed`` (file:// rendezvous), builds the
-basis mesh on the CPU, runs every case of the suite ("sort", "sharded" or
-"model", below) on the port (quantum_basis_tpu_torch, no JAX), and writes
-``<out dir>/<suite>_r<rank>.npz`` (arrays) and ``.json`` (scalars). The
-tests (tests/test_torch_sample_sort.py, test_torch_sharded.py,
-test_torch_model_mesh.py) hold them against the JAX package on a P-device
-mesh. Inputs are made from seeds with numpy, as the tests make them.
+basis mesh on the CPU, runs every case of the suite ("sort", "sharded",
+"model", "ckpt" or "mesh4", below) on the port (quantum_basis_tpu_torch, no
+JAX), and writes ``<out dir>/<suite>_r<rank>.npz`` (arrays) and ``.json``
+(scalars). The tests (tests/test_torch_sample_sort.py, test_torch_sharded.py,
+test_torch_model_mesh.py, test_torch_mesh_ckpt.py, test_torch_mesh4.py) hold
+them against the JAX package on a P-device mesh. Inputs are made from seeds with numpy, as the tests make them.
 """
 
 from __future__ import annotations
@@ -166,18 +166,179 @@ def suite_model(mesh, arrays, scalars, outdir):
             maxit=600, ncv=16, mixed=mixed, log=lambda *a: None)
         arrays[f"hubbard_{tag}_vec"] = pm.eigenvecs[0].numpy()
 
-    # checkpointing on a group of several ranks is refused
-    config.enable_ckpt, config.ckpt_dir = True, os.path.join(outdir, "ckpt")
+
+
+class _Interrupting:
+    """A sharded engine that raises after ``limit`` applies, on every rank
+    at the same step: stands for a crash of the whole group."""
+
+    def __init__(self, base, limit):
+        self.base, self.limit, self.calls = base, limit, 0
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def __call__(self, x):
+        self.calls += 1
+        if self.calls > self.limit:
+            raise InterruptedError(f"stopped after {self.limit} applies")
+        return self.base(x)
+
+
+def _record_meta(store, key):
+    """[fields, Vre shape, Vre dtype] of a restart record, or None."""
+    rec = store.load(key)
+    if rec is None:
+        return None
+    return [sorted(rec), list(rec["Vre"].shape), str(rec["Vre"].dtype)]
+
+
+def suite_ckpt(mesh, arrays, scalars, outdir):
+    """Checkpoint and resume of mesh solves (tests/test_torch_mesh_ckpt.py):
+    chain-12 through Model(mesh=) interrupted after a save and resumed;
+    ProductModel(mesh=) Hubbard 4x2 mixed from its records; a write that
+    fails on rank 0. Rank 0 copies the restart and stage records aside for
+    the JAX package to load."""
+    import shutil
+
+    import torch.distributed as dist
+    from quantum_basis_tpu_torch.solvers import restarted
+    from quantum_basis_tpu_torch.utils.ckpt import CkptStore
+
+    ckdir = os.path.join(outdir, "ckpt")
+    config.ckpt_dir = ckdir
+    restarted._SAVE_PERIOD = 0.0  # every restart boundary saves
+    store = CkptStore(ckdir)
+
+    def aside(key, sub):
+        if mesh.rank == 0:
+            os.makedirs(os.path.join(outdir, sub), exist_ok=True)
+            shutil.copy(store._path(key), os.path.join(outdir, sub))
+        dist.barrier()
+
+    m, c = tz.heisenberg_chain(12)
+    m.set_mesh(mesh)
+    m.enumerate_basis_full([c["Sz"]], [0.0])
+    sec = m.sec_full[0]
+    m.locate_E0_lanczos("full", nev=1, ncv=1)
+    grp, mv, mask = sec._mesh_mv
+    scalars["cold_E0"], scalars["cold_applies"] = (m.eigenvals_full[0],
+                                                   mv.n_applies)
+    scalars["engine"], scalars["n_pad"] = type(mv).__name__, mv.n_pad
+
+    config.enable_ckpt = True
+    key = (f"lczsE0_full_sec0_K_nev1_mesh{mesh.size}"
+           f"_h{m._ham_fingerprint():08x}")
+    scalars["key"] = key
+    sec._mesh_mv = (grp, _Interrupting(mv, 30), mask)
     try:
-        m, c = tz.heisenberg_chain(12, device="cpu")
-        m.set_mesh(mesh)
-        m.enumerate_basis_full([c["Sz"]], [0.0])
-        m.locate_E0_lanczos()
-        scalars["ckpt"] = "solved"
-    except RuntimeError as e:
-        scalars["ckpt"] = str(e)
+        m.locate_E0_lanczos("full", nev=1, ncv=1)
+        scalars["interrupted"] = False
+    except InterruptedError:
+        scalars["interrupted"] = True
+    sec._mesh_mv = (grp, mv, mask)
+    scalars["restart_record"] = _record_meta(store, key + "_krylov")
+    scalars["restart_it"] = int(store.load(key + "_krylov")["it"])
+    scalars["stage_after_interruption"] = store.load(key) is not None
+    aside(key + "_krylov", "restart")
+
+    n0 = mv.n_applies
+    m.locate_E0_lanczos("full", nev=1, ncv=1)
+    scalars["resumed_E0"] = m.eigenvals_full[0]
+    scalars["resumed_applies"] = mv.n_applies - n0
+    scalars["restart_after_resume"] = store.load(key + "_krylov") is not None
+    scalars["stage_after_resume"] = store.load(key) is not None
+    arrays["resumed_vec"] = m.eigenvecs_full[0].numpy()
+    aside(key, "stage")
+    n0 = mv.n_applies
+    m.locate_E0_lanczos("full", nev=1, ncv=1)
+    scalars["again_applies"] = mv.n_applies - n0
+    scalars["again_E0"] = m.eigenvals_full[0]
+
+    # ProductModel(mesh=), mixed: the f32 stage's result record, the RQI
+    # polish's records and the stage record, all of whole vectors
+    pm, _ = tz.hubbard_factorized(4, 2)
+    pm.set_mesh(mesh)
+    scalars["prod_E0"] = pm.locate_E0_lanczos(mixed=True,
+                                              log=lambda *a: None)
+    arrays["prod_vec"] = pm.eigenvecs[0].numpy()
+    ops = (pm.op(torch.float32), pm.op(torch.float64))
+    n0 = [op.n_applies for op in ops]
+    scalars["prod_again_E0"] = pm.locate_E0_lanczos(mixed=True,
+                                                    log=lambda *a: None)
+    scalars["prod_again_applies"] = [op.n_applies - a
+                                     for op, a in zip(ops, n0)]
+    pkey = (f"prodE0_{pm.na}x{pm.nb}_nev1_h{pm._fingerprint():08x}"
+            f"_mesh{mesh.size}")
+    scalars["prod_key"] = pkey
+    scalars["prod_f32res"] = list(store.load(pkey + "_f32res")["re"].shape)
+    if mesh.rank == 0:
+        store.delete(pkey)
+    dist.barrier()
+    scalars["prod_warm_E0"] = pm.locate_E0_lanczos(mixed=True,
+                                                   log=lambda *a: None)
+    scalars["prod_warm_f32_stage"] = pm.solve_info["f32_stage_matvecs"]
+    config.enable_ckpt = False
+
+    # out of device memory in the f32 stage: on a group the solve raises
+    # (no rank falls back alone)
+    from quantum_basis_tpu_torch.models.model import Model
+
+    def oom(*a, **k):
+        raise torch.OutOfMemoryError("stands for a full device")
+
+    stage, Model._f32_stage_cached = Model._f32_stage_cached, oom
+    try:
+        pm.locate_E0_lanczos(mixed=True, log=lambda *a: None)
+        scalars["prod_oom"] = "fell back"
+    except torch.OutOfMemoryError:
+        scalars["prod_oom"] = "raised"
     finally:
-        config.enable_ckpt = False
+        Model._f32_stage_cached = stage
+
+    # a write or delete that fails on rank 0 raises on every rank (rank 0
+    # its own error), none waits in a collective
+    from quantum_basis_tpu_torch.solvers.reduce import GroupStore
+
+    class Full(CkptStore):
+        def save(self, key, payload):
+            raise OSError(28, "No space left on device")
+
+        def delete(self, key):
+            raise OSError(28, "No space left on device")
+
+    full = GroupStore(Full(ckdir), mesh)
+    for what, act in (("save", lambda: full.save("k", {"a": np.zeros(2)})),
+                      ("delete", lambda: full.delete("k"))):
+        try:
+            act()
+            scalars[f"failed_{what}"] = "returned"
+        except Exception as e:
+            scalars[f"failed_{what}"] = type(e).__name__
+
+
+def suite_mesh4(mesh, arrays, scalars, outdir):
+    """The engines, the sort and Model(mesh=) chain-16 on one group
+    (tests/test_torch_mesh4.py, 4 ranks)."""
+    suite_sharded(mesh, arrays, scalars)
+    parts = {name: np.array_split(vals, mesh.size)[mesh.rank]
+             for name, vals in tz.sort_inputs().items()}
+    for name in ("random_40000", "duplicates", "overflow"):
+        arrays[f"sort_{name}"] = sample_sort(parts[name], mesh)
+    m, c = tz.heisenberg_chain(16)
+    m.set_mesh(mesh)
+    m.enumerate_basis_full([c["Sz"]], [0.0])
+    m.locate_E0_lanczos("full", nev=1, ncv=1)
+    mv = m.sec_full[0]._mesh_mv[1]
+    scalars["chain16_E0"] = m.eigenvals_full[0]
+    scalars["chain16_engine"] = type(mv).__name__
+    scalars["chain16_halo"] = mv.halo_stats()
+    scalars["chain16_applies"] = mv.n_applies
+
+
+SUITES = {"sort": lambda mesh, a, s, out: suite_sort(mesh, a, s),
+          "sharded": lambda mesh, a, s, out: suite_sharded(mesh, a, s),
+          "model": suite_model, "ckpt": suite_ckpt, "mesh4": suite_mesh4}
 
 
 def main():
@@ -189,11 +350,7 @@ def main():
     try:
         mesh = basis_mesh(ranks, device="cpu")
         arrays, scalars = {}, {}
-        if suite == "model":
-            suite_model(mesh, arrays, scalars, outdir)
-        else:
-            {"sort": suite_sort, "sharded": suite_sharded}[suite](
-                mesh, arrays, scalars)
+        SUITES[suite](mesh, arrays, scalars, outdir)
         base = os.path.join(outdir, f"{suite}_r{rank}")
         np.savez(base + ".npz", **arrays)
         with open(base + ".json", "w") as f:
