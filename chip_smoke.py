@@ -52,7 +52,8 @@ Phases (any failure raises, so the exit code is nonzero):
    1.1, dim 165,636,900: KronOp f32 against f64 (5e-6 * max|y|) and against
    the factor ELLs applied row- and column-wise (1e-11 * max|y|), per-apply
    times, then ProductModel.locate_E0_lanczos() (E0 = -20.497352266554 to
-   1e-8, residual under the gate) when the projected time fits, else a
+   1e-8, residual under the gate; checkpointing on, in a temporary
+   directory that phase 16 reads) when the projected time fits, else a
    capped f32 Lanczos cycle whose Ritz value must lie above that E0 and
    within 1e-2 of it; measure_product_static double occupancy;
 8. momentum sectors at full width, N = 2^24, on the two models of phases
@@ -185,14 +186,29 @@ Phases (any failure raises, so the exit code is nonzero):
    to gloo;
 15. prints the kernel record, the card line, and as the last line
    {"ok": true, "device": {...}} (with ``--ranks N``: the card line and
-   the last line, whose count is N, the cards the run used).
+   the last line, whose count is N, the cards the run used);
+16. (after phase 7, before 15) the memory sizes of config.MEMORY["cuda"],
+   each read by a model on the card at full width: chain-24 Sz=-4's
+   DeviceBasis has the block rows of apply_block_budget and its solve on
+   the table's route equals the ELL's (1e-10); chain-24 k=0's ReprBasis
+   has those of repr_block_budget (E0 = -10.670014516537, 1e-9); the mixed
+   solve of chain-24 Sz=0 on ContractOp (N = 2^24) takes the polish branch
+   of polish_n (same golden); chain-26 Sz=0 has the lookup mode of
+   direct_lookup_max, and 2^20 of its labels look up to their rows;
+   Hubbard 4x2 with ProductModel's defaults takes the pipeline and ncv of
+   product_mixed_above and product_ncv (golden, 1e-8); phase 7's Hubbard
+   4x4 completion record (1.33 GB, under ckpt_max_bytes) is resumed by a
+   new model with no apply and the same E0. When phase 7 was capped the
+   record is written from the golden and a unit vector through the same
+   method. Prints one ``memory`` record.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
 those routes (config.ROUTING["cpu"]), as phase 5 does for its two goldens on
-ContractOp. Phases 8 to 13 run before phase 7, whose 4x4 solve (through
-benchmarks/hubbard4x4.py) is the one part that is capped when the script
-would pass its budget.
+ContractOp, phase 6 for its solves on ContractOp and ``--profile`` for its
+ContractOp windows. Phases 8 to 13 run before phase 7, whose 4x4 solve
+(through benchmarks/hubbard4x4.py) is the one part that is capped when the
+script would pass its budget.
 
 ``python3 chip_smoke.py --profile`` runs, instead of phases 2-15, windows
 under ``torch.profiler`` (the matrix-free solve of chain-16; a matrix-free
@@ -208,7 +224,9 @@ at three row-block budgets; it prints no result line.
 solve, whatever its projected time; ``--mesh`` runs phase 12 alone (after
 the chain-24 ELL solve it compares with); ``--gaps`` runs the Hubbard gaps
 driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
--20.497352266554); ``--bsr-bench`` runs bsr_bench alone; ``--ranks N``
+-20.497352266554) with a temporary checkpoint directory, then again, every
+sector resumed from its completion record with no apply and the same gaps;
+``--bsr-bench`` runs bsr_bench alone; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -216,7 +234,9 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 import zlib
 
@@ -229,6 +249,7 @@ HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, published peak
 PEAK_FLOPS = {torch.float32: 67e12,       # outside the tensor cores
               torch.float64: 33.5e12}     # half the float32 rate
 E0_CHAIN16 = -7.142296361
+E0_CHAIN24 = -10.670014516537       # Sz=0 (and its k=0 sector)
 CHAIN16_CORR = {"Sz0Sz1": -0.1487978408, "Sz0Sz2": 0.0617414604,
                 "Sp0Sm1": -0.2975956817}
 E0_TJ12 = -9.762087307
@@ -250,11 +271,12 @@ EXAMPLES = ("chain_heisenberg_spin_half", "chain_dynamics_sqw",
             "square_bose_hubbard", "square_fermi_hubbard", "square_kondo",
             "honeycomb_spinless_fermion", "triangular_heisenberg",
             "kagome_heisenberg_tj")
-# applies of the full Hubbard 4x4 solve (ProductModel defaults, seed 1), as
-# counted on an NVIDIA H100 80GB HBM3 (381 in the f32 bulk, 121 in the RQI
-# inner solves and up to 16 uncounted ones per outer step; 2 f64 outer steps
-# and the measurement); they project its time on the card at hand
-HUBBARD4X4_F32_APPLIES = 534
+# applies of the full Hubbard 4x4 solve (ProductModel defaults on the card:
+# mixed, ncv 12; seed 1), as counted on an NVIDIA H100 80GB HBM3 (192 in the
+# f32 bulk, 123 in the RQI inner solves and up to 16 uncounted ones per
+# outer step; 2 f64 outer steps and the measurement); they project its time
+# on the card at hand
+HUBBARD4X4_F32_APPLIES = 347
 HUBBARD4X4_F64_APPLIES = 3
 KAGOME_GOLDEN = {(0, 0): -15.41931496, (0, 1): -14.40277723,
                  (1, 0): -14.40277723, (1, 1): -14.40277723}
@@ -2465,18 +2487,42 @@ def bsr_bench_run(dev):
 
 
 def gaps_run(dev):
-    """``--gaps``: the four sectors of the 4x4 Hubbard gaps at full width."""
-    from quantum_basis_tpu_torch.benchmarks import hubbard4x4_gaps
+    """``--gaps``: the four sectors of the 4x4 Hubbard gaps at full width,
+    checkpointed in a temporary directory; then the driver again, which
+    must resume every sector from its completion record with no apply."""
+    from quantum_basis_tpu_torch.benchmarks import hubbard4x4_gaps, out_path
 
-    rec = hubbard4x4_gaps.main(4, 4, device=dev)
-    print("gaps", json.dumps(rec), flush=True)
-    _check("hubbard 4x4 E0(8,8)", rec["sectors"]["8,8"]["E0"],
-           E0_HUBBARD_4X4, 1e-8)
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=here)
+    try:
+        rec = hubbard4x4_gaps.main(4, 4, device=dev, ckpt_dir=ckpt_dir)
+        print("gaps", json.dumps(rec), flush=True)
+        _check("hubbard 4x4 E0(8,8)", rec["sectors"]["8,8"]["E0"],
+               E0_HUBBARD_4X4, 1e-8)
+        again = hubbard4x4_gaps.main(
+            4, 4, device=dev, ckpt_dir=ckpt_dir,
+            out=out_path("HUBBARD4x4_GAPS_resumed_torch.json"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print("gaps resumed", json.dumps(again), flush=True)
+    for key, sec in again["sectors"].items():
+        if sec["applies"] != 0 or sec["E0"] != rec["sectors"][key]["E0"]:
+            raise AssertionError(f"gaps: sector {key} was not resumed from "
+                                 f"its completion record: {sec}")
+    _check("hubbard 4x4 spin gap, resumed", again["spin_gap"],
+           rec["spin_gap"], 0.0)
+    _check("hubbard 4x4 charge gap, resumed", again["charge_gap"],
+           rec["charge_gap"], 0.0)
     return rec
 
 
-def product_run(dev, t_start, force_full):
-    """Phase 7: the factorized route through ProductModel."""
+def product_run(dev, t_start, force_full, ckpt_dir=None):
+    """Phase 7: the factorized route through ProductModel. With
+    ``ckpt_dir`` the full 4x4 solve checkpoints there (phase 16 resumes its
+    completion record)."""
+    import contextlib
+
+    from quantum_basis_tpu_torch import config
     from quantum_basis_tpu_torch.benchmarks import hubbard4x4
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized)
@@ -2487,8 +2533,7 @@ def product_run(dev, t_start, force_full):
 
     for mixed in (False, True):
         pm, _ = hubbard_factorized(4, 2, device=dev)
-        e0, t = _timed(lambda: pm.locate_E0_lanczos(
-            mixed=mixed, ncv=6 if mixed else 16))
+        e0, t = _timed(lambda: pm.locate_E0_lanczos(mixed=mixed))
         print("product", json.dumps({
             "model": "hubbard_4x2_half", "dim": pm.dim, "mixed": mixed,
             "E0": e0, "solve_s": t, "solve_info": pm.solve_info}), flush=True)
@@ -2557,7 +2602,10 @@ def product_run(dev, t_start, force_full):
         rec["residual"] = out["residual"]
     else:
         # the ported driver's solve (benchmarks/hubbard4x4.py)
-        out = hubbard4x4.solve_sector(pm)
+        with (config.pinned(enable_ckpt=True, ckpt_dir=ckpt_dir)
+              if ckpt_dir else contextlib.nullcontext()):
+            out = hubbard4x4.solve_sector(pm)
+        rec["applies"] = out["applies"]
         rec["solve_s"], rec["E0"] = out["solve_s"], out["E0"]
         rec["residual"] = out["residual_f64"]
         rec["residual_gate"] = out["residual_gate"]
@@ -2580,6 +2628,174 @@ def product_run(dev, t_start, force_full):
         if not 0.0 < rec["double_occupancy_site0"] < 0.25:
             raise AssertionError("4x4: double occupancy "
                                  f"{rec['double_occupancy_site0']!r}")
+    return rec
+
+
+def _spy(module, name, seen, tag):
+    """Wrap module.name so that each call appends ``tag(*args, **kw)`` to
+    ``seen``; returns the original for the caller to put back."""
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        seen.append(tag(*a, **kw))
+        return real(*a, **kw)
+    setattr(module, name, staticmethod(spy) if isinstance(
+        module.__dict__.get(name), staticmethod) else spy)
+    return real
+
+
+def memory_run(dev, prod, ckpt_dir):
+    """Phase 16: each size of config.MEMORY["cuda"] read by a model on the
+    card, at full width, beside the golden of the sector it solves; the
+    Hubbard 4x4 completion record of phase 7 resumed with no apply."""
+    import math
+
+    from quantum_basis_tpu_torch import CkptStore, config
+    from quantum_basis_tpu_torch.examples import engine_of
+    from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
+        build_factorized)
+    from quantum_basis_tpu_torch.models import model as model_mod
+    from quantum_basis_tpu_torch.models import product as product_mod
+    from torch_zoo import heisenberg_chain, hubbard_factorized
+
+    mem = config.MEMORY["cuda"]
+    rec = {"memory": dict(mem), "card": card_line()}
+    t16 = time.perf_counter()
+
+    # apply_block_budget: chain-24 Sz=-4 (blowup 22.8), on the card's route
+    m, ops = heisenberg_chain(24, device=dev)
+    dim = m.enumerate_basis_full([ops["Sz"]], [-4.0])
+    db = m.sec_full[0].dbasis
+    work = max(m.compiled_Ham.nnz_per_row, 1) * m.space.n_slots
+    want = min(1 << int(math.log2(max(
+        1024, mem["apply_block_budget"] // work))), dim)
+    print(f"check chain-24 Sz=-4 block rows {db.block_rows} == {want}",
+          flush=True)
+    if db.block_rows != want:
+        raise AssertionError("chain-24 Sz=-4: the block rows do not follow "
+                             "the cuda apply_block_budget")
+    _, rec["chain24_up8_s"] = _timed(lambda: m.locate_E0_lanczos("full"))
+    rec["chain24_up8_engine"] = engine_of(m, "full")
+    e_table = m.eigenvals_full[0]
+    m.generate_Ham_sparse_full(check=False)
+    m.locate_E0_lanczos("full")
+    _check("chain-24 Sz=-4 E0, the table's route vs the ELL", e_table,
+           m.eigenvals_full[0], 1e-10)
+
+    # repr_block_budget: chain-24 k=0 Sz=0
+    m.enumerate_basis_repr([0], [ops["Sz"]], [0.0])
+    rb = m.sec_repr[0].dbasis
+    want = min(1 << int(math.log2(max(
+        256, mem["repr_block_budget"]
+        // (max(m.compiled_Ham.nnz_per_row, 1) * rb.tset.G)))), rb.n)
+    print(f"check chain-24 k=0 repr block rows {rb.block_rows} == {want}",
+          flush=True)
+    if rb.block_rows != want:
+        raise AssertionError("chain-24 k=0: the block rows do not follow "
+                             "the cuda repr_block_budget")
+    _, rec["chain24_k0_s"] = _timed(lambda: m.locate_E0_lanczos("repr"))
+    _check("chain-24 k=0 E0", m.eigenvals_repr[0], E0_CHAIN24, 1e-9)
+
+    # polish_n: the mixed full-sector solve of chain-24 Sz=0 at N = 2^24 on
+    # ContractOp (pinned), its warm f64 stage by the table
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    seen = []
+    real = _spy(model_mod, "rqi_polish", seen, lambda *a, **kw: "rqi")
+    try:
+        with config.pinned(mixed_precision=True,
+                           fullspace_mixed_max_blowup=64.0):
+            _, rec["chain24_mixed_s"] = _timed(
+                lambda: m.locate_E0_lanczos("full"))
+    finally:
+        model_mod.rqi_polish = real
+    rqi = m.space.label_space > mem["polish_n"]
+    rec["polish"] = "rqi" if seen else "thick_restart"
+    print(f"check chain-24 N = 2^24 polish branch {rec['polish']} "
+          f"(polish_n {mem['polish_n']})", flush=True)
+    if bool(seen) != rqi:
+        raise AssertionError("chain-24: the polish branch does not follow "
+                             "the cuda polish_n")
+    _check("chain-24 Sz=0 mixed E0", m.eigenvals_full[0], E0_CHAIN24, 1e-9)
+    del m, db, rb
+    torch.cuda.empty_cache()
+
+    # direct_lookup_max: chain-26 Sz=0 (label space 2^26)
+    m, ops = heisenberg_chain(26, device=dev)
+    dim, rec["chain26_enumerate_s"] = _timed(
+        lambda: m.enumerate_basis_full([ops["Sz"]], [0.0]))
+    idx = m.sec_full[0].dbasis.index
+    rec["chain26_lookup"] = idx.mode
+    direct = m.space.label_space <= mem["direct_lookup_max"]
+    print(f"check chain-26 lookup mode {idx.mode} (direct_lookup_max "
+          f"{mem['direct_lookup_max']})", flush=True)
+    if (idx.mode == "direct") != direct:
+        raise AssertionError("chain-26: the lookup mode does not follow the "
+                             "cuda direct_lookup_max")
+    pick = torch.as_tensor(np.random.default_rng(3).choice(
+        dim, min(dim, 1 << 20), replace=False), device=dev)
+    labels = torch.as_tensor(m.sec_full[0].labels, device=dev)[pick]
+    if not torch.equal(idx.lookup(labels), pick):
+        raise AssertionError("chain-26: lookup of sector labels")
+    del m, idx, labels, pick
+    torch.cuda.empty_cache()
+
+    # product_mixed_above, product_ncv: Hubbard 4x2 with the defaults
+    pm, _ = hubbard_factorized(4, 2, device=dev)
+    seen = []
+    reals = (_spy(product_mod, "eigs_smallest", seen,
+                  lambda *a, **kw: ("f64", kw["ncv"])),
+             _spy(product_mod.Model, "_f32_stage_cached", seen,
+                  lambda fs, nev, ncv, *a: ("mixed", ncv)))
+    try:
+        e0 = pm.locate_E0_lanczos()
+    finally:
+        product_mod.eigs_smallest = reals[0]
+        product_mod.Model._f32_stage_cached = staticmethod(reals[1])
+    mixed = pm.dim > mem["product_mixed_above"]
+    ncv = mem["product_ncv"] if mixed else max(mem["product_ncv"], 6)
+    rec["hubbard4x2_pipeline"] = seen
+    print(f"check hubbard 4x2 pipeline {seen} == "
+          f"{[('mixed' if mixed else 'f64', ncv)]}", flush=True)
+    if seen != [("mixed" if mixed else "f64", ncv)]:
+        raise AssertionError("hubbard 4x2: the pipeline or ncv does not "
+                             "follow the cuda table")
+    _check("hubbard 4x2 E0 (the table's pipeline)", e0, E0_HUBBARD_4X2, 1e-8)
+
+    # ckpt_max_bytes: phase 7's completion record of Hubbard 4x4, resumed
+    pm, _ = build_factorized(4, 4, device=dev)
+    key = f"prodE0_{pm.na}x{pm.nb}_nev1_h{pm._fingerprint():08x}"
+    store = CkptStore(ckpt_dir)
+    if prod.get("capped"):
+        # phase 7 did not solve: a record of the same size, from the golden
+        # and a unit vector, written through the same method
+        v = torch.randn(pm.dim, dtype=torch.float64, device=dev)
+        v /= torch.linalg.vector_norm(v)
+        with config.pinned(enable_ckpt=True, ckpt_dir=ckpt_dir):
+            pm._stage_save(key, [E0_HUBBARD_4X4], [v], resid=0.0)
+        del v
+        want_e0 = E0_HUBBARD_4X4
+    else:
+        want_e0 = prod["E0"]
+    path = store._path(key)
+    rec["hubbard4x4_record"] = {"synthetic": bool(prod.get("capped")),
+                                "bytes": os.path.getsize(path)}
+    if not pm.dim * 8 <= mem["ckpt_max_bytes"]:
+        raise AssertionError("the 4x4 eigenvector is over the cuda "
+                             "ckpt_max_bytes")
+    with config.pinned(enable_ckpt=True, ckpt_dir=ckpt_dir):
+        e0, rec["hubbard4x4_resume_s"] = _timed(pm.locate_E0_lanczos)
+    rec["hubbard4x4_resume_applies"] = sum(
+        op.n_applies for op in pm._ops.values())
+    print(f"check hubbard 4x4 resumed with "
+          f"{rec['hubbard4x4_resume_applies']} applies", flush=True)
+    if rec["hubbard4x4_resume_applies"] != 0 or pm._ops:
+        raise AssertionError("hubbard 4x4: the completion record did not "
+                             "short-circuit the solve")
+    _check("hubbard 4x4 E0 from the completion record", e0, want_e0, 0.0)
+    del pm
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t16
+    print("memory", json.dumps(rec), flush=True)
     return rec
 
 
@@ -2748,14 +2964,11 @@ def profile_windows(dev):
     del pm, fs32, psi
     torch.cuda.empty_cache()
 
-    # the matrix-free apply against the row-block budget (config.py carries
-    # the JAX package's value, 1 << 24)
+    # the matrix-free apply against the row-block budget
     from quantum_basis_tpu_torch import config
 
-    old = config.apply_block_budget
-    try:
-        for shift in (24, 27, 30):
-            config.apply_block_budget = 1 << shift
+    for shift in (24, 27, 30):
+        with config.pinned(apply_block_budget=1 << shift):
             m, ops = heisenberg_chain(24, device=dev)
             m.enumerate_basis_full([ops["Sz"]], [0.0])
             mv = m.sec_full[0].matvec
@@ -2768,12 +2981,10 @@ def profile_windows(dev):
                 "peak_bytes": torch.cuda.max_memory_allocated()}),
                 flush=True)
             del m, mv
-    finally:
-        config.apply_block_budget = old
 
 
 def main() -> int:
-    """Phases 1-13 and 15 on one card; or one mode: ``--profile``,
+    """Phases 1-13, 16 and 15 on one card; or one mode: ``--profile``,
     ``--hubbard4x4`` (phase 7), ``--gaps``, ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
@@ -2803,7 +3014,9 @@ def main() -> int:
             "count": n}}))
         return 0
     if "--profile" in sys.argv[1:]:
-        profile_windows("cuda")
+        with jax_bounds("fullspace_max_blowup",
+                        "fullspace_mixed_max_blowup"):
+            profile_windows("cuda")
         return 0
     if "--hubbard4x4" in sys.argv[1:]:
         product_run("cuda", t_start, force_full=True)
@@ -2840,7 +3053,8 @@ def main() -> int:
         launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
     launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
     launches += launches5
-    engines_run(dev, wide)
+    with jax_bounds("fullspace_max_blowup", "fullspace_mixed_max_blowup"):
+        engines_run(dev, wide)
     print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
     with jax_bounds("fullspace_repr_max_blowup"):
         gs_sector = momentum_run(bsr_mod, dev, wide, t_start)
@@ -2872,8 +3086,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phases 1-6, 8-13: {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    product_run(dev, t_start, force_full=False)
-    print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=here)
+    try:
+        prod = product_run(dev, t_start, force_full=False, ckpt_dir=ckpt_dir)
+        print(f"phases 1-13: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        memory_run(dev, prod, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"phases 1-13, 16: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")

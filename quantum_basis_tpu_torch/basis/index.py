@@ -4,7 +4,8 @@ Port of ``quantum_basis_tpu.basis.index`` with its three lookup strategies
 (src/basis.cc:1193-1348, src/model.cc:266-270):
 
 - ``direct``: an O(1) dense position table over the whole label space,
-  chosen when the label space is at most ``config.direct_lookup_max``;
+  chosen when the label space is at most the device's
+  ``direct_lookup_max`` (``config.MEMORY``);
 - ``lin``: two gathers through the Lin tables of
   :mod:`quantum_basis_tpu_torch.basis.lin_table`, tried above that size when
   a split point is given; a basis with no consistent Lin assignment falls
@@ -38,7 +39,8 @@ class BasisIndex:
         self.n = int(labels.size)
         self.label_space = int(label_space)
         if mode is None:
-            if self.label_space <= config.direct_lookup_max:
+            if self.label_space <= config.memory("direct_lookup_max",
+                                                 device):
                 mode = "direct"
             elif lin_split is not None and self.n:
                 mode = "lin"  # try Lin; fall back to bsearch below

@@ -2,7 +2,8 @@
 against the ELL on momentum-sector matrices), ``routing`` (whole solves on
 both sides of each routing bound), ``flagship_kagome24`` (the 24-site kagome
 ground state, full sector and all 8 momenta), ``flagship_kagome24_sqw`` (its
-S(q, w)), ``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900),
+S(q, w)), ``memory`` (whole solves at each setting of the memory sizes),
+``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900),
 ``hubbard4x4_gaps`` (its spin and charge gaps), ``scaling`` (the sharded
 engines on 1, 2, 4, ... ranks) and ``comm_roofline`` (their communication
 against their compute). Each runs as
@@ -35,6 +36,13 @@ def out_path(name: str) -> str:
 def device_ms(fn, device, samples: int = 15, per_sample: int = 5) -> float:
     """Median time of one fn() call in ms: CUDA events on a CUDA device, the
     host clock elsewhere (a CPU time, never a device time)."""
+    return float(np.median(device_ms_samples(fn, device, samples,
+                                             per_sample)))
+
+
+def device_ms_samples(fn, device, samples: int = 15,
+                      per_sample: int = 5) -> list:
+    """Each sample's time of one fn() call in ms, as device_ms takes them."""
     cuda = torch.device(device).type == "cuda"
     for _ in range(2):
         fn()
@@ -54,7 +62,7 @@ def device_ms(fn, device, samples: int = 15, per_sample: int = 5) -> float:
             for _ in range(per_sample):
                 fn()
             times.append((time.perf_counter() - t0) * 1e3 / per_sample)
-    return float(np.median(times))
+    return times
 
 
 def timed(fn, device):

@@ -4,9 +4,11 @@ The port of ``benchmarks/hubbard4x4.py``. U = 1.1, N_up = N_dn = 8, sector
 dim C(16,8)^2 = 165,636,900. In the species-major Jordan-Wigner ordering the
 sector factorizes as up (x) down (models/product.py, ops/apply_kron.py): the
 state is a (12870, 12870) matrix and one H application is two dense matrix
-products and one elementwise pass. The solve is the mixed-precision pipeline
-(float32 thick restart, float64 Rayleigh-quotient polish under the hard
-residual gate).
+products and one elementwise pass. The solve is ProductModel's own choice
+for the device (``config.MEMORY``: pure float64 thick restart, or the
+mixed-precision pipeline of float32 thick restart and float64
+Rayleigh-quotient polish, and the basis size ncv), under the hard residual
+gate.
 
 Protocol: (1) the 4x2 golden (E0 = -14.07605866) through the same
 ProductModel path on the same device; (2) the 4x4 solve: E0 =
@@ -39,22 +41,31 @@ def residual_gate(E0: float) -> float:
     return max(1e3 * config.lanczos_precision * max(abs(E0), 1.0), 5e-10)
 
 
-def solve_sector(pm, maxit=4000, ncv=6):
-    """The mixed-precision solve of one ProductModel sector: a record with
-    E0, the float64 residual, the gate, seconds and the solver's counts."""
+def applies(pm) -> int:
+    """Applies made so far by the engines of a ProductModel."""
+    return sum(op.n_applies for op in pm._ops.values())
+
+
+def solve_sector(pm, maxit=4000, ncv=None, mixed=None):
+    """The solve of one ProductModel sector (``ncv``, ``mixed``: None takes
+    the device's table): a record with E0, the float64 residual, the gate,
+    seconds, the applies of both precisions (0 when a completion record
+    was resumed) and the solver's counts."""
+    n0 = applies(pm)
     E0, s = timed(lambda: pm.locate_E0_lanczos(maxit=maxit, ncv=ncv,
-                                               mixed=True), pm.device)
+                                               mixed=mixed), pm.device)
     resid = pm._last_residual
     gate = residual_gate(E0)
     info = dict(pm.solve_info)
     return {"dim": pm.dim, "factor_dims": [pm.na, pm.nb], "E0": E0,
             "residual_f64": resid, "residual_gate": gate,
             "gate_passed": resid is not None and resid < gate,
-            "solve_s": s, "solver": info}
+            "solve_s": s, "applies": applies(pm) - n0, "solver": info}
 
 
 def golden_4x2(device="cuda"):
-    """The 4x2 golden through ProductModel, mixed precision: its record."""
+    """The 4x2 golden through ProductModel, on the device's table: its
+    record."""
     (pm, _), t_build = timed(lambda: build_factorized(4, 2, device=device),
                              device)
     rec = solve_sector(pm)
@@ -67,7 +78,7 @@ def golden_4x2(device="cuda"):
     return rec
 
 
-def main(lx=4, ly=4, maxit=4000, ncv=6, device="cuda", out=None):
+def main(lx=4, ly=4, maxit=4000, ncv=None, device="cuda", out=None):
     """Returns the record; writes it to ``out`` (default
     ``out_path("HUBBARD4x4_torch.json")``). At 4x4 requires the golden E0
     (1e-8) and the residual under its gate."""
@@ -108,9 +119,10 @@ if __name__ == "__main__":
     ap.add_argument("--lx", type=int, default=4)
     ap.add_argument("--ly", type=int, default=4)
     ap.add_argument("--maxit", type=int, default=4000)
-    ap.add_argument("--ncv", type=int, default=6,
-                    help="float32 thick-restart basis size (ncv+1 vectors "
-                         "of 662 MB at 4x4)")
+    ap.add_argument("--ncv", type=int, default=None,
+                    help="thick-restart basis size (ncv+1 vectors of 662 MB "
+                         "in float32, 1.33 GB in float64 at 4x4); default "
+                         "the device's product_ncv")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()

@@ -1,14 +1,15 @@
 """Whole solves on both sides of each routing bound (``config.ROUTING``).
 
-For each of the six bounds it runs the same sector on the two engines the
+For each of the seven bounds it runs the same sector on the two engines the
 bound chooses between, the set-up included (enumeration, engine or ELL/BSR
 build, then the solve), and records seconds, the peak device memory, the
 sector's blowup and the energies (which must agree). These runs set the
 "cuda" values of ``config.ROUTING``:
 
 - ``full``: a full sector on the full-label-space engine (ContractOp /
-  FullSpaceOp) against the sector's matrix-free matvec
-  (``fullspace_max_blowup``);
+  FullSpaceOp) in float64 and under ``config.mixed_precision``, against the
+  sector's matrix-free matvec (``fullspace_max_blowup``,
+  ``fullspace_mixed_max_blowup``);
 - ``repr``: a momentum sector as P_k H against the explicit float64 ELL
   (``fullspace_repr_max_blowup``);
 - ``bsr``: an explicit momentum sector with its float32 bulk on the BSR
@@ -127,6 +128,7 @@ FULL_CASES = {   # tag: (model, quick)
     "chain24_up8": (chain(24, 8), False),
     "chain24_up6": (chain(24, 6), False),
     "chain24_up5": (chain(24, 5), False),
+    "chain26_up13": (chain(26, 13), False),
     "kagome24_up8": (kagome24(8), False),
     "kagome24_up6": (kagome24(6), False),
 }
@@ -197,9 +199,12 @@ def full_section(device, quick):
         if quick and not q:
             continue
         recs = {}
-        for route, pin in (("engine", INF), ("matvec", 0.0)):
+        for route, pin, mixed in (("engine", INF, False),
+                                  ("engine_mixed", INF, True),
+                                  ("matvec", 0.0, False)):
             with config.pinned(fullspace_max_blowup=pin,
-                               mixed_precision=False):
+                               fullspace_mixed_max_blowup=pin,
+                               mixed_precision=mixed):
                 recs[route], _ = _solve(make, device, "full")
         _agree(tag, recs, 1e-9)
         out[tag] = recs

@@ -56,8 +56,6 @@ from quantum_basis_tpu_torch.solvers.rqi import rqi_polish
 from quantum_basis_tpu_torch.utils import ckpt
 from quantum_basis_tpu_torch.utils.rng import vec_randomize
 
-_MIXED_ABOVE = 1 << 22  # mixed=None picks mixed precision above this dim
-
 
 class ProductModel:
     """Two-factor product-sector model; see module docstring."""
@@ -152,15 +150,18 @@ class ProductModel:
 
     # ------------------------------------------------------------- solve
     def locate_E0_lanczos(self, nev: int = 1, maxit: int = 4000,
-                          ncv: int = 6, seed: int = 1,
+                          ncv: int | None = None, seed: int = 1,
                           mixed: bool | None = None, log=print):
         """Ground state via the mixed-precision pipeline with a hard
         residual gate (cf. model::locate_E0_lanczos, src/model.cc:1123-1316).
 
-        ``mixed=None`` auto-selects: mixed precision above 2^22 states
-        (config.mixed_precision also forces it), pure f64 thick restart
-        below. Results land in ``eigenvals``/``eigenvecs``; ``solve_info``
-        holds the stage times and counts of a mixed solve.
+        ``mixed=None`` auto-selects: mixed precision above the device's
+        ``product_mixed_above`` states (config.mixed_precision also forces
+        it), pure f64 thick restart below; ``ncv=None`` takes the device's
+        ``product_ncv`` (both ``config.MEMORY``). Results land in
+        ``eigenvals``/``eigenvecs`` and the f64 residual of the first in
+        ``_last_residual``; ``solve_info`` holds the stage times and counts
+        of a mixed solve.
         """
         # factor dims spelled out: transposed sectors like Hubbard (9,8) vs
         # (8,7) share dim = na*nb and the same Hamiltonian terms; only the
@@ -173,15 +174,21 @@ class ProductModel:
         if done is not None:
             self.eigenvals, self.eigenvecs, self._last_residual = done
             return self.eigenvals[0]
+        if ncv is None:
+            ncv = config.memory("product_ncv", self.device)
         if mixed is None:
-            mixed = config.mixed_precision or self.dim > _MIXED_ABOVE
+            mixed = (config.mixed_precision or self.dim
+                     > config.memory("product_mixed_above", self.device))
         if not mixed:
             fs = self.op(torch.float64)
             evals, vecs = eigs_smallest(
                 fs, fs.N, nev=nev, ncv=max(ncv, 2 * nev + 4), maxit=maxit,
                 seed=seed, complex_vec=False, mask=fs.mask,
                 ckpt_key=key + "_krylov")
-            self._publish(key, evals, [self._unpad(fs, v) for v in vecs])
+            self._last_residual = float(norm(fs(vecs[0]) - evals[0] * vecs[0],
+                                             mesh_of(fs)))
+            self._publish(key, evals, [self._unpad(fs, v) for v in vecs],
+                          resid=self._last_residual)
             return self.eigenvals[0]
 
         # stage 1: f32 bulk on the dense float32 engine
@@ -289,7 +296,7 @@ class ProductModel:
         if resid is not None:
             payload["resid"] = float(resid)
         if sum(v.numel() * v.element_size() for v in vecs) \
-                > config.ckpt_max_bytes:
+                > config.memory("ckpt_max_bytes", self.device):
             return
         for i, v in enumerate(vecs):
             payload[f"v{i}_re"] = ckpt.split_vec(v, False)[0]

@@ -19,8 +19,9 @@ float64/complex128 vectors in place of split (re, im) pairs. Per row block:
 :func:`mopr_x_vec` is the scatter direction, y[j] += amp * sign * x[i], for
 operators that are not Hermitian or map one sector into another.
 
-Row blocks run in a Python loop; ``config.apply_block_budget`` bounds the
-(rows, terms, images) intermediates of one block.
+Row blocks run in a Python loop; the device's ``apply_block_budget``
+(``config.MEMORY``) bounds the (rows, terms, images) intermediates of one
+block.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ from quantum_basis_tpu_torch.basis.lin_table import digit_split
 from quantum_basis_tpu_torch.ops.compile import CompiledOperator, compile_diagonal
 
 
-def _choose_block(n: int, work_per_row: int) -> int:
-    b = max(1024, config.apply_block_budget // max(work_per_row, 1))
+def _choose_block(n: int, work_per_row: int, device) -> int:
+    b = max(1024, config.memory("apply_block_budget", device)
+            // max(work_per_row, 1))
     b = 1 << int(math.floor(math.log2(b)))
     return int(min(b, n))
 
@@ -65,7 +67,7 @@ class DeviceBasis:
                                lin_split=digit_split(space), device=device)
         self.index = index
         B = int(min(block_rows, max(self.n, 1))) if block_rows else max(
-            _choose_block(self.n, work_per_row * space.n_slots), 1)
+            _choose_block(self.n, work_per_row * space.n_slots, device), 1)
         nb = max(1, -(-self.n // B))
         pad = nb * B - self.n
         lab_pad = np.concatenate(

@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.basis.index import BasisIndex
 from quantum_basis_tpu_torch.basis.translation import (
     TranslationSet,
@@ -39,7 +40,6 @@ from quantum_basis_tpu_torch.ops.apply import (
 from quantum_basis_tpu_torch.ops.compile import CompiledOperator, compile_diagonal
 
 _NU_TOL = 1e-10
-_BLOCK_BUDGET = 1 << 22  # elements of each (B, T, K, G) intermediate
 
 
 class ReprBasis(DeviceBasis):
@@ -65,7 +65,8 @@ class ReprBasis(DeviceBasis):
                 f"momentum sector k={self.momentum} is empty (all norms zero)")
         per_row = max(work_per_row, 1) * max(tset.G, 1)
         block_rows = 1 << int(math.floor(math.log2(
-            max(256, _BLOCK_BUDGET // per_row))))
+            max(256, config.memory("repr_block_budget", tset.device)
+                // per_row))))
         index = BasisIndex(labels, space.label_space, device=tset.device)
         super().__init__(space, labels, index, block_rows, device=tset.device)
         nu_pad = np.concatenate([self.nus, np.ones(self.pad)])

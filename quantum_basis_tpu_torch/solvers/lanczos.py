@@ -193,9 +193,9 @@ def lanczos_ground(
             best = (theta, v, rnorm)
         if store is not None and (
                 store.nbytes(v, complex_vec) + store.nbytes(best[1], complex_vec)
-                <= config.ckpt_max_bytes):
-            # capped like every per-iteration save (config.ckpt_max_bytes),
-            # before the gather; the stage records still persist
+                <= config.memory("ckpt_max_bytes", v.device)):
+            # capped like every per-iteration save (the device's
+            # ckpt_max_bytes), before the gather
             v_re, v_im = ckpt.split_vec(store.whole(v), complex_vec)
             b_re, b_im = ckpt.split_vec(store.whole(best[1]), complex_vec)
             store.save(ckpt_key, {"v_re": v_re, "v_im": v_im, "b_re": b_re,

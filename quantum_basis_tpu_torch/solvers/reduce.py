@@ -81,8 +81,9 @@ class GroupStore:
 
     def nbytes(self, x: torch.Tensor, complex_vec: bool) -> int:
         """Bytes of ``ckpt.split_vec(self.whole(x), complex_vec)``, from the
-        shapes alone and alike on every rank: a record past
-        ``config.ckpt_max_bytes`` is refused before anything is gathered."""
+        shapes alone and alike on every rank: a record past the device's
+        ``ckpt_max_bytes`` (``config.MEMORY``) is refused before anything is
+        gathered."""
         n = x[..., :1].numel() * self.length(x)
         real = x.real.element_size()
         return 2 * n * real if complex_vec else n * real + 8  # + zeros(1)

@@ -348,11 +348,11 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
         m = keep
         if store is not None and store.agree(
                 time.monotonic() - last_save > _SAVE_PERIOD):
-            # spaced in time and capped in size (config.ckpt_max_bytes): past
-            # the cap the in-progress record is skipped; the stage and
-            # completion records still persist, so a crash redoes at most
-            # this stage
-            if rows * n * kry.V.element_size() <= config.ckpt_max_bytes:
+            # spaced in time and capped in size (the device's
+            # ckpt_max_bytes): past the cap the in-progress record is
+            # skipped, so a crash redoes at most this stage
+            if rows * n * kry.V.element_size() <= config.memory(
+                    "ckpt_max_bytes", kry.V.device):
                 vre, vim = ckpt.split_vec(store.whole(kry.V), complex_vec)
                 store.save(ckpt_key, {
                     "Vre": vre,

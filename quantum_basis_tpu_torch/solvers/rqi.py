@@ -96,11 +96,11 @@ def _inner(fs32, x, b, theta, nsteps):
 def _save_capped(store, key, best, x, outer, complex_vec, pending):
     """Save the iterate to resume from (x_*) and the best evaluated iterate
     (best_*) as separate fields; ``pending`` marks x_* as not yet evaluated,
-    so the metadata never claims best's residual for it. Skipped past
-    config.ckpt_max_bytes (the stage records still persist, so a crash then
-    redoes this stage only). The cap is decided before the gather."""
+    so the metadata never claims best's residual for it. Skipped past the
+    device's ckpt_max_bytes (a crash then redoes this stage only). The cap
+    is decided before the gather."""
     if (store.nbytes(x, complex_vec) + store.nbytes(best[2], complex_vec)
-            > config.ckpt_max_bytes):
+            > config.memory("ckpt_max_bytes", x.device)):
         return
     x_re, x_im = ckpt.split_vec(store.whole(x), complex_vec)
     b_re, b_im = ckpt.split_vec(store.whole(best[2]), complex_vec)

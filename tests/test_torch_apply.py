@@ -114,7 +114,7 @@ def test_matvec_full_matches_jax(name, mode):
 
 def test_device_basis_storage_and_block_choice():
     """int8 slot values and fermion counts; the block size follows the
-    budget rule of the JAX package."""
+    budget rule of the JAX package (the "cpu" table's budget)."""
     from quantum_basis_tpu.ops.apply import _choose_block as jax_choose
 
     mt, ot = tz.kondo_chain(4, 1.3)
@@ -129,7 +129,7 @@ def test_device_basis_storage_and_block_choice():
     np.testing.assert_array_equal(
         db.F_b.reshape(-1, mt.space.n_slots)[: db.n].numpy(), F)
     for n, w in ((2704156, 24 * 24), (65536, 16 * 32), (500, 7)):
-        assert _choose_block(n, w) == jax_choose(n, w)
+        assert _choose_block(n, w, "cpu") == jax_choose(n, w)
 
 
 def _sminus_q(z, L, q):

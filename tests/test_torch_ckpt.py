@@ -294,8 +294,8 @@ def test_lanczos_ground_and_rqi_resume(ckpt_dir):
 
 @pytest.mark.parametrize("over", [0, 1])
 def test_polish_records_capped_before_gathering(ckpt_dir, monkeypatch, over):
-    """lanczos_ground and rqi_polish refuse a record past
-    config.ckpt_max_bytes from the vectors' shapes, before they gather a
+    """lanczos_ground and rqi_polish refuse a record past the device's
+    ckpt_max_bytes from the vectors' shapes, before they gather a
     whole vector (GroupStore.whole); at the cap exactly the record is
     written. Each record holds two whole complex vectors."""
     from quantum_basis_tpu_torch.solvers.reduce import GroupStore
@@ -303,7 +303,8 @@ def test_polish_records_capped_before_gathering(ckpt_dir, monkeypatch, over):
     m, c = tz.heisenberg_chain(12)
     m.enumerate_basis_repr([1], [c["Sz"]], [0.0])
     ell = m._repr_ell(m.sec_repr[0])
-    monkeypatch.setattr(config, "ckpt_max_bytes", 2 * ell.n * 16 - over)
+    monkeypatch.setitem(config.MEMORY["cpu"], "ckpt_max_bytes",
+                        2 * ell.n * 16 - over)
     gathered = []
     whole = GroupStore.whole
     monkeypatch.setattr(GroupStore, "whole",

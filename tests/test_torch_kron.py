@@ -163,7 +163,8 @@ def test_product_model_hubbard_4x2_golden(mixed, monkeypatch):
     pt = tz.hubbard_factorized(4, 2)[0]
     assert pt.dim == 70 * 70
     if mixed is None:  # the automatic choice, its bound lowered to reach it
-        monkeypatch.setattr(product_mod, "_MIXED_ABOVE", 1 << 10)
+        monkeypatch.setitem(config.MEMORY["cpu"], "product_mixed_above",
+                            1 << 10)
     E0 = pt.locate_E0_lanczos(mixed=mixed, ncv=16 if mixed is False else 6)
     assert abs(E0 - E0_HUBBARD_4X2) < 1e-8
     assert pt.eigenvals == [E0] and pt.eigenvecs[0].dtype == torch.float64

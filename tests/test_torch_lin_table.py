@@ -125,7 +125,7 @@ def test_lin_index_mode_and_fallback(monkeypatch):
     space = mt.space.label_space
 
     # above direct_lookup_max a full sector takes the Lin mode by itself
-    monkeypatch.setattr(config, "direct_lookup_max", 16)
+    monkeypatch.setitem(config.MEMORY["cpu"], "direct_lookup_max", 16)
     idx = BasisIndex(sector, space, lin_split=sa, device="cpu")
     assert idx.mode == "lin"
     tgt = torch.as_tensor(sector)

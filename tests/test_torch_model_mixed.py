@@ -6,8 +6,9 @@ and above the blowup bound. ``eigs_smallest(mask=)`` keeps every Ritz vector
 inside the sector. ``locate_E0_lanczos()`` and ``locate_E0_iram()`` through
 the engines give the JAX package's eigenvalues to 1e-10 with the same number
 of operator applies for the same seed (within one restart cycle where a
-level is degenerate). Under ``config.mixed_precision`` (with
-``_POLISH_N`` lowered to reach the large-N branch at test size) the f32 bulk
+level is degenerate). Under ``config.mixed_precision`` (with the
+``polish_n`` of ``config.MEMORY`` lowered to reach the large-N branch at
+test size) the f32 bulk
 + RQI polish and, forced, the 2-vector Lanczos fallback reach the pure-f64 E0
 to 1e-10 under the residual gate; a starved polish raises with ``E0`` and
 ``residual`` attached. Chain-16 golden E0 = -7.142296361 to 1e-8.
@@ -197,7 +198,7 @@ def test_mixed_precision_reaches_f64_e0(branch, monkeypatch):
     monkeypatch.setattr(model_mod, "lanczos_ground", spy_ground)
     monkeypatch.setattr(config, "mixed_precision", True)
     if branch != "thick_restart":
-        monkeypatch.setattr(model_mod, "_POLISH_N", 1 << 10)
+        monkeypatch.setitem(config.MEMORY["cpu"], "polish_n", 1 << 10)
     fs64 = st._fs_cache[torch.float64]
     n64 = fs64.n_applies
     mt.locate_E0_lanczos()
@@ -208,7 +209,7 @@ def test_mixed_precision_reaches_f64_e0(branch, monkeypatch):
     assert mt.eigenvecs_full[0].dtype == torch.float64
     assert _residual(mt) < _gate(e_f64)
     if branch == "thick_restart":
-        assert calls == []  # N = 2^14 is below _POLISH_N: f64 thick restart
+        assert calls == []  # N = 2^14 is below polish_n: f64 thick restart
         assert 0 < fs64.n_applies - n64
     elif branch == "rqi":
         assert len(calls) == 1 and calls[0]["converged"]
@@ -224,7 +225,7 @@ def test_polish_gate_raises_when_starved(monkeypatch):
     mt, ot = tz.heisenberg_chain(16)
     mt.enumerate_basis_full([ot["Sz"]], [0.0])
     fs = mt._fullspace_op(mt.sec_full[0])
-    monkeypatch.setattr(model_mod, "_POLISH_N", 1)
+    monkeypatch.setitem(config.MEMORY["cpu"], "polish_n", 1)
     real_ground = model_mod.lanczos_ground
     # maxit=1 still buys one whole cycle; make the cycle short
     monkeypatch.setattr(

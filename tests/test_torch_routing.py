@@ -23,9 +23,9 @@ from quantum_basis_tpu_torch.ops.apply_contract import ContractOp
 from quantum_basis_tpu_torch.ops.bsr import BsrMatrix
 from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
 
-NAMES = ("fullspace_max_blowup", "fullspace_repr_max_blowup",
-         "bsr_blowup_max", "bsr_stored_max_bytes", "bsr_auto_max_dim",
-         "kpm_fullspace_max_N")
+NAMES = ("fullspace_max_blowup", "fullspace_mixed_max_blowup",
+         "fullspace_repr_max_blowup", "bsr_blowup_max", "bsr_stored_max_bytes",
+         "bsr_auto_max_dim", "kpm_fullspace_max_N")
 CUDA = config.ROUTING["cuda"]
 
 
@@ -36,11 +36,12 @@ def _default(fn, arg):
 def test_cpu_table_is_the_jax_packages():
     cpu = config.ROUTING["cpu"]
     assert set(cpu) == set(NAMES) == set(CUDA)
-    assert cpu["fullspace_max_blowup"] == _default(JaxModel._fullspace_op,
-                                                   "max_blowup")
+    # the JAX package has one full-sector bound, mixed precision or not
+    for name in NAMES[:2]:
+        assert cpu[name] == _default(JaxModel._fullspace_op, "max_blowup")
     assert cpu["fullspace_repr_max_blowup"] == _default(
         JaxModel._fullspace_repr_op, "max_blowup")
-    for name in NAMES[2:]:
+    for name in NAMES[3:]:
         assert cpu[name] == getattr(jax_config, name), name
 
 
@@ -75,6 +76,15 @@ def test_model_defaults_follow_the_table(monkeypatch):
     m.enumerate_basis_full([c["Sz"]], [0.0])
     assert isinstance(m._fullspace_op(m.sec_full[0]), ContractOp)
     monkeypatch.setitem(config.ROUTING["cpu"], "fullspace_max_blowup", 1.0)
+    m.enumerate_basis_full([c["Sz"]], [0.0])
+    assert m._fullspace_op(m.sec_full[0]) is None
+    # under mixed precision the mixed bound decides, for both precisions
+    monkeypatch.setattr(config, "mixed_precision", True)
+    for dt in (torch.float64, torch.float32):
+        assert isinstance(m._fullspace_op(m.sec_full[0], dtype=dt),
+                          ContractOp)
+    monkeypatch.setitem(config.ROUTING["cpu"], "fullspace_mixed_max_blowup",
+                        1.0)
     m.enumerate_basis_full([c["Sz"]], [0.0])
     assert m._fullspace_op(m.sec_full[0]) is None
 
