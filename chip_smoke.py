@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises, so the exit code is nonzero):
 1. a CUDA device must be present; prints the card, its power limit and the
    torch/CUDA versions;
-2. builds the BSR SpMV kernel (csrc/bsr_spmv.cu) with nvcc;
+2. builds the kernels (csrc/bsr_spmv.cu, csrc/kron_ell.cu) with nvcc, one
+   process each, both at once;
 3. holds the kernel against its plain PyTorch version on the card, on a
    momentum sector of the 20-site tilted cluster (f32: the shape of the
    kernel's main path, phase 4b), on the
@@ -49,9 +50,12 @@ Phases (any failure raises, so the exit code is nonzero):
    ContractOp on a complex vector;
 7. the factorized route: Hubbard 4x2 half filling through ProductModel, pure
    f64 and mixed (golden -14.07605866, 1e-8); Hubbard 4x4 half filling, U =
-   1.1, dim 165,636,900: KronOp f32 against f64 (5e-6 * max|y|) and against
-   the factor ELLs applied row- and column-wise (1e-11 * max|y|), per-apply
-   times, then ProductModel.locate_E0_lanczos() (E0 = -20.497352266554 to
+   1.1, dim 165,636,900, on ProductModel's defaults, so on the card's route:
+   both engines asserted to be the ELL layout (kron_dense_max_dim), the
+   host's build of the int8 coupling timed apart, KronOp f32 against f64
+   (5e-6 * max|y|) and against the factor ELLs applied row- and column-wise
+   (1e-11 * max|y|), per-apply times and resident bytes, then
+   ProductModel.locate_E0_lanczos() (E0 = -20.497352266554 to
    1e-8, residual under the gate; checkpointing on, in a temporary
    directory that phase 16 reads) when the projected time fits, else a
    capped f32 Lanczos cycle whose Ritz value must lie above that E0 and
@@ -133,8 +137,10 @@ Phases (any failure raises, so the exit code is nonzero):
    (N = 2^24) H x against the ELL and FullSpaceOp (1e-12 * max|y|);
    kagome 2x4 Sz=0 k=(0,2) through enumerate_basis_repr(method="dnc") and
    locate_E0_lanczos(which="repr") on the complex halo engine
-   (-10.759897248084, 1e-8); KronSharded against KronOp on Hubbard 4x4
-   (f64 1e-12, f32 5e-6 * max|y|); ProductModel(mesh=) on Hubbard 4x2,
+   (-10.759897248084, 1e-8); KronSharded against KronOp on Hubbard 4x4 in
+   both layouts (layout="ell" on the fused kernel against KronOp's ELL,
+   "dense" against KronOp's dense; f64 1e-12, f32 5e-6 * max|y|);
+   ProductModel(mesh=) on Hubbard 4x2,
    pure f64 and mixed (-14.07605866, 1e-8). Prints the NCCL start-up,
    enumeration, build and solve seconds, each sharded engine's per-apply
    ms beside its single-device twin's, and the peak device memory.
@@ -173,9 +179,10 @@ Phases (any failure raises, so the exit code is nonzero):
    E0, 1e-10, with fewer applies, the record deleted, the next call without
    an apply, the temporary ckpt_dir removed); kagome 2x4 Sz=0 k=(0,2) by
    dnc on the mesh (-10.759897248084, 1e-8); KronSharded against KronOp on
-   Hubbard 4x4 (f64 1e-12, f32 5e-6) and ProductModel(mesh=) 4x2; the
-   Hubbard 4x4 solve through ProductModel(mesh=) (-20.497352266554, 1e-8,
-   f64 residual under its gate). Prints one ``mesh<P>`` record per
+   Hubbard 4x4 in both layouts (f64 1e-12, f32 5e-6) and ProductModel(mesh=)
+   4x2; the Hubbard 4x4 solve through ProductModel(mesh=) on the card's
+   route (every engine the ELL layout; -20.497352266554, 1e-8, f64
+   residual under its gate). Prints one ``mesh<P>`` record per
    workload (NCCL start-up s, a scalar all-reduce ms, enumeration, build
    and solve s, applies, per-apply ms beside the single-device engine's,
    peak bytes of the largest rank, the card line). Then the drivers
@@ -184,7 +191,12 @@ Phases (any failure raises, so the exit code is nonzero):
    benchmarks/comm_roofline.py (comm_roofline.jsonl). Raises when the
    machine has fewer than N cards; there is no fallback to fewer ranks or
    to gloo;
-15. prints the kernel record, the card line, and as the last line
+15. prints the kernel record (launches on the main path: bsr_spmv's in
+   phases 4, 5, 10 and 13, kron_ell's in phase 7's 4x4 solve, two per apply,
+   each count set to 0 just before its path and read just after; the worst
+   error against the plain version, the
+   kernel's, plain version's and library call's ms and the bound at the
+   main path's shape), the card line, and as the last line
    {"ok": true, "device": {...}} (with ``--ranks N``: the card line and
    the last line, whose count is N, the cards the run used);
 16. (after phase 7, before 15) the memory sizes of config.MEMORY["cuda"],
@@ -200,7 +212,20 @@ Phases (any failure raises, so the exit code is nonzero):
    4x4 completion record (1.33 GB, under ckpt_max_bytes) is resumed by a
    new model with no apply and the same E0. When phase 7 was capped the
    record is written from the golden and a unit vector through the same
-   method. Prints one ``memory`` record.
+   method. Prints one ``memory`` record;
+17. (after 16, before 15; ``--kron-ell`` runs it alone) the fused ELL kron
+   kernel (csrc/kron_ell.cu) against its plain version and against the
+   dense layout, on Hubbard 4x2 and 4x4 at half filling and the 4x4 gap
+   sector (9, 8) (two factors), f64 (1e-12 * max|y|) and f32 (5e-6); at
+   4x4 its time (CUDA events) beside the plain version's, the dense
+   layout's and the library call's (one torch.sparse.mm CSR product per
+   side, checked against the kernel with the diagonal added, used nowhere
+   in the package), and the least time the card could take (bytes: psi, P
+   and the factor ELLs read once, y written once; operations: 2 per live
+   factor entry per column, 6 per output); then a synthetic apply whose
+   rows are too long for the kernel's shared memory (nb = 30,000, f64 and
+   f32) against the plain version. Its launches are not counted in the
+   kernel record's.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -216,7 +241,9 @@ apply, a ContractOp f64 apply and solve, 20 ELL applies and the ELL solve at
 dim 2,704,156 on the chain, a ContractOp f64 apply on the kagome cluster, a
 P_k H apply at N = 2^24 on both; one q of the tilted cluster's KPM S(q, w) on
 the BSR kernel; phase 11's vrnl growth, skeleton, solve and MatvecVrnl
-applies at depth 14; a KronOp f32 apply at dim 165,636,900) and prints each window's wall time,
+applies at depth 14; a KronOp f32 apply at dim 165,636,900 in each
+layout and the 4x4 solve on ProductModel's defaults) and prints each
+window's wall time,
 device-busy time, idle share and its three longest device operations, then
 times the matrix-free apply
 at three row-block budgets; it prints no result line.
@@ -226,7 +253,7 @@ the chain-24 ELL solve it compares with); ``--gaps`` runs the Hubbard gaps
 driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 -20.497352266554) with a temporary checkpoint directory, then again, every
 sector resumed from its completion record with no apply and the same gaps;
-``--bsr-bench`` runs bsr_bench alone; ``--ranks N``
+``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -1971,7 +1998,8 @@ def mesh_kagome(dev, mesh, rec):
 
 
 def mesh_kron(dev, mesh, rec):
-    """12a: KronSharded on Hubbard 4x4 against KronOp (f64 and f32), then
+    """12a: KronSharded on Hubbard 4x4 against KronOp (f64 and f32) in both
+    layouts, each against the single-device engine of its own layout; then
     ProductModel(mesh=) on Hubbard 4x2, pure f64 and mixed."""
     from quantum_basis_tpu_torch.ops.apply_kron import KronOp
     from quantum_basis_tpu_torch.parallel.kron_sharded import KronSharded
@@ -1980,27 +2008,30 @@ def mesh_kron(dev, mesh, rec):
     pm, _ = hubbard_factorized(4, 4, device=dev)
     ell_a, ell_b = pm._factor_ells()
     P = pm._coupling_matrix()
-    for dt, tol, tag in ((torch.float64, 1e-12, "f64"),
-                         (torch.float32, 5e-6, "f32")):
-        ref = KronOp(ell_a, ell_b, coupling=P,
-                     coupling_scale=pm.coupling_scale, dtype=dt)
-        sh, rec[f"kron_sharded_{tag}_build_s"] = _timed(
-            lambda: KronSharded(ell_a, ell_b, coupling=P,
-                                coupling_scale=pm.coupling_scale, mesh=mesh,
-                                dtype=dt))
-        gen = torch.Generator(device=dev).manual_seed(5)
-        psi = torch.randn(pm.dim, dtype=dt, device=dev, generator=gen)
-        y_ref = ref(psi)
-        xl = sh.pad(psi)
-        _hx_check(f"12a hubbard 4x4 H x, KronSharded vs KronOp {tag}",
-                  sh.unpad(sh(xl)).double(), y_ref.double(), tol)
-        del y_ref
-        rec[f"kron_sharded_{tag}_ms"] = cuda_ms(lambda: sh(xl), samples=3,
-                                                per_sample=1)
-        rec[f"kron_{tag}_ms"] = cuda_ms(lambda: ref(psi), samples=3,
-                                        per_sample=1)
-        del ref, sh, psi, xl
-        torch.cuda.empty_cache()
+    for layout in ("ell", "dense"):
+        for dt, tol, dtag in ((torch.float64, 1e-12, "f64"),
+                              (torch.float32, 5e-6, "f32")):
+            tag = f"{dtag}_{layout}"
+            ref = KronOp(ell_a, ell_b, coupling=P,
+                         coupling_scale=pm.coupling_scale, dtype=dt,
+                         layout=layout)
+            sh, rec[f"kron_sharded_{tag}_build_s"] = _timed(
+                lambda: KronSharded(ell_a, ell_b, coupling=P,
+                                    coupling_scale=pm.coupling_scale,
+                                    mesh=mesh, dtype=dt, layout=layout))
+            gen = torch.Generator(device=dev).manual_seed(5)
+            psi = torch.randn(pm.dim, dtype=dt, device=dev, generator=gen)
+            y_ref = ref(psi)
+            xl = sh.pad(psi)
+            _hx_check(f"12a hubbard 4x4 H x, KronSharded vs KronOp {tag}",
+                      sh.unpad(sh(xl)).double(), y_ref.double(), tol)
+            del y_ref
+            rec[f"kron_sharded_{tag}_ms"] = cuda_ms(lambda: sh(xl),
+                                                    samples=3, per_sample=1)
+            rec[f"kron_{tag}_ms"] = cuda_ms(lambda: ref(psi), samples=3,
+                                            per_sample=1)
+            del ref, sh, psi, xl
+            torch.cuda.empty_cache()
     del pm, ell_a, ell_b, P
 
     for mixed in (False, True):
@@ -2315,6 +2346,11 @@ def ranks_worker(argv) -> int:
             rec.update({k: out[k] for k in ("dim", "E0", "residual_f64",
                                             "residual_gate", "solve_s",
                                             "solver")})
+            # the group takes the card's route (kron_dense_max_dim)
+            rec["layouts"] = sorted({op.layout for op in pm._ops.values()})
+            if rec["layouts"] != ["ell"]:
+                raise AssertionError(f"14 hubbard 4x4: layouts "
+                                     f"{rec['layouts']}")
             _check(f"14 hubbard 4x4 E0 on {P} ranks", out["E0"],
                    E0_HUBBARD_4X4, 1e-8)
             _bit_equal(mesh, "14 hubbard 4x4 E0", out["E0"])
@@ -2526,7 +2562,8 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     from quantum_basis_tpu_torch.benchmarks import hubbard4x4
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized)
-    from quantum_basis_tpu_torch.ops.apply_kron import KronOp
+    from quantum_basis_tpu_torch.ops import apply_kron
+    from quantum_basis_tpu_torch.ops.apply_kron import KronOp, kron_layout
     from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
     from quantum_basis_tpu_torch.utils.rng import vec_randomize
     from torch_zoo import hubbard_factorized, site_occupation
@@ -2550,11 +2587,19 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     if (pm.na, pm.dim) != HUBBARD4X4_DIMS:
         raise AssertionError(f"4x4: factor dim {pm.na}, dim {pm.dim}")
     rec["dim"], rec["factor_dim"] = pm.dim, pm.na
+    # the host's build of the (12870, 12870) int8 coupling, timed apart
+    _, rec["coupling_build_s"] = _timed(pm._coupling_matrix)
     fs64, rec["kron_f64_build_s"] = _timed(lambda: pm.op(torch.float64))
     fs32, rec["kron_f32_build_s"] = _timed(lambda: pm.op(torch.float32))
+    # ProductModel's defaults take the card's route (kron_dense_max_dim)
+    rec["layout"] = route = kron_layout(pm.na, pm.nb, dev)
     for fs, dt in ((fs64, torch.float64), (fs32, torch.float32)):
         if not isinstance(fs, KronOp) or fs.dtype != dt:
             raise AssertionError(f"4x4: engine {fs!r} is not a {dt} KronOp")
+        if fs.layout != route or route != "ell":
+            raise AssertionError(f"4x4: {dt} engine layout {fs.layout}, "
+                                 f"the card's route {route}")
+        rec[f"kron_{str(dt)[6:]}_resident_bytes"] = fs.resident_bytes
     gen = torch.Generator(device=dev).manual_seed(5)
     psi = torch.randn(pm.dim, dtype=torch.float64, device=dev, generator=gen)
     y64 = fs64(psi)
@@ -2579,8 +2624,12 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     del psi, x32
     torch.cuda.empty_cache()
 
-    # the solve; its count of applies on this card is in PERF.md section 5
-    projected = (HUBBARD4X4_F32_APPLIES * rec["kron_f32_ms"]
+    # the solve; its count of applies on this card is in PERF.md section 5.
+    # Beside each apply a Krylov step reads and writes the basis: at most
+    # 4 passes over ncv float32 vectors at the memory rate (CGS2)
+    ncv = config.memory("product_ncv", dev)
+    step_ms = 4 * ncv * pm.dim * 4 / HBM_BYTES_PER_S * 1e3
+    projected = (HUBBARD4X4_F32_APPLIES * (rec["kron_f32_ms"] + step_ms)
                  + HUBBARD4X4_F64_APPLIES * rec["kron_f64_ms"]) * 1.15e-3
     elapsed = time.perf_counter() - t_start
     rec["projected_solve_s"] = projected
@@ -2596,15 +2645,21 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
                                 / (2.3e-3 * rec["kron_f32_ms"]))))
         v0 = torch.as_tensor(vec_randomize(pm.dim, seed=1)[0],
                              device=dev).float()
+        applied0 = hubbard4x4.applies(pm)
+        apply_kron.launch_count = 0   # the kernel's main path: the solve
         out, rec["solve_s"] = _timed(lambda: lanczos_ground(
             fs32, v0, maxit=1, inner=steps, want_vector=False))
+        rec["kron_ell_launches"] = apply_kron.launch_count
+        rec["applies"] = hubbard4x4.applies(pm) - applied0
         rec["capped_steps"], rec["E0"] = steps, out["E0"]
         rec["residual"] = out["residual"]
     else:
         # the ported driver's solve (benchmarks/hubbard4x4.py)
         with (config.pinned(enable_ckpt=True, ckpt_dir=ckpt_dir)
               if ckpt_dir else contextlib.nullcontext()):
+            apply_kron.launch_count = 0   # the kernel's main path: the solve
             out = hubbard4x4.solve_sector(pm)
+            rec["kron_ell_launches"] = apply_kron.launch_count
         rec["applies"] = out["applies"]
         rec["solve_s"], rec["E0"] = out["solve_s"], out["E0"]
         rec["residual"] = out["residual_f64"]
@@ -2622,6 +2677,11 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
             raise AssertionError(f"4x4 capped: Ritz value {rec['E0']!r}")
     else:
         _check("hubbard 4x4 E0", rec["E0"], E0_HUBBARD_4X4, 1e-8)
+    # every apply of the solve went through the kernel: two launches each
+    if not 0 < rec["kron_ell_launches"] == 2 * rec["applies"]:
+        raise AssertionError(f"4x4: {rec['kron_ell_launches']} kron_ell "
+                             f"launches for {rec['applies']} applies")
+    if not capped:
         if not rec["residual"] < rec["residual_gate"]:
             raise AssertionError(f"4x4: residual {rec['residual']:.3e} over "
                                  f"the gate {rec['residual_gate']:.3e}")
@@ -2629,6 +2689,154 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
             raise AssertionError("4x4: double occupancy "
                                  f"{rec['double_occupancy_site0']!r}")
     return rec
+
+
+def _ell_csr(cols, vals, cnt, n_cols):
+    """The CSR tensor of slot-major ELL arrays (for the library call)."""
+    W, n = cols.shape
+    live = torch.arange(W, device=cols.device)[:, None] < cnt[None, :].long()
+    rows = torch.arange(n, device=cols.device)[None, :].expand(W, n)
+    idx = torch.stack([rows[live], cols[live].long()])
+    return torch.sparse_coo_tensor(idx, vals[live], (n, n_cols)) \
+        .coalesce().to_sparse_csr()
+
+
+def kron_bound(op):
+    """Least time of one ELL apply of ``op`` on this card in ms, and which
+    bound it is: psi read once, P read once, y written once, the factor ELLs
+    and diagonals read once, over the memory rate; against 2 operations per
+    live factor entry per column and 6 per output (a + b, s P, the sum,
+    the product with psi, the add to y) over the peak rate of the type."""
+    item = torch.empty((), dtype=op.dtype).element_size()
+    N = op.na * op.nb
+    sides = op._Aell + (op._Bell if op._Bell is not op._Aell else ())
+    nbytes = (2 * N * item + (0 if op._P is None else op._P.numel()
+                              * op._P.element_size())
+              + sum(t.numel() * t.element_size() for t in sides)
+              + (op.na + op.nb) * item)
+    nnz_a, nnz_b = int(op._Aell[2].sum()), int(op._Bell[2].sum())
+    flops = 2 * (nnz_a * op.nb + nnz_b * op.na) + 6 * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[op.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wide_rows_case(dev, dt, nr=5, nb=30_000, W=6, seed=3):
+    """A synthetic ELL apply whose psi rows are too long for the kernel's
+    shared memory (nb = 30,000: one f32 row fits, no f64 row): A (nr, nr),
+    B (nb, nb) with random live counts, int8 coupling. The args of
+    kron_ell."""
+    rng = np.random.default_rng(seed)
+
+    def side(n, ncols):
+        cnt = rng.integers(0, W + 1, n)
+        cols = rng.integers(0, ncols, (W, n))
+        vals = rng.standard_normal((W, n)) * (np.arange(W)[:, None] < cnt)
+        return (torch.as_tensor(cols, dtype=torch.int32, device=dev),
+                torch.as_tensor(vals, dtype=dt, device=dev),
+                torch.as_tensor(cnt, dtype=torch.int32, device=dev))
+
+    A, B = side(nr, nr), side(nb, nb)
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    P = torch.as_tensor(rng.integers(-3, 4, (nr, nb)), dtype=torch.int8,
+                        device=dev)
+    return (A, B, t(rng.standard_normal(nr)), t(rng.standard_normal(nb)), P,
+            1.1, t(rng.standard_normal((nr, nb))))
+
+
+def kron_ell_run(dev):
+    """Phase 17: the fused ELL kron kernel (csrc/kron_ell.cu) against its
+    plain version and the dense layout on Hubbard 4x2 and 4x4 at half
+    filling and the 4x4 gap sector (9, 8), f64 (1e-12 of max|y|) and f32
+    (5e-6); at 4x4 its time (CUDA events) beside the plain version's, the
+    dense layout's, the library's (one torch.sparse.mm CSR product per
+    side, used nowhere in the package) and the bound. Returns the kernel
+    record's numbers."""
+    from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
+        build_factorized, build_factorized_sector)
+    from quantum_basis_tpu_torch.ops import apply_kron
+    from quantum_basis_tpu_torch.ops.apply_kron import KronOp, kron_ell
+
+    cases = {"hubbard4x2": lambda: build_factorized(4, 2, device=dev)[0],
+             "hubbard4x4": lambda: build_factorized(4, 4, device=dev)[0],
+             "hubbard4x4_9_8": lambda: build_factorized_sector(
+                 4, 4, 9, 8, device=dev)}
+    out = {"max_abs_err": 0.0}
+    for name, build in cases.items():
+        pm = build()
+        ell_a, ell_b = pm._factor_ells()
+        P = pm._coupling_matrix()
+        for dt, tol in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
+            tag = f"{name} {str(dt)[6:]}"
+            op = KronOp(ell_a, ell_b, coupling=P,
+                        coupling_scale=pm.coupling_scale, dtype=dt,
+                        layout="ell")
+            gen = torch.Generator(device=dev).manual_seed(17)
+            psi = torch.randn((pm.na, pm.nb), dtype=dt, device=dev,
+                              generator=gen)
+            args = (op._Aell, op._Bell, op._adiag, op._bdiag, op._P,
+                    op._pscale, psi)
+            yk = kron_ell(*args)
+            yp = apply_kron._kron_ell_plain(*args, psi)
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     float((yk - yp).abs().max()))
+            _hx_check(f"17 {tag}: kernel vs plain", yk.view(-1), yp.view(-1),
+                      tol)
+            del yp
+            dense = KronOp(ell_a, ell_b, coupling=P,
+                           coupling_scale=pm.coupling_scale, dtype=dt,
+                           layout="dense")
+            _hx_check(f"17 {tag}: kernel vs the dense layout", yk.view(-1),
+                      dense(psi.view(-1)), tol)
+            rec = {"case": name, "dtype": str(dt)[6:], "dim": pm.dim,
+                   "factor_dims": [pm.na, pm.nb],
+                   "ell_resident_bytes": op.resident_bytes,
+                   "dense_resident_bytes": dense.resident_bytes}
+            if name == "hubbard4x4":
+                rec["ms"] = cuda_ms(lambda: kron_ell(*args), samples=9,
+                                    per_sample=2)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: apply_kron._kron_ell_plain(*args, psi),
+                    samples=3, per_sample=1)
+                x = psi.view(-1)
+                rec["dense_ms"] = cuda_ms(lambda: dense(x), samples=3,
+                                          per_sample=1)
+                rec["bound_ms"], rec["bound_by"] = kron_bound(op)
+                del dense
+                torch.cuda.empty_cache()
+                Acsr = _ell_csr(*op._Aell, pm.na)
+                Bcsr = _ell_csr(*op._Bell, pm.nb)
+
+                def library():
+                    return (torch.sparse.mm(Acsr, psi)
+                            + torch.sparse.mm(Bcsr, psi.t()).t())
+                d = op._adiag[:, None] + op._bdiag[None, :] \
+                    + op._pscale * op._P.to(dt)
+                _hx_check(f"17 {tag}: library products + diagonal vs kernel",
+                          (library() + d * psi).view(-1), yk.view(-1), tol)
+                del d
+                rec["library_ms"] = cuda_ms(library, samples=3,
+                                            per_sample=1)
+                del Acsr, Bcsr
+                if dt == torch.float32:   # the main path's apply
+                    out.update({k: rec[k] for k in (
+                        "ms", "plain_ms", "dense_ms", "bound_ms",
+                        "bound_by", "library_ms")})
+            print("kron_ell", json.dumps(rec), flush=True)
+            del op, psi, yk, args
+            torch.cuda.empty_cache()
+        del pm, ell_a, ell_b, P
+    # the kernel's other branches: rows read from global memory (f64) and
+    # one staged row per CTA (f32)
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
+        args = wide_rows_case(dev, dt)
+        yk = kron_ell(*args)
+        yp = apply_kron._kron_ell_plain(*args, args[-1])
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((yk - yp).abs().max()))
+        _hx_check(f"17 wide rows {str(dt)[6:]}: kernel vs plain",
+                  yk.view(-1), yp.view(-1), tol)
+    return out
 
 
 def _spy(module, name, seen, tag):
@@ -2957,11 +3165,22 @@ def profile_windows(dev):
     profile_vrnl(dev)
 
     pm, _ = hubbard_factorized(4, 4, device=dev)
-    fs32 = pm.op(torch.float32)
     psi = torch.randn(pm.dim, dtype=torch.float32, device=dev)
-    device_busy("hubbard 4x4 KronOp f32 apply (dim 165,636,900)",
-                lambda: fs32(psi))
-    del pm, fs32, psi
+    # one apply and several in a row: a window of one apply has read 50%
+    # idle with one of its two matrix products missing from the trace
+    for layout, reps in (("ell", 5), ("dense", 1), ("dense", 3)):
+        fs32 = pm.op(torch.float32, layout=layout)
+        device_busy(f"hubbard 4x4 KronOp {layout} f32 apply x{reps} (dim "
+                    "165,636,900)", lambda: [fs32(psi) for _ in range(reps)])
+        del fs32
+        pm._ops.clear()
+        torch.cuda.empty_cache()
+    del psi
+    # the whole solve on the card's route (the ELL layout): run twice, the
+    # first untraced
+    device_busy("hubbard 4x4 solve (ProductModel defaults)",
+                lambda: pm.locate_E0_lanczos(log=lambda *a: None))
+    del pm
     torch.cuda.empty_cache()
 
     # the matrix-free apply against the row-block budget
@@ -2984,8 +3203,9 @@ def profile_windows(dev):
 
 
 def main() -> int:
-    """Phases 1-13, 16 and 15 on one card; or one mode: ``--profile``,
-    ``--hubbard4x4`` (phase 7), ``--gaps``, ``--bsr-bench``, ``--mesh``
+    """Phases 1-13, 16, 17 and 15 on one card; or one mode: ``--profile``,
+    ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--gaps``,
+    ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
     rank processes those phases start."""
@@ -3021,6 +3241,12 @@ def main() -> int:
     if "--hubbard4x4" in sys.argv[1:]:
         product_run("cuda", t_start, force_full=True)
         return 0
+    if "--kron-ell" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import apply_kron
+
+        apply_kron.build_library(verbose=True)
+        kron_ell_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -3040,10 +3266,14 @@ def main() -> int:
         print(f"chain24 ELL E0 {m.eigenvals_full[0]!r}", flush=True)
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
+    from quantum_basis_tpu_torch.ops import apply_kron, cuda_build
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
+    # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
-    bsr_mod.build_library(verbose=True)
+    cuda_build.build([bsr_mod._SRC, apply_kron._SRC], verbose=True)
+    bsr_mod.build_library()
+    apply_kron.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     dev = "cuda"
@@ -3097,6 +3327,10 @@ def main() -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     print(f"phases 1-13, 16: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    kron = kron_ell_run(dev)
+    print(f"phases 1-13, 16, 17: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")
@@ -3112,6 +3346,19 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "kron_ell",
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/kron_ell.cu",
+        "replaces": "quantum_basis_tpu/ops/apply_kron.py:138",
+        "launches": prod["kron_ell_launches"],
+        "max_abs_err": kron["max_abs_err"],
+        "ms": kron["ms"],
+        "plain_ms": kron["plain_ms"],
+        "bound_ms": kron["bound_ms"],
+        "bound_by": kron["bound_by"],
+        "dense_ms": kron["dense_ms"],
+        "library_ms": kron["library_ms"],
     }]}
     print(json.dumps(record))
     print(card)

@@ -349,8 +349,8 @@ def _product_point(pm, ncv, mixed, golden, device):
     rec["solve_info"] = dict(pm.solve_info)
     for dt, name in ((torch.float64, "f64_applies"),
                      (torch.float32, "f32_applies")):
-        rec[name] = sum(op.n_applies for (d, _), op in pm._ops.items()
-                        if d == dt)
+        rec[name] = sum(op.n_applies for key, op in pm._ops.items()
+                        if key[0] == dt)
     rec["peak_bytes"] = _peak(device)
     if golden is not None and abs(rec["E0"] - golden) > 1e-8:
         raise AssertionError(f"E0 {rec['E0']!r} is not the golden {golden}")

@@ -1,6 +1,6 @@
 """Whole solves on both sides of each routing bound (``config.ROUTING``).
 
-For each of the seven bounds it runs the same sector on the two engines the
+For each of the eight bounds it runs the same sector on the two engines the
 bound chooses between, the set-up included (enumeration, engine or ELL/BSR
 build, then the solve), and records seconds, the peak device memory, the
 sector's blowup and the energies (which must agree). These runs set the
@@ -18,9 +18,16 @@ sector's blowup and the energies (which must agree). These runs set the
 - ``kpm``: 192 KPM moments of Sz(q)|gs> on P_k H, on the float32 BSR kernel,
   on the sector's matrix-free matvec and on its explicit ELL
   (``kpm_fullspace_max_N``, ``bsr_auto_max_dim``), and on the route the
-  device's own table takes (``default``).
+  device's own table takes (``default``);
+- ``kron``: Hubbard product sectors through ProductModel (its defaults on
+  the device's table) with the kron engines dense and as ELL rows on the
+  fused kernel (``kron_dense_max_dim``): 4x2, 4x3 and 4x4 at half filling
+  (factor dims 70, 924, 12870), the 4x2 (3, 2) sector and the 4x4 gap
+  sector (9, 8) (two factors): the whole solve with the factors' and the
+  coupling's build (after one untimed solve on each layout and the
+  kernel's build), the peak, and the float32 and float64 apply.
 
-Run:  python -m quantum_basis_tpu_torch.benchmarks.routing [--sections full,repr,bsr,kpm] [--quick] [--device cpu]
+Run:  python -m quantum_basis_tpu_torch.benchmarks.routing [--sections full,repr,bsr,kpm,kron] [--quick] [--device cpu]
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import argparse
 import gc
 import json
 import math
+import time
 
 import numpy as np
 import torch
@@ -321,8 +329,77 @@ def kpm_section(device, quick):
     return out
 
 
+# tag: (Lx, Ly, N_up, N_dn, quick); N_up = N_dn shares one factor
+KRON_CASES = {"hubbard4x2": (4, 2, 4, 4, True),
+              "hubbard4x2_3_2": (4, 2, 3, 2, True),
+              "hubbard4x3": (4, 3, 6, 6, False),
+              "hubbard4x4": (4, 4, 8, 8, False),
+              "hubbard4x4_9_8": (4, 4, 9, 8, False)}
+
+
+def _kron_solve(lx, ly, nu, nd, device):
+    """Build and solve one Hubbard product sector on ProductModel's
+    defaults: (model, the coupling's host build s, E0)."""
+    from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
+        build_factorized, build_factorized_sector)
+
+    pm = (build_factorized(lx, ly, Nf=nu, device=device)[0] if nu == nd
+          else build_factorized_sector(lx, ly, nu, nd, device=device))
+    t0 = time.perf_counter()
+    pm._coupling_matrix()
+    coupling_s = time.perf_counter() - t0
+    return pm, coupling_s, pm.locate_E0_lanczos(log=lambda *a: None)
+
+
+def kron_section(device, quick):
+    from quantum_basis_tpu_torch.benchmarks import device_ms, timed
+    from quantum_basis_tpu_torch.ops import apply_kron
+
+    if torch.device(device).type == "cuda":
+        apply_kron.build_library()   # once per process, not per solve
+    # one untimed solve on each layout first: the process's first solve
+    # pays the device's start-up
+    for pin in (INF, 0):
+        with config.pinned(kron_dense_max_dim=pin):
+            _kron_solve(4, 2, 4, 4, device)
+    out = {}
+    for tag, (lx, ly, nu, nd, q) in KRON_CASES.items():
+        if quick and not q:
+            continue
+        recs = {}
+        for layout, pin in (("dense", INF), ("ell", 0)):
+            _free(device)
+            with config.pinned(kron_dense_max_dim=pin):
+                (pm, coupling_s, E0), s = timed(
+                    lambda: _kron_solve(lx, ly, nu, nd, device), device)
+                rec = {"s": s, "coupling_build_s": coupling_s,
+                       "E0": float(E0), "residual": pm._last_residual,
+                       "dim": pm.dim, "factor_dims": [pm.na, pm.nb],
+                       "peak_bytes": _peak(device),
+                       "solve_info": dict(pm.solve_info),
+                       "applies": {str(k[0]): op.n_applies
+                                   for k, op in pm._ops.items()}}
+                gen = torch.Generator(device=device).manual_seed(3)
+                x = torch.randn(pm.dim, dtype=torch.float64, device=device,
+                                generator=gen)
+                for dt in (torch.float32, torch.float64):
+                    op = pm.op(dt)
+                    if op.layout != layout:
+                        raise AssertionError(f"{tag}: {op.layout} engine")
+                    xd = x.to(dt)
+                    rec[f"{str(dt)[6:]}_apply_ms"] = device_ms(
+                        lambda: op(xd), device, samples=5, per_sample=2)
+                    rec[f"{str(dt)[6:]}_resident_bytes"] = op.resident_bytes
+                del pm, x, xd, op
+            recs[layout] = rec
+        _agree(tag, recs, 1e-9)
+        out[tag] = recs
+        print("kron", tag, json.dumps(recs), flush=True)
+    return out
+
+
 SECTIONS = {"full": full_section, "repr": repr_section, "bsr": bsr_section,
-            "kpm": kpm_section}
+            "kpm": kpm_section, "kron": kron_section}
 
 
 def main(sections=tuple(SECTIONS), quick=False, device="cuda", out=None):

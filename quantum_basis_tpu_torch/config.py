@@ -48,7 +48,7 @@ mixed_precision = False
 mixed_precision_f32_tol = 1e-5
 
 # ------------------------------------------------------------ engine routing
-# The seven bounds that decide which engine a sector runs on, one table per
+# The eight bounds that decide which engine a sector runs on, one table per
 # device type; a model reads the table of its own device (route()).
 # - fullspace_max_blowup: a full sector runs on the full-label-space engines
 #   (ContractOp / FullSpaceOp) when label_space <= it * dim, else on the
@@ -71,8 +71,12 @@ mixed_precision_f32_tol = 1e-5
 #   solve built is reused at any dim.
 # - kpm_fullspace_max_N: KPM dynamics on momentum sectors runs on the float64
 #   P_k H engine up to this many labels, else on the sector-dim engine.
-# "cpu" keeps the JAX package's values (its TPU calibrations), so a CPU run
-# routes as the JAX package does. "cuda" holds the values measured on the
+# - kron_dense_max_dim: KronOp and KronSharded with layout=None store their
+#   factors dense (matrix products) when both factor dims are at most this,
+#   else as ELL rows applied by the fused kernel (ops/apply_kron.py).
+# "cpu" keeps the JAX package's values (its TPU calibrations; for the kron
+# layout its rule on a backend with trusted float64 dots: dense at every
+# size), so a CPU run routes as the JAX package does. "cuda" holds the values measured on the
 # H100 by quantum_basis_tpu_torch/benchmarks/routing.py in whole solves, the
 # set-up included (PERF.md, the routing table).
 ROUTING = {
@@ -84,6 +88,7 @@ ROUTING = {
         "bsr_stored_max_bytes": 2 << 30,
         "bsr_auto_max_dim": 1 << 16,
         "kpm_fullspace_max_N": 1 << 23,
+        "kron_dense_max_dim": float("inf"),
     },
     # NVIDIA H100 80GB HBM3, 700.00 W: whole solves in s, set-up included,
     # each pair "the route named first / the other" (PERF.md section 5):
@@ -153,6 +158,23 @@ ROUTING = {
         # against 0.55 / 1.91 / 4.70; the bound sits below the smallest
         # measured label space.
         "kpm_fullspace_max_N": 1 << 15,
+        # ProductModel's whole solve on its defaults (mixed, ncv 12), the
+        # factors' and the coupling's build included, dense / ELL layout
+        # (benchmarks/routing.py --sections kron, two calls; in the second
+        # one untimed solve on each layout first), the larger factor dim in
+        # brackets: Hubbard 4x2 (3, 2) (56) 0.123 / 0.077 and 0.142 /
+        # 0.071, 4x2 (70) 0.073 / 0.061 and 0.058 / 0.072, 4x3 (924) 0.152
+        # / 0.144 and 0.168 / 0.126, 4x4 (12870) 72.35 / 17.47 (13.62 /
+        # 11.64 GB peak), the 4x4 gap sector (9, 8) (12870) 84.78 / 18.77
+        # (13.92 / 10.37 GB). Per apply, f32 and f64 ms, dense / ELL: 70:
+        # 0.057-0.078 and 0.064-0.082 / 0.040-0.061 and 0.039-0.062; 924:
+        # 0.122-0.124 and 0.106-0.109 / 0.053-0.067 and 0.058-0.071; 12870:
+        # 181.6 and 184.6 / 6.99 and 11.86. The ELL wins or ties at every
+        # measured dim per apply; of the whole solves only one at 70 came
+        # out dense-first, by less than the spread between the two calls.
+        # No run shows a dim where the dense layout wins, so the card takes
+        # the ELL at every size.
+        "kron_dense_max_dim": 0,
     },
 }
 

@@ -118,17 +118,30 @@ def contract_from_numpy(N, wins, frame_shape, pairs, diag_full, win_G, signs,
         passes=passes, strides=strides)
 
 
-def kron_from_numpy(Ad, Bt, adiag, bdiag, P, pscale, *, device) -> KronOp:
-    """The JAX package's dense-layout ``KronOp`` as the port's, from its
-    ``params`` arrays (``Bt`` may be the same array as ``Ad``); the working
-    precision is that of ``Ad``."""
+def kron_from_numpy(Aside, Bside, adiag, bdiag, P, pscale, *,
+                    device) -> KronOp:
+    """The JAX package's ``KronOp`` as the port's, from its ``params``
+    arrays, in the layout they come from: the dense layout's ``Ad``, ``Bt``
+    (``Bt`` may be the same array as ``Ad``), or the ELL layout's ``(Ac,
+    Av)``, ``(Bc, Bv)`` pairs (``Bside`` may be the same pair as
+    ``Aside``); the dense arrays may come as the JAX engine's 1-tuples. The
+    working precision is that of ``Ad`` / ``Av``."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    Ad_t = t(Ad)
+    def unwrap(side):
+        return side[0] if isinstance(side, tuple) and len(side) == 1 else side
+
+    same = Bside is Aside
+    Aside = unwrap(Aside)
+    ell = isinstance(Aside, tuple)
+    conv = (lambda side: tuple(t(a) for a in side)) if ell else t
+    A = conv(Aside)
+    B = A if same else conv(unwrap(Bside))
     return KronOp.from_arrays(
-        Ad_t, Ad_t if Bt is Ad else t(Bt), t(adiag), t(bdiag),
-        None if P is None else t(_compact_coupling(P)), pscale)
+        A, B, t(adiag), t(bdiag),
+        None if P is None else t(_compact_coupling(P)), pscale,
+        layout="ell" if ell else "dense")
 
 
 def repr_sector_from_numpy(model, momentum, labels, reps, evals=(), evecs=(),

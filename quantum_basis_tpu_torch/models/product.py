@@ -11,9 +11,11 @@ Each factor is an ordinary :class:`~quantum_basis_tpu_torch.models.model.Model`
 with its full sector enumerated (both on one device, which is the product
 model's); the coupling is a list of pairs of diagonal operators.
 ``locate_E0_lanczos`` runs the mixed-precision pipeline: f32 thick-restart
-bulk on the dense float32 :class:`KronOp`, f64 Jacobi-Davidson/RQI polish on
-its float64 twin, under the hard residual gate; below 2^22 states it runs
-pure f64 thick restart.
+bulk on the float32 :class:`KronOp`, f64 Jacobi-Davidson/RQI polish on its
+float64 twin, under the hard residual gate; at or below the device's
+``product_mixed_above`` states it runs pure f64 thick restart. Both engines
+take the device's layout (dense factors, or the fused ELL kernel above the
+routing entry ``kron_dense_max_dim``).
 
 Flagship use: Fermi-Hubbard 4x4 at half filling (species-major JW ordering;
 sector dim C(16,8)^2 = 165,636,900), cross-checked against the reference's
@@ -44,6 +46,7 @@ from quantum_basis_tpu_torch.models.model import Model, checked_mesh
 from quantum_basis_tpu_torch.ops.apply import MatvecFull
 from quantum_basis_tpu_torch.ops.apply_kron import (
     KronOp,
+    _compact_coupling,
     _ell_to_dense,
     diagonal_product_coupling,
 )
@@ -73,6 +76,7 @@ class ProductModel:
         self._check = hermiticity
         self._ops: dict = {}
         self._P = None
+        self._Pc = None
         self._ells = None
         self.eigenvals: list[float] = []
         self.eigenvecs: list = []
@@ -106,32 +110,43 @@ class ProductModel:
                 mb.sec_full[self._sec].labels, self.coupling)
         return self._P
 
-    def op(self, dtype=None):
-        """The device engine at a given precision (cached per dtype).
+    def _coupling_stored(self):
+        """The coupling as the engines store it (int8 or float32,
+        ops/apply_kron._compact_coupling), compacted once for every engine."""
+        if self._Pc is None and self.coupling:
+            self._Pc = _compact_coupling(self._coupling_matrix())
+        return self._Pc
+
+    def op(self, dtype=None, layout=None):
+        """The device engine at a given precision and layout (cached per
+        ``(dtype, layout, mesh)``, the JAX package's key). ``layout``:
+        ``"dense"``, ``"ell"`` or None, the device's routing entry
+        ``kron_dense_max_dim`` (ops/apply_kron.py).
 
         With a mesh attached this is the row-sharded
         :class:`~quantum_basis_tpu_torch.parallel.kron_sharded.KronSharded`
         (same protocol; ``N`` and ``mask`` count the mesh-padded space)."""
         dtype = dtype or torch.float64
-        key = (dtype, self.mesh is not None)
+        key = (dtype, layout, self.mesh is not None)
         if key not in self._ops:
             ell_a, ell_b = self._factor_ells()
             if self.mesh is not None:
                 self._ops[key] = KronSharded(
-                    ell_a, ell_b, coupling=self._coupling_matrix(),
+                    ell_a, ell_b, coupling=self._coupling_stored(),
                     coupling_scale=self.coupling_scale, mesh=self.mesh,
-                    dtype=dtype)
+                    dtype=dtype, layout=layout)
             else:
                 self._ops[key] = KronOp(
-                    ell_a, ell_b, coupling=self._coupling_matrix(),
-                    coupling_scale=self.coupling_scale, dtype=dtype)
+                    ell_a, ell_b, coupling=self._coupling_stored(),
+                    coupling_scale=self.coupling_scale, dtype=dtype,
+                    layout=layout)
         return self._ops[key]
 
     def set_mesh(self, mesh):
         """Attach, replace or (None) drop the basis mesh; the sharded engines
         rebuild on the next solve (mirrors Model.set_mesh)."""
         self.mesh = checked_mesh(mesh)
-        self._ops = {k: v for k, v in self._ops.items() if not k[1]}
+        self._ops = {k: v for k, v in self._ops.items() if not k[2]}
 
     def _fingerprint(self) -> int:
         """Content CRC of the product Hamiltonian: both factors' and the
@@ -191,7 +206,7 @@ class ProductModel:
                           resid=self._last_residual)
             return self.eigenvals[0]
 
-        # stage 1: f32 bulk on the dense float32 engine
+        # stage 1: f32 bulk on the float32 engine
         fs32 = self.op(torch.float32)
         n32 = fs32.n_applies
         oom = False

@@ -17,18 +17,13 @@ package does, so both packages store bit-equal blocks for the same ELL.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from quantum_basis_tpu_torch.ops import cuda_build
+
 _B = 128  # block edge
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "bsr_spmv.cu"
-_BUILD_DIR = _PKG / "_build"
+_SRC = cuda_build.CSRC / "bsr_spmv.cu"
 
 # Kernel launches since the last reset (the CPU plain version is not
 # counted): lets a run show that its solves went through the kernel.
@@ -46,40 +41,14 @@ def _ceil_to(x: int, m: int) -> int:
 # --------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the BSR kernel cannot be built")
-
-
 def build_library(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/bsr_spmv.cu`` (once per source content) and load it.
-
-    The shared library goes to ``quantum_basis_tpu_torch/_build/``, named by
-    a hash of the source. ``verbose`` prints nvcc's ptxas report (registers,
-    shared memory and spills per kernel) when this call builds.
-    """
+    """Compile ``csrc/bsr_spmv.cu`` (once per source content, into
+    ``quantum_basis_tpu_torch/_build/``, ops/cuda_build.py) and load it.
+    ``verbose`` prints nvcc's ptxas report when this call builds."""
     global _lib
     if _lib is not None:
         return _lib
-    tag = hashlib.sha1(_SRC.read_bytes()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libbsr_spmv_{tag}.so"
-    if not out.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stderr, end="")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = cuda_build.load(_SRC, verbose)
     for name in ("qbt_bsr_spmv_f32", "qbt_bsr_spmv_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,

@@ -2,14 +2,19 @@
 
 Port of ``quantum_basis_tpu.parallel.kron_sharded``.
 :class:`~quantum_basis_tpu_torch.ops.apply_kron.KronOp` applies a
-factorizable sector Hamiltonian as two dense matmuls plus an elementwise
-pass on the state matrix ``psi`` (na, nb); here ``psi`` is split by rows (the
-first factor's index) over the ranks:
+factorizable sector Hamiltonian on the state matrix ``psi`` (na, nb); here
+``psi`` is split by rows (the first factor's index) over the ranks, and each
+rank all-gathers ``psi`` once per apply (one (na, nb) frame moved, as the
+JAX package's reduce-scatter of column-sharded partial products moves) for
+its own rows of ``A psi``; ``psi B^T``, the diagonal and the coupling are
+local. The layouts are KronOp's (``layout=``, the device's routing entry
+``kron_dense_max_dim`` when None):
 
-- ``A @ psi``: each rank all-gathers ``psi`` and multiplies its own rows of
-  ``A`` (one (na, nb) frame moved per apply, as the JAX package's
-  reduce-scatter of column-sharded partial products moves);
-- ``psi @ B^T``, the diagonal and the coupling: local.
+- ``"dense"``: the rank's dense rows of ``A`` times the gathered ``psi``,
+  dense ``B^T`` on the local rows, the diagonal as ``addcmul_``;
+- ``"ell"``: the rank's ELL rows of ``A`` (global columns) and ``B``'s ELL,
+  the whole apply one call of the fused kernel (``ops/apply_kron.kron_ell``)
+  with the gathered matrix as the A side's source; no dense factor is built.
 
 Rows are padded up to a multiple of the ranks with zero rows (zero A rows
 and columns, zero diagonal, zero coupling): padded components of ``psi``
@@ -22,8 +27,12 @@ from __future__ import annotations
 import torch
 
 from quantum_basis_tpu_torch.ops.apply_kron import (
+    _bytes,
     _compact_coupling,
     _ell_to_dense,
+    ell_arrays,
+    kron_layout,
+    kron_ell,
 )
 from quantum_basis_tpu_torch.parallel.mesh import RowSharded
 
@@ -50,7 +59,8 @@ class KronSharded(RowSharded):
     is_complex = False
 
     def __init__(self, A, B=None, coupling=None, coupling_scale: float = 1.0,
-                 mesh=None, dtype=None, axis: str = "b"):
+                 mesh=None, dtype=None, layout: str | None = None,
+                 axis: str = "b"):
         if mesh is None:
             raise ValueError("KronSharded requires a mesh")
         if A.is_complex or (B is not None and B.is_complex):
@@ -73,8 +83,21 @@ class KronSharded(RowSharded):
         self.span = (r0 * self.nb, r1 * self.nb)
         self.nnz_estimate = na * self.nb * (A.width + B.width + 1)
 
-        self._A = _dense_rows(A, r0, r1, self.na, dev).to(dtype)
-        self._Bt = _ell_to_dense(B, dtype).T.contiguous().to(dev)
+        if layout is None:
+            layout = kron_layout(na, self.nb, dev)
+        self.layout = layout
+        self._A = self._Bt = self._Aell = self._Bell = None
+        if layout == "dense":
+            self._A = _dense_rows(A, r0, r1, self.na, dev).to(dtype)
+            self._Bt = _ell_to_dense(B, dtype).T.contiguous().to(dev)
+        elif layout == "ell":
+            self._Bell = ell_arrays(B, dtype, dev)
+            # one rank holding every row of its own B: one set of arrays
+            self._Aell = (self._Bell if B is A and (r0, r1) == (0, na)
+                          else ell_arrays(A, dtype, dev, r0, r1))
+        else:
+            raise ValueError(f"layout must be 'dense', 'ell' or None, not "
+                             f"{layout!r}")
         adiag = torch.zeros(nal, dtype=torch.float64, device=dev)
         top = min(r1, na)
         if top > r0:
@@ -99,11 +122,23 @@ class KronSharded(RowSharded):
         if x.is_complex():
             raise NotImplementedError("KronSharded is a real engine")
         psi = x.to(self.dtype).view(-1, self.nb)
-        y = self._A @ self.mesh.all_gather(psi)
-        y.addmm_(psi, self._Bt)
-        y.addcmul_(self._adiag[:, None], psi)
-        y.addcmul_(self._bdiag[None, :], psi)
-        if self._P is not None:
-            y.addcmul_(self._P, psi, value=self._pscale)
+        full = self.mesh.all_gather(psi)
+        if self.layout == "ell":
+            y = kron_ell(self._Aell, self._Bell, self._adiag, self._bdiag,
+                         self._P, self._pscale, psi, full)
+        else:
+            y = self._A @ full
+            y.addmm_(psi, self._Bt)
+            y.addcmul_(self._adiag[:, None], psi)
+            y.addcmul_(self._bdiag[None, :], psi)
+            if self._P is not None:
+                y.addcmul_(self._P, psi, value=self._pscale)
         self.n_applies += 1
         return y.view(-1)
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes this rank's engine holds (the mask excluded)."""
+        sides = (self._Aell or ()) + (self._Bell or ())
+        return _bytes(self._A, self._Bt, *sides, self._adiag, self._bdiag,
+                      self._P)

@@ -25,7 +25,7 @@ from quantum_basis_tpu_torch.ops.translate_fullspace import ProjectedFullOp
 
 NAMES = ("fullspace_max_blowup", "fullspace_mixed_max_blowup",
          "fullspace_repr_max_blowup", "bsr_blowup_max", "bsr_stored_max_bytes",
-         "bsr_auto_max_dim", "kpm_fullspace_max_N")
+         "bsr_auto_max_dim", "kpm_fullspace_max_N", "kron_dense_max_dim")
 CUDA = config.ROUTING["cuda"]
 
 
@@ -41,8 +41,12 @@ def test_cpu_table_is_the_jax_packages():
         assert cpu[name] == _default(JaxModel._fullspace_op, "max_blowup")
     assert cpu["fullspace_repr_max_blowup"] == _default(
         JaxModel._fullspace_repr_op, "max_blowup")
-    for name in NAMES[3:]:
+    for name in NAMES[3:-1]:
         assert cpu[name] == getattr(jax_config, name), name
+    # KronOp's layout: the JAX package takes the dense layout at every size
+    # where float64 dots are trusted (its CPU), the ELL only where not
+    assert not jax_config.use_f64_reduce_dots()
+    assert cpu["kron_dense_max_dim"] == float("inf")
 
 
 def test_route_reads_the_device_type_and_pins_win():

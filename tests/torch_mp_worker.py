@@ -4,12 +4,13 @@ Usage: torch_mp_worker.py <rank> <ranks> <rendezvous file> <suite> <out dir>
 
 Starts this rank with ``init_distributed`` (file:// rendezvous), builds the
 basis mesh on the CPU, runs every case of the suite ("sort", "sharded",
-"model", "ckpt" or "mesh4", below) on the port (quantum_basis_tpu_torch, no
-JAX), and writes ``<out dir>/<suite>_r<rank>.npz`` (arrays) and ``.json``
-(scalars). The tests (tests/test_torch_sample_sort.py, test_torch_sharded.py,
-test_torch_model_mesh.py, test_torch_mesh_ckpt.py, test_torch_mesh4.py) hold
-them against the JAX package on a P-device mesh. Inputs are made from seeds with numpy, as the tests make them.
-"""
+"model", "ckpt", "mesh4" or "kron_ell", below) on the port
+(quantum_basis_tpu_torch, no JAX), and writes ``<out dir>/<suite>_r<rank>.npz``
+(arrays) and ``.json`` (scalars). The tests (tests/test_torch_sample_sort.py,
+test_torch_sharded.py, test_torch_model_mesh.py, test_torch_mesh_ckpt.py,
+test_torch_mesh4.py, test_torch_kron_ell.py) hold them against the JAX
+package on a P-device mesh, or against the port's single-device engine.
+Inputs are made from seeds with numpy, as the tests make them."""
 
 from __future__ import annotations
 
@@ -336,7 +337,36 @@ def suite_mesh4(mesh, arrays, scalars, outdir):
     scalars["chain16_applies"] = mv.n_applies
 
 
+# (Lx, Ly, N_up, N_dn) of the kron_ell suite's sectors: Hubbard 4x2 at half
+# filling (70 rows, one shared factor) and the 3x2 (2, 3) sector (15 rows:
+# padded to 16 on two ranks; two factors)
+KRON_ELL_CASES = {"4x2": (4, 2, 4, 4), "3x2_2_3": (3, 2, 2, 3)}
+
+
+def suite_kron_ell(mesh, arrays, scalars):
+    """KronSharded in both layouts on the sectors of KRON_ELL_CASES
+    (tests/test_torch_kron_ell.py holds them against KronOp)."""
+    for name, (lx, ly, nup, ndn) in KRON_ELL_CASES.items():
+        pm, _ = tz.hubbard_factorized(lx, ly, Nup=nup, Ndn=ndn)
+        ell_a, ell_b = pm._factor_ells()
+        x = np.random.default_rng(9).standard_normal(pm.dim)
+        for layout in ("ell", "dense"):
+            for dt in (torch.float64, torch.float32):
+                sh = KronSharded(ell_a, ell_b, coupling=pm._coupling_matrix(),
+                                 coupling_scale=pm.coupling_scale, mesh=mesh,
+                                 dtype=dt, layout=layout)
+                y = sh(sh.pad(torch.as_tensor(x, dtype=dt)))
+                tag = f"{name}_{layout}_{str(dt)[6:]}"
+                arrays[tag] = sh.unpad(y).double().numpy()
+                arrays[tag + "_padded_rows"] = (
+                    sh.mesh.all_gather(y).view(sh.na, sh.nb)
+                    [sh.na_logical:].double().numpy())
+                scalars[tag + "_layout"] = sh.layout
+                scalars[tag + "_na"] = sh.na
+
+
 SUITES = {"sort": lambda mesh, a, s, out: suite_sort(mesh, a, s),
+          "kron_ell": lambda mesh, a, s, out: suite_kron_ell(mesh, a, s),
           "sharded": lambda mesh, a, s, out: suite_sharded(mesh, a, s),
           "model": suite_model, "ckpt": suite_ckpt, "mesh4": suite_mesh4}
 
