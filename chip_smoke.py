@@ -216,16 +216,22 @@ Phases (any failure raises, so the exit code is nonzero):
 17. (after 16, before 15; ``--kron-ell`` runs it alone) the fused ELL kron
    kernel (csrc/kron_ell.cu) against its plain version and against the
    dense layout, on Hubbard 4x2 and 4x4 at half filling and the 4x4 gap
-   sector (9, 8) (two factors), f64 (1e-12 * max|y|) and f32 (5e-6); at
-   4x4 its time (CUDA events) beside the plain version's, the dense
-   layout's and the library call's (one torch.sparse.mm CSR product per
-   side, checked against the kernel with the diagonal added, used nowhere
-   in the package), and the least time the card could take (bytes: psi, P
-   and the factor ELLs read once, y written once; operations: 2 per live
-   factor entry per column, 6 per output); then a synthetic apply whose
-   rows are too long for the kernel's shared memory (nb = 30,000, f64 and
-   f32) against the plain version. Its launches are not counted in the
-   kernel record's.
+   sector (9, 8) (two factors), f64 (1e-12 * max|y|) in the compact slot
+   form (chosen by type and shape) and again in the wide form, and f32
+   (5e-6) in the wide form; at 4x4 its time (CUDA events; f64 in both
+   forms) and per pass (torch.profiler) beside the plain version's, the
+   dense layout's and the
+   library call's (one torch.sparse.mm CSR product per side, checked
+   against the kernel with the diagonal added, used nowhere in the
+   package), the least time the card could take (bytes: psi, P and the
+   factor ELLs read once, y written once; operations: 2 per live factor
+   entry per column, 6 per output) and the two passes' floor in device
+   memory (pass 1 reads psi and writes its sums, pass 2 reads psi, those
+   sums and P and writes y), which phase 17's record keeps and the
+   kernels line does not; then a synthetic apply whose rows are too long
+   for one staged panel (nb = 30,000: pass 2 gathers from device memory, B
+   in the wide form by shape in f64 too; f64 and f32) against the plain
+   version. Its launches are not counted in the kernel record's.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -2691,14 +2697,32 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     return rec
 
 
-def _ell_csr(cols, vals, cnt, n_cols):
-    """The CSR tensor of slot-major ELL arrays (for the library call)."""
+def _as_wide(side):
+    """A side in the wide slot form: its decoded columns and values."""
+    from quantum_basis_tpu_torch.ops.apply_kron import decode_slots
+
+    cols, vals = decode_slots(side)
+    return cols.to(torch.int32), vals.contiguous(), side[2]
+
+
+def _ell_csr(side, n_cols):
+    """The CSR tensor of a side's slot-major ELL arrays, in either slot
+    form (for the library call)."""
+    from quantum_basis_tpu_torch.ops.apply_kron import decode_slots
+
+    cols, vals = decode_slots(side)
     W, n = cols.shape
-    live = torch.arange(W, device=cols.device)[:, None] < cnt[None, :].long()
+    live = torch.arange(W, device=cols.device)[:, None] < side[2][None, :]
     rows = torch.arange(n, device=cols.device)[None, :].expand(W, n)
-    idx = torch.stack([rows[live], cols[live].long()])
+    idx = torch.stack([rows[live], cols[live]])
     return torch.sparse_coo_tensor(idx, vals[live], (n, n_cols)) \
         .coalesce().to_sparse_csr()
+
+
+def _side_bytes(op):
+    """Bytes of the engine's factor ELL arrays (a shared side once)."""
+    sides = op._Aell + (op._Bell if op._Bell is not op._Aell else ())
+    return sum(t.numel() * t.element_size() for t in sides)
 
 
 def kron_bound(op):
@@ -2709,11 +2733,9 @@ def kron_bound(op):
     the product with psi, the add to y) over the peak rate of the type."""
     item = torch.empty((), dtype=op.dtype).element_size()
     N = op.na * op.nb
-    sides = op._Aell + (op._Bell if op._Bell is not op._Aell else ())
     nbytes = (2 * N * item + (0 if op._P is None else op._P.numel()
                               * op._P.element_size())
-              + sum(t.numel() * t.element_size() for t in sides)
-              + (op.na + op.nb) * item)
+              + _side_bytes(op) + (op.na + op.nb) * item)
     nnz_a, nnz_b = int(op._Aell[2].sum()), int(op._Bell[2].sum())
     flops = 2 * (nnz_a * op.nb + nnz_b * op.na) + 6 * N
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2721,27 +2743,68 @@ def kron_bound(op):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def kron_floor(op):
+    """Least time in ms of the kernel's two passes in device memory: pass 1
+    reads psi and writes its sums, pass 2 reads psi, those sums and P and
+    writes y; each reads the factor ELLs and the diagonals once. The bound
+    (kron_bound) counts a single pass."""
+    item = torch.empty((), dtype=op.dtype).element_size()
+    N = op.na * op.nb
+    nbytes = (5 * N * item + (0 if op._P is None else op._P.numel()
+                              * op._P.element_size())
+              + 2 * (_side_bytes(op) + (op.na + op.nb) * item))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def wide_rows_case(dev, dt, nr=5, nb=30_000, W=6, seed=3):
-    """A synthetic ELL apply whose psi rows are too long for the kernel's
-    shared memory (nb = 30,000: one f32 row fits, no f64 row): A (nr, nr),
-    B (nb, nb) with random live counts, int8 coupling. The args of
-    kron_ell."""
+    """A synthetic ELL apply whose psi rows are too long for one staged
+    panel of the kernel (nb = 30,000 > 14,528: pass 2 gathers from device
+    memory): A (nr, nr), B (nb, nb) with random live counts and random
+    values, more than 65,536 distinct, so that B takes the wide slot form
+    by shape in f64 too (A, 5 rows, the compact form in f64); int8
+    coupling. The args of kron_ell."""
+    from quantum_basis_tpu_torch.ops.apply_kron import is_compact, pack_slots
+
     rng = np.random.default_rng(seed)
 
     def side(n, ncols):
         cnt = rng.integers(0, W + 1, n)
-        cols = rng.integers(0, ncols, (W, n))
-        vals = rng.standard_normal((W, n)) * (np.arange(W)[:, None] < cnt)
-        return (torch.as_tensor(cols, dtype=torch.int32, device=dev),
-                torch.as_tensor(vals, dtype=dt, device=dev),
-                torch.as_tensor(cnt, dtype=torch.int32, device=dev))
+        live = np.arange(W)[None, :] < cnt[:, None]
+        return pack_slots(torch.as_tensor(rng.integers(0, ncols, (n, W))),
+                          torch.as_tensor(rng.standard_normal((n, W)) * live),
+                          ncols, dt, dev)
 
     A, B = side(nr, nr), side(nb, nb)
+    if is_compact(B) or is_compact(A) != (dt == torch.float64):
+        raise AssertionError("wide rows: B must take the wide slot form, "
+                             "A the compact in f64")
     t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
     P = torch.as_tensor(rng.integers(-3, 4, (nr, nb)), dtype=torch.int8,
                         device=dev)
     return (A, B, t(rng.standard_normal(nr)), t(rng.standard_normal(nb)), P,
             1.1, t(rng.standard_normal((nr, nb))))
+
+
+def kron_pass_ms(fn, reps=5):
+    """Device ms per launch of each kernel named kron_ell_a / kron_ell_b in
+    a torch.profiler window of ``reps`` calls of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        for tag in ("kron_ell_a", "kron_ell_b"):
+            if tag in e.key:
+                out[tag] = e.self_device_time_total / 1e3 / e.count
+    return out
 
 
 def kron_ell_run(dev):
@@ -2755,7 +2818,8 @@ def kron_ell_run(dev):
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized, build_factorized_sector)
     from quantum_basis_tpu_torch.ops import apply_kron
-    from quantum_basis_tpu_torch.ops.apply_kron import KronOp, kron_ell
+    from quantum_basis_tpu_torch.ops.apply_kron import (KronOp, is_compact,
+                                                        kron_ell)
 
     cases = {"hubbard4x2": lambda: build_factorized(4, 2, device=dev)[0],
              "hubbard4x4": lambda: build_factorized(4, 4, device=dev)[0],
@@ -2776,13 +2840,26 @@ def kron_ell_run(dev):
                               generator=gen)
             args = (op._Aell, op._Bell, op._adiag, op._bdiag, op._P,
                     op._pscale, psi)
+            # the slot form by type and shape: every factor here is
+            # compact in f64, wide in f32
+            f64 = dt == torch.float64
+            if not is_compact(op._Aell) == is_compact(op._Bell) == f64:
+                raise AssertionError(f"17 {tag}: not the slot form of {dt}")
+            forms = [("compact" if f64 else "wide", args)]
+            if f64:   # the same factors in the wide form
+                wide_a = _as_wide(op._Aell)
+                wide_b = wide_a if op._Bell is op._Aell else _as_wide(
+                    op._Bell)
+                forms.append(("wide", (wide_a, wide_b) + args[2:]))
             yk = kron_ell(*args)
-            yp = apply_kron._kron_ell_plain(*args, psi)
-            out["max_abs_err"] = max(out["max_abs_err"],
-                                     float((yk - yp).abs().max()))
-            _hx_check(f"17 {tag}: kernel vs plain", yk.view(-1), yp.view(-1),
-                      tol)
-            del yp
+            for form, a in forms:
+                yf = kron_ell(*a)
+                yp = apply_kron._kron_ell_plain(*a, psi)
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         float((yf - yp).abs().max()))
+                _hx_check(f"17 {tag} {form}: kernel vs plain", yf.view(-1),
+                          yp.view(-1), tol)
+                del yp, yf
             dense = KronOp(ell_a, ell_b, coupling=P,
                            coupling_scale=pm.coupling_scale, dtype=dt,
                            layout="dense")
@@ -2795,6 +2872,12 @@ def kron_ell_run(dev):
             if name == "hubbard4x4":
                 rec["ms"] = cuda_ms(lambda: kron_ell(*args), samples=9,
                                     per_sample=2)
+                if f64:
+                    wide = forms[1][1]
+                    rec["wide_form_ms"] = cuda_ms(lambda: kron_ell(*wide),
+                                                  samples=9, per_sample=2)
+                    del wide
+                rec["passes_ms"] = kron_pass_ms(lambda: kron_ell(*args))
                 rec["plain_ms"] = cuda_ms(
                     lambda: apply_kron._kron_ell_plain(*args, psi),
                     samples=3, per_sample=1)
@@ -2802,10 +2885,11 @@ def kron_ell_run(dev):
                 rec["dense_ms"] = cuda_ms(lambda: dense(x), samples=3,
                                           per_sample=1)
                 rec["bound_ms"], rec["bound_by"] = kron_bound(op)
+                rec["floor_ms"] = kron_floor(op)
                 del dense
                 torch.cuda.empty_cache()
-                Acsr = _ell_csr(*op._Aell, pm.na)
-                Bcsr = _ell_csr(*op._Bell, pm.nb)
+                Acsr = _ell_csr(op._Aell, pm.na)
+                Bcsr = _ell_csr(op._Bell, pm.nb)
 
                 def library():
                     return (torch.sparse.mm(Acsr, psi)
@@ -2823,11 +2907,11 @@ def kron_ell_run(dev):
                         "ms", "plain_ms", "dense_ms", "bound_ms",
                         "bound_by", "library_ms")})
             print("kron_ell", json.dumps(rec), flush=True)
-            del op, psi, yk, args
+            del op, psi, yk, args, forms
             torch.cuda.empty_cache()
         del pm, ell_a, ell_b, P
-    # the kernel's other branches: rows read from global memory (f64) and
-    # one staged row per CTA (f32)
+    # the kernel's other branch: pass 2 gathering from device memory, B in
+    # the wide form (chosen by shape in f64)
     for dt, tol in ((torch.float64, 1e-12), (torch.float32, 5e-6)):
         args = wide_rows_case(dev, dt)
         yk = kron_ell(*args)

@@ -23,13 +23,17 @@ Two layouts, with the JAX package's names and meaning (``layout=``):
   ``torch.matmul`` (true float32: TF32 is off, config.py), the epilogue as
   three in-place ``addcmul_`` on broadcast views, so the (na, nb) diagonal
   is never formed;
-- ``"ell"``: only the factors' ELL rows are stored (int32 columns and
-  values in the engine's dtype, slot-major, and the count of live slots per
-  row), and the whole
-  apply is :func:`kron_ell`: on a CUDA tensor the hand-written kernel
+- ``"ell"``: only the factors' ELL rows are stored, slot-major with the
+  count of live slots per row, in one of two forms (:func:`pack_slots`):
+  compact, one int32 word a slot (the column in the low 16 bits, an index
+  into the factor's table of distinct values in the high 16), for a float64
+  engine whose factor's dim is at most 65,535 with at most 65,536 distinct
+  values; else wide, int32 columns beside the values in the engine's dtype.
+  The
+  whole apply is :func:`kron_ell`: on a CUDA tensor the hand-written kernel
   ``csrc/kron_ell.cu`` (built with nvcc for sm_90a at first use), on a CPU
-  tensor its plain version, which follows the JAX package's loop slot by
-  slot. There is no fallback between the two.
+  tensor its plain version, which decodes the slots and follows the JAX
+  package's loop slot by slot. There is no fallback between the two.
 
 ``layout=None`` takes the device's routing entry ``kron_dense_max_dim``
 (config.ROUTING): dense when both factor dims are at or below it, ELL above.
@@ -81,25 +85,111 @@ def _ell_to_dense(ell, dtype) -> torch.Tensor:
     return dense.to(dtype)
 
 
+# The compact slot form's limits: a 16-bit column and a 16-bit index into
+# the table of values
+COMPACT_MAX_DIM = 65535
+COMPACT_MAX_VALUES = 65536
+
+
+def pack_slots(cols, vals, n_cols: int, dtype, device):
+    """An (n, W) ELL's columns and values in the kernel's slot-major form:
+    (slots (W, n) int32, values, counts (n,) int32), on ``device``; a row's
+    count is one past its last nonzero slot.
+
+    Each row's live slots are reordered (:func:`_bank_order`) for the
+    kernel's shared-memory banks. The form is chosen by type and shape:
+    compact (``values`` 1-D) for float64 where ``n_cols`` is at most
+    COMPACT_MAX_DIM and there are at most COMPACT_MAX_VALUES distinct
+    values: each slot one word, column | index << 16, ``values`` the sorted
+    table of the distinct values (padding's 0 included), each once; else
+    wide (``values`` (W, n)), ``slots`` the int32 columns. The compact form
+    takes 4 bytes a slot against 12 in float64, which took the kernel's
+    apply at Hubbard 4x4 from 7.9 to 6.6 ms on an H100; in float32 (8 bytes
+    a slot) it was no faster, so float32 is always wide."""
+    cnt = _live_count(vals).to(device)
+    cols = cols.to(device=device, dtype=torch.int64)
+    vals = vals.to(device=device, dtype=dtype)
+    cols, vals = _bank_order(cols, vals, cnt)
+    table, idx = torch.unique(vals, return_inverse=True)
+    if (dtype != torch.float64 or n_cols > COMPACT_MAX_DIM
+            or table.numel() > COMPACT_MAX_VALUES):
+        return (cols.T.to(torch.int32).contiguous(), vals.T.contiguous(),
+                cnt)
+    words = cols | (idx << 16)
+    # the unsigned word as the int32 of the same bits
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.T.to(torch.int32).contiguous(), table.contiguous(), cnt
+
+
+# The kernel stages 16 bytes a source row, so that row j's values lie in
+# bank group j % 8 of shared memory's 32 four-byte banks, and a warp's
+# 16-byte loads run as four quarter-warps of 8 threads, one wavefront for each
+# distinct row a bank group holds among them
+_BANK_GROUPS = 8
+_QUARTER_WARP = 8
+
+
+def _bank_order(cols, vals, cnt):
+    """(cols, vals) of an (n, W) ELL with each row's live slots [0, cnt)
+    reordered, greedily, so that at each slot position the rows of each
+    quarter-warp (8 consecutive rows, which the kernel's threads gather for
+    together) fall in distinct bank groups where they can: fewer
+    shared-memory wavefronts a gather. The sum of a row is unchanged up to
+    rounding; padding stays in place."""
+    n, W = cols.shape
+    if n == 0 or W == 0:
+        return cols, vals
+    G, Q = -(-n // _QUARTER_WARP), _QUARTER_WARP
+    pad = G * Q - n
+    c = torch.nn.functional.pad(cols, (0, 0, 0, pad)).view(G, Q, W)
+    k_cnt = torch.nn.functional.pad(cnt.long(), (0, pad)).view(G, Q)
+    bank = c % _BANK_GROUPS
+    slot = torch.arange(W, device=cols.device)
+    free = slot < k_cnt[..., None]          # live slots not yet placed
+    order = slot.expand(G, Q, W).clone()    # position k takes slot order[k]
+    used = torch.zeros((G, _BANK_GROUPS), dtype=torch.long,
+                       device=cols.device)
+    g = torch.arange(G, device=cols.device)
+    for k in range(int(k_cnt.max())):
+        used.zero_()
+        for r in range(Q):
+            on = k < k_cnt[:, r]
+            cost = used.gather(1, bank[:, r]) + (~free[:, r]) * (W + Q)
+            j = torch.where(on, cost.argmin(1), k)
+            order[g, r, k] = j
+            free[g, r, j] &= ~on
+            used[g, bank[g, r, j]] += on.long()
+    order = order.view(G * Q, W)[:n]
+    return cols.gather(1, order), vals.gather(1, order)
+
+
+def is_compact(side) -> bool:
+    """Whether a side's slots are in the compact form (a 1-D table)."""
+    return side[1].dim() == 1
+
+
+def decode_slots(side):
+    """(columns (W, n) int64, values (W, n)) of a side in either form."""
+    slots, values, _ = side
+    if not is_compact(side):
+        return slots.long(), values
+    return (slots & 0xFFFF).long(), values[((slots >> 16) & 0xFFFF).long()]
+
+
 def ell_arrays(ell, dtype, device, lo: int = 0, hi: int | None = None):
     """Rows [lo, hi) of an EllMatrix's off-diagonal part in the kernel's
-    slot-major form: (int32 columns (W, hi - lo), values (W, hi - lo) in
-    ``dtype``, int32 count of live slots per row (hi - lo,)), all contiguous
-    on ``device``. Rows past the matrix are zero-count rows. A row's count is one past its last nonzero slot, so a zero slot
-    inside it (there is none after the build's compaction) stays a harmless
-    zero product."""
+    slot-major form (:func:`pack_slots`; its columns index the matrix's
+    ``ell.n`` rows), on ``device``. Rows past the matrix are zero-count
+    rows. A zero slot inside a row (there is none after the build's
+    compaction) stays a harmless zero product."""
     hi = ell.n if hi is None else hi
     W, top = ell.width, min(hi, ell.n)
-    cols = torch.zeros((W, hi - lo), dtype=torch.int32, device=device)
-    vals = torch.zeros((W, hi - lo), dtype=dtype, device=device)
-    cnt = torch.zeros(hi - lo, dtype=torch.int32, device=device)
+    cols = torch.zeros((hi - lo, W), dtype=torch.int64, device=device)
+    vals = torch.zeros((hi - lo, W), dtype=ell.vals.dtype, device=device)
     if W and top > lo:
-        v = ell.vals[lo:top].to(device)
-        cols[:, : top - lo] = ell.cols[lo:top].T.to(device=device,
-                                                    dtype=torch.int32)
-        vals[:, : top - lo] = v.T.to(dtype)
-        cnt[: top - lo] = _live_count(v)
-    return cols, vals, cnt
+        cols[: top - lo] = ell.cols[lo:top].to(device)
+        vals[: top - lo] = ell.vals[lo:top].to(device)
+    return pack_slots(cols, vals, ell.n, dtype, device)
 
 
 def _live_count(vals) -> torch.Tensor:
@@ -141,29 +231,31 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     ``quantum_basis_tpu_torch/_build/``, ops/cuda_build.py) and load it.
     ``verbose`` prints nvcc's ptxas report when this call builds."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = cuda_build.load(_SRC, verbose)
-    i, p = ctypes.c_int, ctypes.c_void_p
-    for name in ("qbt_kron_ell_f32", "qbt_kron_ell_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p] * 9 + [i, ctypes.c_double, p, p, p, i, i, p]
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = cuda_build.load(_SRC, verbose)
+        i, p = ctypes.c_int, ctypes.c_void_p
+        side = [p, p, p, i]   # slots, values, counts, compact
+        for name in ("qbt_kron_ell_f32", "qbt_kron_ell_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = side + side + [p, p, p, i, ctypes.c_double, p, p,
+                                         p, p, i, i, i, p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _kron_ell_plain(A, B, adiag, bdiag, P, pscale, psi, psi_full):
-    """Plain PyTorch version of :func:`kron_ell`, slot by slot as the JAX
-    package's ELL layout applies it (padded slots are zero products)."""
-    (Ac, Av, _), (Bc, Bv, _) = A, B
+    """Plain PyTorch version of :func:`kron_ell`: the slots decoded, then
+    applied slot by slot as the JAX package's ELL layout applies them, each
+    row's slots in their stored order (padded slots are zero products)."""
+    (Ac, Av), (Bc, Bv) = decode_slots(A), decode_slots(B)
     y = torch.zeros_like(psi)
     for k in range(Ac.shape[0]):
         # row r of (A psi): sum_k Av[r,k] * psi_full[Ac[r,k], :]
-        y += Av[k, :, None] * psi_full[Ac[k].long()]
+        y += Av[k, :, None] * psi_full[Ac[k]]
     for k in range(Bc.shape[0]):
         # col c of (psi B^T): sum_k Bv[c,k] * psi[:, Bc[c,k]]
-        y += Bv[k][None, :] * psi[:, Bc[k].long()]
+        y += Bv[k][None, :] * psi[:, Bc[k]]
     d = adiag[:, None] + bdiag[None, :]
     if P is not None:
         d = d + pscale * P.to(psi.dtype)
@@ -178,13 +270,19 @@ def _check_cuda_args(A, B, adiag, bdiag, P, psi, psi_full):
             or psi_full.shape[1] != psi.shape[1]:
         raise ValueError("psi must be (rows, nb) and psi_full (any, nb)")
     nr, nb = psi.shape
-    for side, (cols, vals, cnt), n in (("A", A, nr), ("B", B, nb)):
-        if (cols.dtype != torch.int32 or cnt.dtype != torch.int32
-                or vals.dtype != dt or cols.dim() != 2
-                or tuple(vals.shape) != tuple(cols.shape)
-                or cols.shape[1] != n or tuple(cnt.shape) != (n,)):
-            raise ValueError(f"{side}: int32 columns and {dt} values of "
-                             f"shape (W, {n}) and an int32 count ({n},)")
+    for side, (slots, vals, cnt), n in (("A", A, nr), ("B", B, nb)):
+        compact = vals.dim() == 1
+        if (slots.dtype != torch.int32 or cnt.dtype != torch.int32
+                or vals.dtype != dt or slots.dim() != 2
+                or slots.shape[1] != n or tuple(cnt.shape) != (n,)
+                or slots.numel() >= 1 << 31
+                or (compact and (dt != torch.float64
+                                 or vals.numel() > COMPACT_MAX_VALUES))
+                or (not compact and tuple(vals.shape) != tuple(slots.shape))):
+            raise ValueError(f"{side}: int32 slots (W, {n}) with {dt} "
+                             "values of the same shape or (float64 only) a "
+                             f"table of at most {COMPACT_MAX_VALUES}, and "
+                             f"an int32 count ({n},)")
     named = [("A", t) for t in A] + [("B", t) for t in B] + [
         ("adiag", adiag), ("bdiag", bdiag), ("psi", psi),
         ("psi_full", psi_full)]
@@ -205,13 +303,15 @@ def kron_ell(A, B, adiag, bdiag, P, pscale, psi, psi_full=None):
     """y = A psi_full + psi B^T + (adiag (+) bdiag + pscale P) o psi, for
     the caller's rows of psi.
 
-    ``A``: (columns, values, counts) of A's ELL rows for psi's rows, slot
-    major (W_A, rows) as :func:`ell_arrays` makes them, whose columns index
-    ``psi_full``'s rows (default ``psi``); ``B``: the same of B's (W_B, nb),
-    indexing psi's columns; ``adiag`` (rows,), ``bdiag``
-    (nb,); ``P``: None or an int8 / float32 (rows, nb) coupling. CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/kron_ell.cu`` (or
-    raise).
+    ``A``: (slots, values, counts) of A's ELL rows for psi's rows, slot
+    major (W_A, rows) in either form of :func:`pack_slots`, whose columns
+    index ``psi_full``'s rows (default ``psi``); ``B``: the same of B's
+    (W_B, nb), indexing psi's columns; ``adiag`` (rows,), ``bdiag`` (nb,);
+    ``P``: None or an int8 / float32 (rows, nb) coupling. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/kron_ell.cu`` (or raise):
+    two kernels, ``kron_ell_a`` (A psi_full, into scratch of psi's size)
+    then ``kron_ell_b`` (the rest, and y), each counted in
+    ``launch_count``.
     """
     global launch_count
     psi_full = psi if psi_full is None else psi_full
@@ -224,15 +324,18 @@ def kron_ell(A, B, adiag, bdiag, P, pscale, psi, psi_full=None):
     fn = (lib.qbt_kron_ell_f32 if psi.dtype == torch.float32
           else lib.qbt_kron_ell_f64)
     y = torch.empty_like(psi)
-    (ac, av, acnt), (bc, bv, bcnt) = A, B
+    # scratch for pass 1's sums: nb x (rows rounded up to a 32-byte sector)
+    sector = 32 // psi.element_size()
+    z = torch.empty(psi.shape[1] * (-(-psi.shape[0] // sector) * sector),
+                    dtype=psi.dtype, device=psi.device)
+    sides = [a for side in (A, B)
+             for a in (*(t.data_ptr() for t in side), int(is_compact(side)))]
     p_kind = 0 if P is None else (1 if P.dtype == torch.int8 else 2)
     with torch.cuda.device(psi.device):
-        err = fn(ac.data_ptr(), av.data_ptr(), acnt.data_ptr(),
-                 bc.data_ptr(), bv.data_ptr(), bcnt.data_ptr(),
-                 adiag.data_ptr(), bdiag.data_ptr(),
+        err = fn(*sides, adiag.data_ptr(), bdiag.data_ptr(),
                  None if P is None else P.data_ptr(), p_kind, float(pscale),
                  psi.data_ptr(), psi_full.data_ptr(), y.data_ptr(),
-                 psi.shape[0], psi.shape[1],
+                 z.data_ptr(), psi.shape[0], psi_full.shape[0], psi.shape[1],
                  torch.cuda.current_stream(psi.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kron_ell kernel launch failed: cudaError {err}")
@@ -314,7 +417,8 @@ class KronOp:
         """An engine from its parameter tensors. ``layout="dense"``: ``A``
         the dense A and ``B`` the dense B^T (may be ``A``); ``"ell"``: each
         a (columns, values) pair of the factor's (n, W) ELL (``B`` may be
-        ``A``), stored slot-major with the counts derived here."""
+        ``A``), stored slot-major (:func:`pack_slots`, the form chosen by
+        type and shape) with the counts derived here."""
         if layout == "ell":
             def side(cv, n):
                 cols, vals = cv
@@ -322,8 +426,7 @@ class KronOp:
                 if cols.numel() and not (0 <= int(cols.min())
                                          and int(cols.max()) < n):
                     raise ValueError(f"ELL columns must lie in [0, {n})")
-                return (cols.T.to(torch.int32).contiguous(),
-                        vals.T.contiguous(), _live_count(vals))
+                return pack_slots(cols, vals, n, vals.dtype, vals.device)
 
             Aside = side(A, adiag.shape[0])
             B = Aside if B is A else side(B, bdiag.shape[0])

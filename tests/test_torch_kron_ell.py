@@ -31,11 +31,16 @@ from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.interop import kron_from_numpy
 from quantum_basis_tpu_torch.ops import apply_kron
 from quantum_basis_tpu_torch.ops.apply_kron import (
+    COMPACT_MAX_DIM,
+    COMPACT_MAX_VALUES,
     KronOp,
     _kron_ell_plain,
+    decode_slots,
     ell_arrays,
+    is_compact,
     kron_ell,
     kron_layout,
+    pack_slots,
 )
 from quantum_basis_tpu_torch.parallel.kron_sharded import KronSharded
 
@@ -120,18 +125,218 @@ def test_ell_layout_matches_jax_layouts(name, dt):
 def test_ell_arrays_counts_and_rows():
     _, pt = both("2x2_2_1")
     ell_a, _ = pt._factor_ells()
-    cols, vals, cnt = ell_arrays(ell_a, torch.float32, "cpu")
-    assert cols.dtype == cnt.dtype == torch.int32 and vals.dtype == \
-        torch.float32
-    assert torch.equal(cnt, (ell_a.vals != 0).sum(dim=1).to(torch.int32))
-    # slot-major, and rows past the matrix are zero-count rows
-    assert cols.shape == vals.shape == (ell_a.width, ell_a.n)
-    assert torch.equal(cols.T, ell_a.cols.to(torch.int32))
-    c2, v2, n2 = ell_arrays(ell_a, torch.float64, "cpu", 2, ell_a.n + 3)
-    assert c2.shape == (ell_a.width, ell_a.n + 1)
-    live = ell_a.n - 2
-    assert torch.equal(n2[:live], cnt[2:]) and not n2[live:].any()
-    assert not v2[:, live:].any()
+    for dt in (torch.float64, torch.float32):   # compact, wide
+        slots, vals, cnt = side = ell_arrays(ell_a, dt, "cpu")
+        assert is_compact(side) == (dt == torch.float64)
+        assert slots.dtype == cnt.dtype == torch.int32 and vals.dtype == dt
+        assert torch.equal(cnt, (ell_a.vals != 0).sum(dim=1).to(torch.int32))
+        # slot-major, and rows past the matrix are zero-count rows
+        assert slots.shape == (ell_a.width, ell_a.n)
+        _assert_same_rows(side, ell_a.cols, ell_a.vals.to(dt))
+        c2, v2, n2 = ell_arrays(ell_a, dt, "cpu", 2, ell_a.n + 3)
+        assert c2.shape == (ell_a.width, ell_a.n + 1)
+        live = ell_a.n - 2
+        assert torch.equal(n2[:live], cnt[2:]) and not n2[live:].any()
+        assert not decode_slots((c2, v2, n2))[1][:, live:].any()
+
+
+def _row_sorted(cols, vals, cnt):
+    """Each row's live (column, value) pairs sorted, padding last as
+    (-1, 0): (n, W) numpy arrays."""
+    cols, vals = np.asarray(cols, np.int64).copy(), np.asarray(vals).copy()
+    pad = np.arange(cols.shape[1])[None, :] >= np.asarray(cnt)[:, None]
+    assert not vals[pad].any()
+    cols[pad] = np.iinfo(np.int64).max
+    order = np.lexsort((vals, cols), axis=1)
+    return (np.take_along_axis(cols, order, 1),
+            np.take_along_axis(vals, order, 1))
+
+
+def _assert_same_rows(side, cols, vals):
+    """A side decodes to the (n, W) ELL's rows: each row's live slots the
+    same (column, value) pairs in some order, its padding zero."""
+    got_cols, got_vals = decode_slots(side)
+    cnt = side[2].numpy()
+    gc, gv = _row_sorted(got_cols.T.numpy(), got_vals.T.numpy(), cnt)
+    wc, wv = _row_sorted(cols.numpy(), vals.numpy(), cnt)
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gv, wv)
+
+
+def _random_ell(rng, n, n_cols, W, values=None):
+    """An (n, W) ELL with random counts (live slots packed left, padding
+    0 at column 0); its values drawn from ``values`` when given."""
+    cnt = rng.integers(0, W + 1, n)
+    live = np.arange(W)[None, :] < cnt[:, None]
+    vals = (rng.standard_normal((n, W)) if values is None
+            else rng.choice(values, (n, W)))
+    return (torch.as_tensor(rng.integers(0, n_cols, (n, W)) * live),
+            torch.as_tensor(vals * live))
+
+
+@pytest.mark.parametrize("dt", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["4x2", "2x2_2_1", "random"])
+def test_slot_forms_round_trip(case, dt):
+    """pack_slots then decode_slots gives the factor ELL back, slot by slot,
+    in either form (compact in float64, wide in float32); the counts are
+    one past each row's last live slot."""
+    if case == "random":
+        cols, vals = _random_ell(np.random.default_rng(1), 300, 500, 7,
+                                 values=[-1.5, 0.25, 2.0])
+        n_cols = 500
+    else:
+        ell = both(case)[1]._factor_ells()[0]
+        cols, vals, n_cols = ell.cols, ell.vals, ell.n
+    t_dt = getattr(torch, dt)
+    side = pack_slots(cols, vals, n_cols, t_dt, "cpu")
+    assert is_compact(side) == (dt == "float64")
+    assert side[1].dtype == t_dt
+    slot = torch.arange(1, vals.shape[1] + 1)
+    assert torch.equal(side[2].long(), ((vals != 0) * slot).amax(dim=1))
+    _assert_same_rows(side, cols * (vals != 0), vals.to(t_dt))
+
+
+def _bank_loads(cols, cnt):
+    """Shared-memory wavefronts of the kernel's gathers over one panel: at
+    each slot position, for each quarter-warp (8 consecutive rows), the
+    most distinct rows one bank group (column % 8) holds among its live
+    slots."""
+    n, W = cols.shape
+    total = 0
+    for r0 in range(0, n, 8):
+        c, k_cnt = cols[r0:r0 + 8], cnt[r0:r0 + 8]
+        for k in range(int(k_cnt.max(initial=0))):
+            live = np.unique(c[k_cnt > k, k])
+            total += np.bincount(live % 8, minlength=8).max()
+    return total
+
+
+def test_bank_order_keeps_rows_and_spreads_banks():
+    """pack_slots reorders each row's live slots so that a quarter-warp's
+    gathers spread over the bank groups: every row keeps its entries and
+    its count, padding stays zero, and the wavefronts of the 4x2 factor
+    and of a random ELL fall."""
+    ell = both("4x2")[1]._factor_ells()[0]
+    rand = _random_ell(np.random.default_rng(6), 400, 3000, 12,
+                       values=[1.0, -1.0, 0.5])
+    for cols, vals, n_cols in ((ell.cols, ell.vals, ell.n),
+                               (*rand, 3000)):
+        cols = cols * (vals != 0)
+        side = pack_slots(cols, vals, n_cols, torch.float64, "cpu")
+        _assert_same_rows(side, cols, vals.double())
+        cnt = side[2].numpy()
+        before = _bank_loads(cols.numpy(), cnt)
+        after = _bank_loads(decode_slots(side)[0].T.numpy(), cnt)
+        assert after < before
+
+
+def test_value_table_holds_each_value_once():
+    """The compact table (float64) is sorted and holds each distinct value
+    of the slots (padding's 0 included) once; the 4x2 Hubbard factor's
+    hoppings are -1 and 1, and -2 and 2 along the two-site direction,
+    where both bonds join the same pair of sites. A float32 side holds
+    its values slot by slot."""
+    ell = both("4x2")[1]._factor_ells()[0]
+    slots, table, _ = ell_arrays(ell, torch.float64, "cpu")
+    assert table.dtype == torch.float64 and table.dim() == 1
+    assert torch.equal(table, torch.unique(ell.vals.double()))
+    assert table.tolist() == [-2.0, -1.0, 0.0, 1.0, 2.0]
+    idx = (slots >> 16) & 0xFFFF
+    assert int(idx.max()) < table.numel()
+    slots32, vals32, _ = ell_arrays(ell, torch.float32, "cpu")
+    assert vals32.shape == slots32.shape == (ell.width, ell.n)
+    cols, vals = _random_ell(np.random.default_rng(2), 200, 200, 5,
+                             values=[3.0, -2.0, 3.0, 7.5])
+    _, table, _ = pack_slots(cols, vals, 200, torch.float64, "cpu")
+    assert table.tolist() == [-2.0, 0.0, 3.0, 7.5]
+
+
+def test_wide_form_by_shape():
+    """The compact form (float64) holds dims up to 65,535 and 65,536
+    distinct values; a factor of dim 65,536, or one with more than 65,536
+    distinct values, takes the wide form, as every float32 factor does."""
+    rng = np.random.default_rng(3)
+    n = COMPACT_MAX_DIM + 1   # 65,536 rows, one slot each, two values
+    cols = torch.as_tensor(rng.integers(0, n, (n, 1)))
+    vals = torch.as_tensor(rng.choice([-1.0, 1.0], (n, 1)))
+    assert not is_compact(pack_slots(cols, vals, n, torch.float64, "cpu"))
+    side = pack_slots(cols[:-1] % (n - 1), vals[:-1], n - 1, torch.float64,
+                      "cpu")
+    assert is_compact(side)
+    assert int(decode_slots(side)[0].max()) == n - 2   # a 16-bit column
+    assert not is_compact(pack_slots(cols[:-1] % (n - 1), vals[:-1], n - 1,
+                                     torch.float32, "cpu"))
+    # 65,536 distinct values fit (the largest index 65,535), 65,537 do not
+    m = COMPACT_MAX_VALUES // 2
+    vals = torch.as_tensor(rng.permutation(2 * m + 1)[:2 * m].reshape(m, 2)
+                           + 1.0)
+    cols = torch.as_tensor(rng.integers(0, m, (m, 2)))
+    side = pack_slots(cols, vals, m, torch.float64, "cpu")
+    assert is_compact(side) and side[1].numel() == COMPACT_MAX_VALUES
+    _assert_same_rows(side, cols, vals)
+    vals[0, 0] = -1.0          # one more value
+    vals = torch.cat([vals, torch.tensor([[-3.0, 0.0]])])
+    cols = torch.cat([cols, torch.tensor([[0, 0]])])
+    side = pack_slots(cols, vals, m + 1, torch.float64, "cpu")
+    assert not is_compact(side) and side[1].shape == (2, m + 1)
+
+
+def _as_wide(side):
+    """A side in the wide slot form: its decoded columns and values."""
+    cols, vals = decode_slots(side)
+    return cols.to(torch.int32), vals.contiguous(), side[2]
+
+
+@pytest.mark.parametrize("dt,form", [("float64", "compact"),
+                                     ("float64", "wide"),
+                                     ("float32", "wide")])
+def test_plain_version_on_both_forms_matches_jax(dt, form):
+    """The plain version on either slot form against the JAX package's
+    layout="ell" apply on every sector: 1e-12 (f64), 5e-6 (f32) of max|y|."""
+    tol = 1e-12 if dt == "float64" else 5e-6
+    t_dt = getattr(torch, dt)
+    for name in sorted(SECTORS):
+        pj, pt = both(name)
+        ell_a, ell_b = pt._factor_ells()
+        A = ell_arrays(ell_a, t_dt, "cpu")
+        B = A if ell_b is None else ell_arrays(ell_b, t_dt, "cpu")
+        if form == "wide" and is_compact(A):
+            wide_a = _as_wide(A)
+            B = wide_a if B is A else _as_wide(B)
+            A = wide_a
+        assert is_compact(A) == is_compact(B) == (form == "compact")
+        op = pt.op(t_dt, layout="ell")
+        x = np.random.default_rng(12).standard_normal(pt.dim)
+        psi = torch.as_tensor(x, dtype=t_dt).view(pt.na, pt.nb)
+        y = _kron_ell_plain(A, B, op._adiag, op._bdiag, op._P, op._pscale,
+                            psi, psi)
+        je = pj.op(_jnp().dtype(dt), layout="ell")
+        _close(y.double().numpy().reshape(-1),
+               _jax_apply(je, x, np.dtype(dt)), tol)
+
+
+def test_cuda_args_take_compact_slots_in_float64_only():
+    """The kernel's argument check (run before a launch) takes a compact
+    side in float64 and refuses one in float32, the form pack_slots never
+    makes there; a wide side passes in both types."""
+    _, pt = both("4x2")
+    ell_a, _ = pt._factor_ells()
+    psi = torch.zeros((pt.na, pt.nb), dtype=torch.float64)
+    compact = ell_arrays(ell_a, torch.float64, "cpu")
+    for dt, side, ok in ((torch.float64, compact, True),
+                         (torch.float64, _as_wide(compact), True),
+                         (torch.float32, ell_arrays(ell_a, torch.float32,
+                                                    "cpu"), True),
+                         (torch.float32, (compact[0], compact[1].float(),
+                                          compact[2]), False)):
+        x = psi.to(dt)
+        diag = torch.zeros(pt.na, dtype=dt)
+        args = (side, side, diag, diag, None, x, x)
+        if ok:
+            apply_kron._check_cuda_args(*args)
+        else:
+            with pytest.raises(ValueError, match="float64 only"):
+                apply_kron._check_cuda_args(*args)
 
 
 def test_plain_version_with_a_gathered_source():
@@ -267,52 +472,88 @@ def test_kron_sharded_ell_on_two_ranks(group, case):
             assert pad.shape == (na_pad - pm.na, pm.nb) and not pad.any()
 
 
+# (nrows, nfull, nb, W): synthetic applies that drive each branch of the
+# kernel's two passes (a staged panel, or gathers from device memory,
+# chosen by the gather axis: psi_full's rows for pass 1, nb for pass 2);
+# psi_full has more rows than psi in each
+CUDA_BRANCH_CASES = {
+    "staged": (37, 9000, 9000, 6),        # pass 1 and 2 staged
+    "global_a": (16, 20_000, 64, 5),      # pass 1 from memory
+    "wide_rows": (5, 7, 30_000, 6),       # pass 2 from memory
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float64", "float32"])
 def test_kernel_matches_plain_on_cuda(dt):
-    """The CUDA kernel against its plain version on the card: Hubbard 4x2
-    (one factor) and the 2x2 (2, 1) sector (two), with and without the
-    coupling, and a synthetic apply with rows too long for the kernel's
-    shared memory; 1e-12 (f64) or 5e-6 (f32) of max|y|."""
+    """The CUDA kernel against its plain version on the card, each side in
+    the slot form of its type (compact in f64, wide in f32) and, in f64,
+    again in the wide form, alone and beside a compact side: Hubbard 4x2
+    (one factor) and the 2x2 (2, 1) sector (two factors), with and without
+    the coupling, and the synthetic applies of CUDA_BRANCH_CASES (the
+    staged branch, pass 1 and pass 2 gathering from device memory;
+    psi_full with more rows than psi; int8 and float32 couplings); 1e-12
+    (f64) or 5e-6 (f32) of max|y|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     t_dt = getattr(torch, dt)
-    tol = 1e-12 if dt == "float64" else 5e-6
+    f64 = t_dt == torch.float64
+    tol = 1e-12 if f64 else 5e-6
     rng = np.random.default_rng(4)
+
+    def check(A, B, adiag, bdiag, P, ps, psi, psi_full):
+        args = (A, B, adiag, bdiag, P, ps, psi, psi_full)
+        before = apply_kron.launch_count
+        yk = kron_ell(*args)
+        assert apply_kron.launch_count == before + 2  # two passes
+        yp = _kron_ell_plain(*args)
+        torch.cuda.synchronize()
+        _close(yk.double().cpu().numpy(), yp.double().cpu().numpy(), tol)
+
+    def pairs(A, B):
+        """(A, B) in the type's form, and in f64 the wide form and the
+        two forms side by side."""
+        assert is_compact(A) == is_compact(B) == f64
+        if not f64:
+            return [(A, B)]
+        wa, wb = _as_wide(A), _as_wide(B)
+        return [(A, B), (wa, wb), (A, wb), (wa, B)]
+
     for lx, ly, nu, nd in ((4, 2, 4, 4), (2, 2, 2, 1)):
         pm = tz.hubbard_factorized(lx, ly, Nup=nu, Ndn=nd, device="cuda")[0]
         op = pm.op(t_dt, layout="ell")
         psi = torch.as_tensor(rng.standard_normal((pm.na, pm.nb)),
                               dtype=t_dt, device="cuda")
-        for P in (op._P, None):
-            args = (op._Aell, op._Bell, op._adiag, op._bdiag, P, op._pscale,
-                    psi)
-            before = apply_kron.launch_count
-            yk = kron_ell(*args)
-            assert apply_kron.launch_count == before + 2  # two passes
-            yp = _kron_ell_plain(*args, psi)
-            torch.cuda.synchronize()
-            _close(yk.double().cpu().numpy(), yp.double().cpu().numpy(), tol)
-    # rows too long for shared memory: one staged f32 row, f64 from global
-    nr, nb, W = 5, 30_000, 6
-
-    def side(n, ncols):
-        cnt = rng.integers(0, W + 1, n)
-        vals = rng.standard_normal((W, n)) * (np.arange(W)[:, None] < cnt)
-        return (torch.as_tensor(rng.integers(0, ncols, (W, n)),
-                                dtype=torch.int32, device="cuda"),
-                torch.as_tensor(vals, dtype=t_dt, device="cuda"),
-                torch.as_tensor(cnt, dtype=torch.int32, device="cuda"))
+        for A, B in pairs(op._Aell, op._Bell):
+            for P in (op._P, None):
+                check(A, B, op._adiag, op._bdiag, P, op._pscale, psi, psi)
 
     def rand(*shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=t_dt,
                                device="cuda")
 
+    for nr, nfull, nb, W in CUDA_BRANCH_CASES.values():
+        psi_full = rand(nfull, nb)
+        lo = (nfull - nr) // 2
+        psi = psi_full[lo:lo + nr].contiguous()
+        ells = (_random_ell(rng, nr, nfull, W, values=[-1.0, 0.5, 2.0]),
+                _random_ell(rng, nb, nb, W, values=[1.0, -0.25]))
+        A, B = (pack_slots(c, v, n, t_dt, "cuda")
+                for (c, v), n in zip(ells, (nfull, nb)))
+        for A, B in pairs(A, B):
+            for P in (torch.as_tensor(rng.integers(-3, 4, (nr, nb)),
+                                      dtype=torch.int8, device="cuda"),
+                      torch.as_tensor(rng.standard_normal((nr, nb)),
+                                      dtype=torch.float32, device="cuda")):
+                check(A, B, rand(nr), rand(nb), P, 1.1, psi, psi_full)
+    # random values over 30,000 rows: more than 65,536 distinct, so the
+    # wide form by shape in f64 too (chip_smoke.py phase 17's wide rows)
+    nr, _, nb, W = CUDA_BRANCH_CASES["wide_rows"]
+    B = pack_slots(*_random_ell(rng, nb, nb, W), nb, t_dt, "cuda")
+    A = pack_slots(*_random_ell(rng, nr, nr, W), nr, t_dt, "cuda")
+    assert not is_compact(B) and is_compact(A) == f64
     psi = rand(nr, nb)
-    args = (side(nr, nr), side(nb, nb), rand(nr), rand(nb), None, 0.0, psi)
-    yk, yp = kron_ell(*args), _kron_ell_plain(*args, psi)
-    torch.cuda.synchronize()
-    _close(yk.double().cpu().numpy(), yp.double().cpu().numpy(), tol)
+    check(A, B, rand(nr), rand(nb), None, 0.0, psi, psi)
 
 
 def test_routing_kron_section_quick():
