@@ -5,8 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises, so the exit code is nonzero):
 1. a CUDA device must be present; prints the card, its power limit and the
    torch/CUDA versions;
-2. builds the kernels (csrc/bsr_spmv.cu, csrc/kron_ell.cu) with nvcc, one
-   process each, both at once;
+2. builds the kernels (csrc/bsr_spmv.cu, csrc/kron_ell.cu,
+   csrc/apply_rows.cu) with nvcc, one process each, all at once;
 3. holds the kernel against its plain PyTorch version on the card, on a
    momentum sector of the 20-site tilted cluster (f32: the shape of the
    kernel's main path, phase 4b), on the
@@ -34,9 +34,11 @@ Phases (any failure raises, so the exit code is nonzero):
    (chain-16: E0 and three correlators; t-J chain-12: the degenerate pair;
    1e-8; both now solved on the window-contraction engine, asserted by
    type), then at dim 2,704,156 the chain L=24 Sz=0 (matrix-free, through
-   eigs_smallest on the sector's matvec, and ELL: E0 equal to 1e-10, H x
-   equal to 1e-12 * max|y|, the residual under the gate, <Sz0 Sz1> = E0/72
-   to 1e-9) and the 24-site kagome Heisenberg Sz=0 sector on the ELL (E0 =
+   locate_E0_lanczos("full"), which the card's table routes to MatvecFull:
+   one apply_rows launch per apply, counted from 0 around the solve; and
+   ELL: E0 equal to 1e-10, H x equal to 1e-12 * max|y|, the residual under
+   the gate, <Sz0 Sz1> = E0/72 to 1e-9 through one scatter_rows launch)
+   and the 24-site kagome Heisenberg Sz=0 sector on the ELL (E0 =
    -10.759897248084 to 1e-8), and the f64 BSR kernel through
    locate_E0_iram(which="repr") with config.prefer_bsr; prints the set-up,
    per-apply and solve times and the peak device memory;
@@ -193,7 +195,9 @@ Phases (any failure raises, so the exit code is nonzero):
    to gloo;
 15. prints the kernel record (launches on the main path: bsr_spmv's in
    phases 4, 5, 10 and 13, kron_ell's in phase 7's 4x4 solve, two per apply,
-   each count set to 0 just before its path and read just after; the worst
+   apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
+   measure_full_static, each count set to 0 just before its path and read
+   just after; the worst
    error against the plain version, the
    kernel's, plain version's and library call's ms and the bound at the
    main path's shape), the card line, and as the last line
@@ -232,6 +236,24 @@ Phases (any failure raises, so the exit code is nonzero):
    for one staged panel (nb = 30,000: pass 2 gathers from device memory, B
    in the wide form by shape in f64 too; f64 and f32) against the plain
    version. Its launches are not counted in the kernel record's.
+18. (after 17, before 15; ``--apply-rows`` runs it alone) the fused row
+   apply (csrc/apply_rows.cu) against its plain versions, 1e-12 * max|y|:
+   apply_rows through MatvecFull on chain-24 Sz=0 (direct index; again with
+   lin and bsearch forced), kagome-24 Sz=0, Hubbard 4x3 (N_up, N_dn) = (6,
+   6) (dim 853,776, slots of two fermions), the DM chain L=24 Sz=0
+   (complex H, complex vector), chain-26 Sz=0 and MatvecSharded on a 1-rank
+   NCCL group; scatter_rows through mopr_x_vec of <Sz0 Sz1> (phase 5's
+   shape), Sz(q) and S^-(q) from Sz=0 into Sz=-1 on chain-24. At chain-24,
+   kagome-24 and chain-26 (and the scatter at <Sz0 Sz1> and Sz(q)) it times
+   the kernel (CUDA events, 9x3), the plain version, the library call (one
+   torch.sparse CSR product of the same matrix, diagonal included, checked
+   against the kernel and used nowhere in the package) and computes the
+   least time the card could take (bytes: each row's label, V, Fodd,
+   diagonal and x read and y written once, the tables, the 32-byte sectors
+   of the index that this run's nonzero images touch; over 3.35 TB/s); then
+   solves chain-26 Sz=0 (dim 10,400,600) through locate_E0_lanczos("full")
+   on MatvecFull and on its ELL: E0 equal to 1e-10, both residuals under
+   the gate. Its launches are not counted in the kernel record's.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -250,16 +272,16 @@ the BSR kernel; phase 11's vrnl growth, skeleton, solve and MatvecVrnl
 applies at depth 14; a KronOp f32 apply at dim 165,636,900 in each
 layout and the 4x4 solve on ProductModel's defaults) and prints each
 window's wall time,
-device-busy time, idle share and its three longest device operations, then
-times the matrix-free apply
-at three row-block budgets; it prints no result line.
+device-busy time, idle share and its three longest device operations; it
+prints no result line.
 ``python3 chip_smoke.py --hubbard4x4`` runs phase 7 alone with the full 4x4
 solve, whatever its projected time; ``--mesh`` runs phase 12 alone (after
 the chain-24 ELL solve it compares with); ``--gaps`` runs the Hubbard gaps
 driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 -20.497352266554) with a temporary checkpoint directory, then again, every
 sector resumed from its completion record with no apply and the same gaps;
-``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17; ``--ranks N``
+``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17;
+``--apply-rows`` phase 18; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -686,9 +708,13 @@ def full_goldens(dev):
 
 def full_width(dev, tag, model, sz, matrix_free, maxit):
     """One dim-2,704,156 case. Returns its record; the model keeps the ELL
-    as the sector's matvec, and E0 and the eigenvector of the solve on it."""
+    as the sector's matvec, and E0 and the eigenvector of the solve on it.
+    With ``matrix_free`` the sector is first solved through
+    ``locate_E0_lanczos("full")`` on the card's route, MatvecFull, whose
+    every apply must be one apply_rows launch."""
     from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
-    from quantum_basis_tpu_torch.solvers.restarted import eigs_smallest
+    from quantum_basis_tpu_torch.ops import apply
+    from quantum_basis_tpu_torch.ops.apply import MatvecFull
 
     torch.cuda.reset_peak_memory_stats()
     rec = {"model": tag, "card": card_line()}
@@ -706,13 +732,22 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(dim),
                         device=dev)
     if matrix_free:
-        # locate_E0_lanczos() routes this sector to the contraction engine
-        # (phase 6); the matrix-free solve is the same thick-restart Lanczos
-        # with the same parameters on the sector's own matvec
-        (evals, _), rec["solve_free_s"] = _timed(lambda: eigs_smallest(
-            mv, dim, nev=1, ncv=12, maxit=maxit, seed=1, complex_vec=False))
-        rec["E0_free"] = evals[0]
+        # on the card's table (fullspace_max_blowup 5) the sector (blowup
+        # 6.2) routes to its matrix-free apply: one kernel launch an apply
+        if not isinstance(mv, MatvecFull) or model._fullspace_op(sec):
+            raise AssertionError(f"{tag}: locate_E0_lanczos('full') does not "
+                                 f"route to MatvecFull")
+        apply.launch_count = 0
+        _, rec["solve_free_s"] = _timed(
+            lambda: model.locate_E0_lanczos("full", maxit=maxit))
+        rec["apply_rows_launches"] = apply.launch_count
+        rec["E0_free"] = model.eigenvals_full[0]
         rec["matvecs_free"] = mv.n_applies
+        print(f"check {tag} apply_rows launches {apply.launch_count} = the "
+              f"solve's applies {mv.n_applies}", flush=True)
+        if not 0 < apply.launch_count == mv.n_applies:
+            raise AssertionError(f"{tag}: {apply.launch_count} apply_rows "
+                                 f"launches for {mv.n_applies} applies")
     y_free = mv(x)
     rec["matvec_free_ms"] = cuda_ms(lambda: mv(x), samples=5, per_sample=2)
     ell, rec["ell_build_s"] = _timed(
@@ -747,9 +782,12 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
 
 def full_sector_run(bsr_mod, dev, e0_chain20):
     """Phase 5: the full-sector route through the public Model API. Returns
-    the kernel's launches and the two full-width models for phase 6, as
-    (tag, model, Sz, phase-5 record, golden E0 or None)."""
+    the BSR kernel's launches, the two full-width models for phase 6, as
+    (tag, model, Sz, phase-5 record, golden E0 or None), and the launches
+    of apply_rows (the chain-24 solve) and scatter_rows (its
+    measure_full_static)."""
     from quantum_basis_tpu_torch import config
+    from quantum_basis_tpu_torch.ops import apply
     from torch_zoo import (heisenberg_chain, kagome_heisenberg, sz_pair)
 
     bsr_mod.launch_count = 0
@@ -760,10 +798,18 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
     rec = full_width(dev, "chain24_Sz0", m, ops["Sz"], True, 4000)
     _check("chain24 E0, matrix-free vs ELL", rec["E0_free"], rec["E0_ell"],
            1e-10)
+    apply.scatter_launch_count = 0
     (szsz, t_meas) = _timed(
         lambda: m.measure_full_static(sz_pair(0, 1), 0, 0).real)
-    print(f"chain24 measure_full_static: {t_meas:.4f} s", flush=True)
+    scatters = apply.scatter_launch_count
+    print(f"chain24 measure_full_static: {t_meas:.4f} s, {scatters} "
+          f"scatter_rows launches", flush=True)
+    if scatters != 1:
+        raise AssertionError(f"measure_full_static: {scatters} scatter_rows "
+                             f"launches, not 1")
     _check("chain24 <Sz0 Sz1> = E0 / 72", szsz, rec["E0_ell"] / 72.0, 1e-9)
+    launches_k2 = {"apply_rows": rec["apply_rows_launches"],
+                   "scatter_rows": scatters}
     wide = [("chain24_Sz0", m, ops["Sz"], rec, None)]
 
     m, ops = kagome_heisenberg(2, 4, device=dev)
@@ -800,7 +846,7 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
                              "BSR kernel")
     print("bsr_spmv launches in the full-sector phase:", launches,
           flush=True)
-    return launches, wide
+    return launches, wide, launches_k2
 
 
 def _hx_check(tag, y, y_ref, rel_tol):
@@ -2923,6 +2969,381 @@ def kron_ell_run(dev):
     return out
 
 
+def _k2_args(mv):
+    """apply_rows' arguments of a MatvecFull's whole apply, x left out."""
+    b = mv.basis
+    return (mv.tables, b.index.tables, b.labels_b.view(-1),
+            b.V_b.view(-1, b.space.n_slots), b.fodd,
+            mv.diag_b.view(-1)[: b.n])
+
+
+def _scatter_args(op, src, dst):
+    """scatter_rows' arguments of mopr_x_vec(op, src, dst, x), x left out."""
+    from quantum_basis_tpu_torch.ops.apply import _device_diag, pack_rows
+
+    d = _device_diag(op, src)
+    return (pack_rows(op, src.device), dst.index.tables,
+            src.labels_b.view(-1), src.V_b.view(-1, src.space.n_slots),
+            src.fodd, None if d is None else d.view(-1)[: src.n])
+
+
+def _images(tabs, labels, V, fodd, n, block=1 << 21):
+    """(row, amp * sign, target label) of every nonzero image of the rows
+    0 .. n - 1, block by block (the plain version's helper)."""
+    from quantum_basis_tpu_torch.ops.apply import _row_images
+
+    for i0 in range(0, n, block):
+        i1 = min(i0 + block, n)
+        amp, tgt = _row_images(tabs, labels[i0:i1], V[i0:i1],
+                               None if fodd is None else fodd[i0:i1])
+        keep = amp != 0
+        rows = torch.arange(i0, i1, device=labels.device)[:, None] \
+            .expand_as(tgt)
+        yield rows[keep], amp[keep], tgt[keep]
+
+
+def k2_bound(args, x, n_dst=None):
+    """Least time of one apply_rows call (``n_dst`` None) or scatter_rows
+    call on this card in ms, and which bound it is. Bytes: each row's state
+    read once as its label or its slot values V, whichever is smaller (each
+    is decoded from the other), and only where it is used: by an image, or
+    by the scatter's diagonal check; Fodd (where fermionic), diagonal and x
+    read once, y written once, the tables once, and the 32-byte sectors of
+    the direct index's position table that this run's nonzero images (and,
+    scattering, the diagonal's labels) touch, with the sectors of the
+    destination's labels that the scatter's check reads; over the memory
+    rate. Operations: 2 per nonzero image and vector component (4 with
+    complex amplitudes) and 2 per row, over the float64 peak."""
+    tabs, ix, labels, V, fodd, diag = args
+    if ix.mode != "direct":
+        raise ValueError("the bound counts the direct index's sectors")
+    n = labels.numel() if n_dst is not None else diag.numel()
+    n = min(n, x.numel())
+    comp = 2 if x.is_complex() else 1
+    state = tabs.n_cols or (n_dst is not None and diag is not None)
+    per_row = (min(8, V.shape[1]) if state else 0) \
+        + (8 if fodd is not None and tabs.wmask is not None else 0) \
+        + (8 if diag is not None else 0) + 8 * comp
+    n_out = n if n_dst is None else n_dst
+    tables = sum(t.numel() * t.element_size() for t in (
+        tabs.slots, tabs.strides, tabs.off, tabs.kstr, tabs.dlt, tabs.amp)) \
+        + (0 if tabs.wmask is None else 8 * tabs.wmask.numel())
+    pos = torch.zeros(-(-ix.label_space // 4), dtype=torch.bool,
+                      device=x.device)
+    lab = torch.zeros(-(-ix.n // 4), dtype=torch.bool, device=x.device)
+    images = 0
+    for _, amp, tgt in _images(tabs, labels, V, fodd, n):
+        images += tgt.numel()
+        t = tgt.clamp(0, ix.label_space - 1)
+        pos[t // 4] = True
+        if n_dst is not None:
+            lab[ix.t0[t] // 4] = True
+    if n_dst is not None and diag is not None:
+        pos[labels[:n] // 4] = True
+        lab[ix.t0[labels[:n]] // 4] = True
+    nbytes = (per_row * n + 8 * comp * n_out + tables
+              + 32 * int(pos.sum()) + 32 * int(lab.sum()))
+    flops = (4 if tabs.is_complex else 2) * comp * images + 2 * comp * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _csr(rows, cols, vals, shape):
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape) \
+        .coalesce().to_sparse_csr()
+
+
+def k2_library(args, x, n_dst=None):
+    """(ms, y) of one ``torch.sparse`` CSR product computing the same
+    function as the kernel on the same vector: the sector's H (gather, from
+    the plain version's images, conjugated) or O (scatter, the images the
+    destination holds), diagonal included; or (None, None) where this
+    PyTorch has no such product. Timed only: nothing in the package calls
+    it."""
+    tabs, ix, labels, V, fodd, diag = args
+    n = diag.numel() if n_dst is None else labels.numel()
+    n = min(n, x.numel())
+    R, C, A = [], [], []
+    for rows, amp, tgt in _images(tabs, labels, V, fodd, n):
+        j = ix.t0[tgt.clamp(0, ix.label_space - 1)] if ix.mode == "direct" \
+            else None
+        if n_dst is not None:    # the images the destination holds
+            ok = ix.labels[j] == tgt
+            rows, j, amp = j[ok], rows[ok], amp[ok]
+        else:                    # row i of H is the conjugate
+            amp = amp.conj()
+        R.append(rows)
+        C.append(j)
+        A.append(amp)
+    dt = x.dtype if not tabs.is_complex else torch.complex128
+    if diag is not None:
+        rows = cols = torch.arange(n, device=x.device)
+        d = diag[:n]
+        if n_dst is not None:
+            j = ix.t0[labels[:n]]
+            ok = ix.labels[j] == labels[:n]
+            rows, cols, d = j[ok], cols[ok], d[ok]
+        R.append(rows)
+        C.append(cols)
+        A.append(d)
+    shape = (n if n_dst is None else n_dst, n)
+    try:
+        M = _csr(torch.cat(R), torch.cat(C), torch.cat([a.to(dt) for a in A]),
+                 shape)
+        xx = x[:n].to(dt if x.is_complex() or dt.is_complex else x.dtype)
+        y = M @ xx
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library call: {str(e).splitlines()[0]}", flush=True)
+        return None, None
+    return cuda_ms(lambda: M @ xx, samples=5, per_sample=2), y
+
+
+def k2_check(tag, got, want, out, key="max_abs_err"):
+    """Kernel against plain version, 1e-12 of max|y|; keeps the worst
+    absolute error in out[key]."""
+    torch.cuda.synchronize()
+    out[key] = max(out.get(key, 0.0), float((got - want).abs().max()))
+    _hx_check(f"18 {tag}: kernel vs plain", got, want, 1e-12)
+
+
+def k2_gather_case(tag, mv, out, vecs=("real", "complex"), time_it=False):
+    """apply_rows of one MatvecFull against its plain version; with
+    ``time_it`` its record (kernel, plain, library, bound)."""
+    from quantum_basis_tpu_torch.ops import apply
+    from quantum_basis_tpu_torch.ops.apply import _apply_rows_plain
+
+    args = _k2_args(mv)
+    n = mv.n
+    rng = np.random.default_rng(18)
+    rec = {"case": tag, "dim": n, "index_mode": args[1].mode,
+           "image_columns": mv.tables.n_cols}
+    for vec in vecs:
+        x = torch.as_tensor(rng.standard_normal(n), device=mv.device)
+        if vec == "complex":
+            x = torch.complex(x, torch.as_tensor(rng.standard_normal(n),
+                                                 device=mv.device))
+        before = apply.launch_count
+        y = mv(x)
+        if apply.launch_count != before + 1:
+            raise AssertionError(f"18 {tag}: MatvecFull made "
+                                 f"{apply.launch_count - before} launches")
+        yp = _apply_rows_plain(*args, x, 0, n, n)
+        k2_check(f"{tag} {vec} apply_rows", y, yp, out)
+        if time_it and vec == "real":
+            rec["ms"] = cuda_ms(lambda: mv(x), samples=9, per_sample=3)
+            rec["plain_ms"] = cuda_ms(
+                lambda: _apply_rows_plain(*args, x, 0, n, n), samples=3,
+                per_sample=1)
+            rec["bound_ms"], rec["bound_by"] = k2_bound(args, x)
+            rec["library_ms"], yl = k2_library(args, x)
+            if yl is not None:
+                _hx_check(f"18 {tag}: library CSR product vs kernel", yl, y,
+                          1e-12)
+            del yl
+        del x, y, yp
+    print("apply_rows", json.dumps(rec), flush=True)
+    return rec
+
+
+def k2_scatter_case(tag, op, src, dst, out, x, time_it=False):
+    """scatter_rows through mopr_x_vec against its plain version."""
+    from quantum_basis_tpu_torch.ops import apply
+    from quantum_basis_tpu_torch.ops.apply import (_scatter_rows_plain,
+                                                   mopr_x_vec, scatter_rows)
+
+    args = _scatter_args(op, src, dst)
+    before = apply.scatter_launch_count
+    y = mopr_x_vec(op, src, dst, x)
+    if apply.scatter_launch_count != before + 1:
+        raise AssertionError(f"18 {tag}: mopr_x_vec made "
+                             f"{apply.scatter_launch_count - before} "
+                             f"launches")
+    xx = x.to(y.dtype)
+    yp = _scatter_rows_plain(*args, xx, src.n)
+    k2_check(f"{tag} scatter_rows", y, yp, out, "scatter_max_abs_err")
+    rec = {"case": tag, "src_dim": src.n, "dst_dim": dst.n,
+           "image_columns": args[0].n_cols}
+    if time_it:
+        # the kernel on the packed arguments, as the plain version and the
+        # library are timed; mopr_x_vec also packs the tables and evaluates
+        # the diagonal at every call
+        rec["ms"] = cuda_ms(lambda: scatter_rows(*args, xx, src.n),
+                            samples=9, per_sample=3)
+        rec["mopr_x_vec_ms"] = cuda_ms(lambda: mopr_x_vec(op, src, dst, x),
+                                       samples=5, per_sample=2)
+        rec["plain_ms"] = cuda_ms(
+            lambda: _scatter_rows_plain(*args, xx, src.n), samples=3,
+            per_sample=1)
+        rec["bound_ms"], rec["bound_by"] = k2_bound(args, xx, dst.n)
+        rec["library_ms"], yl = k2_library(args, xx, dst.n)
+        if yl is not None:
+            _hx_check(f"18 {tag}: library CSR product vs kernel", yl, y,
+                      1e-12)
+    print("scatter_rows", json.dumps(rec), flush=True)
+    return rec
+
+
+def k2_sharded(dev, model, x, out):
+    """MatvecSharded at P = 1 (a 1-rank NCCL group in this process, as in
+    phase 12a): one apply_rows launch over the rank's rows against the plain
+    version and the sector's own apply."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from quantum_basis_tpu_torch.ops import apply
+    from quantum_basis_tpu_torch.ops.apply import _apply_rows_plain
+    from quantum_basis_tpu_torch.parallel import (MatvecSharded, basis_mesh,
+                                                  init_distributed)
+
+    sec = model.sec_full[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        mesh = basis_mesh(device=dev)
+        mvs = MatvecSharded(model.compiled_Ham, sec.dbasis, mesh)
+        xs = mvs.pad(x)
+        before = apply.launch_count
+        ys = mvs(xs)
+        if apply.launch_count != before + 1:
+            raise AssertionError("18 MatvecSharded: not one launch")
+        b = sec.dbasis
+        yp = _apply_rows_plain(mvs.tables, b.index.tables,
+                               b.labels_b.view(-1),
+                               b.V_b.view(-1, b.space.n_slots), b.fodd,
+                               mvs._diag, mesh.all_gather(xs), mvs._row0,
+                               mvs._rows, mvs.n)
+        k2_check("chain24 MatvecSharded P=1", ys, yp, out)
+        _hx_check("18 chain24 MatvecSharded P=1 vs MatvecFull",
+                  mvs.unpad(ys), sec.matvec(x), 1e-12)
+        if bool((ys[mvs.n:] != 0).any()):
+            raise AssertionError("18 MatvecSharded: padding rows not zero")
+        out["sharded_ms"] = cuda_ms(lambda: mvs(xs), samples=5, per_sample=2)
+        print("apply_rows", json.dumps({
+            "case": "chain24_Sz0 MatvecSharded P=1", "rows": mvs._rows,
+            "ms": out["sharded_ms"]}), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def apply_rows_run(dev):
+    """Phase 18: the fused row apply (csrc/apply_rows.cu) against its plain
+    versions on the card, 1e-12 of max|y|: apply_rows on chain-24 Sz=0
+    (direct, and with lin and bsearch forced), kagome-24 Sz=0, Hubbard 4x3
+    (6, 6) (two fermions a slot), the DM chain L=24 (complex H), chain-26
+    Sz=0 and MatvecSharded at P = 1; scatter_rows through mopr_x_vec of
+    <Sz0 Sz1> (phase 5's shape), Sz(q) and S^-(q) into Sz=-1 on chain-24.
+    Times kernel, plain version, library and bound at chain-24, kagome-24
+    and chain-26, and for the scatter at the first two operators; solves
+    chain-26 Sz=0 on the matrix-free route and on its ELL (E0 1e-10,
+    residuals under the gate). Returns the kernel record's numbers."""
+    from quantum_basis_tpu_torch.basis.index import BasisIndex
+    from quantum_basis_tpu_torch.basis.lin_table import digit_split
+    from quantum_basis_tpu_torch.ops.apply import DeviceBasis, MatvecFull
+    from torch_zoo import (SP_HALF, dm_chain, fermi_hubbard_square,
+                           heisenberg_chain, kagome_heisenberg, sz_pair)
+    from quantum_basis_tpu_torch import Mopr, Opr
+
+    t18 = time.perf_counter()
+    out = {}
+    m, ops = heisenberg_chain(24, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    sec = m.sec_full[0]
+    out["apply_rows"] = k2_gather_case("chain24_Sz0", sec.matvec, out,
+                                       time_it=True)
+    for mode in ("lin", "bsearch"):
+        ix = BasisIndex(sec.labels, m.space.label_space, mode=mode,
+                        lin_split=digit_split(m.space), device=dev)
+        if ix.mode != mode:
+            raise AssertionError(f"18 chain24: index mode {ix.mode}")
+        db = DeviceBasis(m.space, sec.labels, ix, device=dev)
+        k2_gather_case(f"chain24_Sz0_{mode}", MatvecFull(m.compiled_Ham, db),
+                       out, vecs=("real",))
+        del db, ix
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(sec.dim),
+                        device=dev)
+    x /= torch.linalg.vector_norm(x)
+    L = 24
+    out["scatter_rows"] = k2_scatter_case(
+        "chain24 <Sz0 Sz1>", m.compile_op(sz_pair(0, 1)), sec.dbasis,
+        sec.dbasis, out, x, time_it=True)
+    q = 2 * np.pi * 5 / L
+    szq, smq = Mopr(), Mopr()
+    for s in range(L):
+        ph = np.exp(1j * q * s) / np.sqrt(L)
+        szq += ph * Opr(s, 0, False, SP_HALF["Sz"])
+        smq += ph * Opr(s, 0, False, SP_HALF["Sm"])
+    out["scatter_szq"] = k2_scatter_case(
+        "chain24 Sz(q)", m.compile_op(szq), sec.dbasis, sec.dbasis, out, x,
+        time_it=True)
+    m.enumerate_basis_full([ops["Sz"]], [-1.0], sec=1)
+    k2_scatter_case("chain24 S-(q) Sz=0 -> Sz=-1", m.compile_op(smq),
+                    sec.dbasis, m.sec_full[1].dbasis, out, x)
+    k2_sharded(dev, m, x, out)
+    del m, sec, x
+    torch.cuda.empty_cache()
+
+    m, ops = kagome_heisenberg(2, 4, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    out["kagome24"] = k2_gather_case("kagome24_Sz0", m.sec_full[0].matvec,
+                                     out, time_it=True)
+    del m
+    m, ops = fermi_hubbard_square(4, 3, device=dev)
+    m.enumerate_basis_full([ops["Nup"], ops["Ndn"]], [6.0, 6.0])
+    if m.sec_full[0].dim != 853776 or m.sec_full[0].dbasis.fodd is None:
+        raise AssertionError("18 Hubbard 4x3 (6, 6): dim or fodd")
+    k2_gather_case("hubbard4x3_6_6", m.sec_full[0].matvec, out)
+    del m
+    m, ops = dm_chain(24, 0.3, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    if not m.sec_full[0].matvec.is_complex:
+        raise AssertionError("18 DM chain: H not complex")
+    k2_gather_case("dm_chain24_Sz0", m.sec_full[0].matvec, out,
+                   vecs=("complex",))
+    del m
+    torch.cuda.empty_cache()
+
+    m, ops = heisenberg_chain(26, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    sec = m.sec_full[0]
+    mv = sec.matvec
+    if sec.dbasis.index.mode != "direct" or m._fullspace_op(sec) is not None:
+        raise AssertionError("18 chain26: not direct, or not matrix-free")
+    out["chain26"] = rec = k2_gather_case("chain26_Sz0", mv, out,
+                                          time_it=True)
+    n0 = mv.n_applies
+    _, rec["solve_free_s"] = _timed(
+        lambda: m.locate_E0_lanczos("full", maxit=4000))
+    rec["matvecs_free"] = mv.n_applies - n0
+    e0_free = m.eigenvals_full[0]
+    v = m.eigenvecs_full[0]
+    rec["residual_free"] = float(torch.linalg.vector_norm(mv(v) - e0_free * v))
+    ell, rec["ell_build_s"] = _timed(
+        lambda: m.generate_Ham_sparse_full(check="probe"))
+    _, rec["solve_ell_s"] = _timed(
+        lambda: m.locate_E0_lanczos("full", maxit=4000))
+    e0 = rec["E0_ell"] = m.eigenvals_full[0]
+    rec["E0_free"] = e0_free
+    v = m.eigenvecs_full[0]
+    rec["residual"] = float(torch.linalg.vector_norm(ell(v) - e0 * v))
+    rec["ell_ms"] = cuda_ms(lambda: ell(v), samples=5, per_sample=2)
+    gate = max(1e3 * 2e-12 * abs(e0), 5e-10)
+    print("apply_rows", json.dumps(rec), flush=True)
+    _check("18 chain26 E0, matrix-free vs ELL", e0_free, e0, 1e-10)
+    for key in ("residual_free", "residual"):
+        if not rec[key] < gate:
+            raise AssertionError(f"18 chain26: {key} {rec[key]:.3e} over "
+                                 f"the gate {gate:.3e}")
+    del m, sec, mv, ell, v
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+    return out
+
+
 def _spy(module, name, seen, tag):
     """Wrap module.name so that each call appends ``tag(*args, **kw)`` to
     ``seen``; returns the original for the caller to put back."""
@@ -3267,28 +3688,12 @@ def profile_windows(dev):
     del pm
     torch.cuda.empty_cache()
 
-    # the matrix-free apply against the row-block budget
-    from quantum_basis_tpu_torch import config
-
-    for shift in (24, 27, 30):
-        with config.pinned(apply_block_budget=1 << shift):
-            m, ops = heisenberg_chain(24, device=dev)
-            m.enumerate_basis_full([ops["Sz"]], [0.0])
-            mv = m.sec_full[0].matvec
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: mv(x), samples=5, per_sample=2)
-            print("budget", json.dumps({
-                "apply_block_budget": f"1<<{shift}",
-                "block_rows": mv.basis.block_rows,
-                "n_blocks": mv.basis.n_blocks, "matvec_free_ms": ms,
-                "peak_bytes": torch.cuda.max_memory_allocated()}),
-                flush=True)
-            del m, mv
 
 
 def main() -> int:
-    """Phases 1-13, 16, 17 and 15 on one card; or one mode: ``--profile``,
-    ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--gaps``,
+    """Phases 1-13, 16-18 and 15 on one card; or one mode: ``--profile``,
+    ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--apply-rows``
+    (phase 18), ``--gaps``,
     ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
@@ -3331,6 +3736,12 @@ def main() -> int:
         apply_kron.build_library(verbose=True)
         kron_ell_run("cuda")
         return 0
+    if "--apply-rows" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import apply
+
+        apply.build_library(verbose=True)
+        apply_rows_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -3350,14 +3761,16 @@ def main() -> int:
         print(f"chain24 ELL E0 {m.eigenvals_full[0]!r}", flush=True)
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
-    from quantum_basis_tpu_torch.ops import apply_kron, cuda_build
+    from quantum_basis_tpu_torch.ops import apply, apply_kron, cuda_build
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
-    cuda_build.build([bsr_mod._SRC, apply_kron._SRC], verbose=True)
+    cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC],
+                     verbose=True)
     bsr_mod.build_library()
     apply_kron.build_library()
+    apply.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     dev = "cuda"
@@ -3365,7 +3778,7 @@ def main() -> int:
     with jax_bounds("fullspace_repr_max_blowup", "bsr_blowup_max",
                     "bsr_stored_max_bytes"):
         launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
-    launches5, wide = full_sector_run(bsr_mod, dev, e0_chain20)
+    launches5, wide, launches_k2 = full_sector_run(bsr_mod, dev, e0_chain20)
     launches += launches5
     with jax_bounds("fullspace_max_blowup", "fullspace_mixed_max_blowup"):
         engines_run(dev, wide)
@@ -3415,6 +3828,10 @@ def main() -> int:
     kron = kron_ell_run(dev)
     print(f"phases 1-13, 16, 17: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    k2 = apply_rows_run(dev)
+    print(f"phases 1-13, 16-18: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")
@@ -3443,7 +3860,20 @@ def main() -> int:
         "bound_by": kron["bound_by"],
         "dense_ms": kron["dense_ms"],
         "library_ms": kron["library_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/apply_rows.cu",
+        "replaces": f"quantum_basis_tpu/ops/apply.py:{line}",
+        "launches": launches_k2[name],
+        "max_abs_err": k2[err],
+        "ms": k2[name]["ms"],
+        "plain_ms": k2[name]["plain_ms"],
+        "bound_ms": k2[name]["bound_ms"],
+        "bound_by": k2[name]["bound_by"],
+        "library_ms": k2[name]["library_ms"],
+    } for name, line, err in (("apply_rows", 117, "max_abs_err"),
+                              ("scatter_rows", 242, "scatter_max_abs_err"))]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

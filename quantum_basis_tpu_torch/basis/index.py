@@ -15,11 +15,41 @@ Port of ``quantum_basis_tpu.basis.index`` with its three lookup strategies
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.basis.lin_table import LinTable, LinTableError
+
+
+class IndexTables(NamedTuple):
+    """The device arrays of one index, as a kernel reads them: ``t0`` is the
+    position table (``direct``), ``Ja`` (``lin``, with ``t1`` = ``Jb`` and
+    ``sa`` the split) or the sorted labels (``bsearch``); ``labels`` are the
+    sorted basis labels in every mode (for checked lookups)."""
+
+    mode: str
+    t0: torch.Tensor
+    t1: torch.Tensor | None
+    sa: int
+    label_space: int
+    n: int
+    labels: torch.Tensor
+
+
+def lookup_tables(ix: IndexTables, tgt: torch.Tensor) -> torch.Tensor:
+    """Row indices of target labels (any shape) through ``ix``; a label not
+    in the basis maps to an arbitrary in-range row."""
+    if ix.mode == "direct":
+        return ix.t0[tgt.clamp(0, ix.label_space - 1)]
+    if ix.mode == "lin":
+        t = tgt.clamp(0, ix.label_space - 1)
+        j = ix.t0[t % ix.sa] + ix.t1[t // ix.sa]
+        return j.clamp(0, max(ix.n - 1, 0))
+    idx = torch.searchsorted(ix.t0, tgt.contiguous())
+    return idx.clamp(0, max(ix.n - 1, 0))
 
 
 class BasisIndex:
@@ -66,16 +96,21 @@ class BasisIndex:
             self._pos = torch.as_tensor(pos, device=device)
         self.mode = mode
 
+    @property
+    def tables(self) -> IndexTables:
+        """The arrays :func:`lookup_tables` and the row kernels read."""
+        if self.mode == "direct":
+            t0, t1, sa = self._pos, None, 0
+        elif self.mode == "lin":
+            t0, t1, sa = self._Ja, self._Jb, self._sa
+        else:
+            t0, t1, sa = self.labels, None, 0
+        return IndexTables(self.mode, t0, t1, sa, self.label_space, self.n,
+                           self.labels)
+
     def lookup(self, tgt: torch.Tensor) -> torch.Tensor:
         """Row indices of target labels (any shape); invalid -> arbitrary."""
-        if self.mode == "direct":
-            return self._pos[tgt.clamp(0, self.label_space - 1)]
-        if self.mode == "lin":
-            t = tgt.clamp(0, self.label_space - 1)
-            j = self._Ja[t % self._sa] + self._Jb[t // self._sa]
-            return j.clamp(0, max(self.n - 1, 0))
-        idx = torch.searchsorted(self.labels, tgt.contiguous())
-        return idx.clamp(0, max(self.n - 1, 0))
+        return lookup_tables(self.tables, tgt)
 
     def lookup_checked(self, tgt: torch.Tensor):
         """(indices, valid mask) — valid iff the label is in the basis."""

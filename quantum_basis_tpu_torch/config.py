@@ -190,9 +190,12 @@ ROUTING = {
 #   position table on the device (basis/index.py); larger ones the Lin
 #   tables, else binary search.
 # - apply_block_budget: elements of each (rows, terms, images) intermediate
-#   of the matrix-free full-sector apply (ops/apply.py); a row block holds
-#   budget / (images per row * slots) rows, rounded down to a power of two,
-#   at least 1024.
+#   of the row blocks of a full sector's DeviceBasis (ops/apply.py), which
+#   the ELL build walks, and of the plain versions of the row kernels; a
+#   row block holds budget / (images per row * slots) rows, rounded down to
+#   a power of two, at least 1024. On a CUDA device the matrix-free apply
+#   and mopr_x_vec are one kernel launch each (csrc/apply_rows.cu) and make
+#   no such intermediates.
 # - repr_block_budget: the same for each (rows, terms, images, group)
 #   intermediate of the momentum-sector apply (ops/apply_repr.py), at least
 #   256 rows.
@@ -246,6 +249,8 @@ MEMORY = {
         # every budget; peak 1.31 / 1.36 / 1.47 GB at dim 2,704,156 (2^27 /
         # 2^28 / 2^29). Seconds stop falling at 2^28. chain-24's
         # mopr_x_vec of Sz(q) 13.5 ms at 2^27, 17.4 at 2^28, 29.2 at 2^29.
+        # (Measured on the block-loop apply that csrc/apply_rows.cu has
+        # since replaced on the card.)
         "apply_block_budget": 1 << 28,
         # MatvecRepr per apply (7 samples) at 2^22 / 2^24 / 2^25 / 2^26 /
         # 2^27: kagome-24 k=(0,0) 50.1 / 17.5 / 18.5 / 17.8 / 23.1 ms

@@ -327,7 +327,7 @@ class ProductModel:
             raise NotImplementedError(
                 "measure_product_static takes real factor operators")
         diag = mv.diag_b.reshape(-1)[: s.dim]
-        if not mv.groups:
+        if not mv.tables.n_cols:
             return diag, None
         return diag, _ell_to_dense(build_sparse_full(mv), torch.float64)
 

@@ -2,13 +2,13 @@
 
 Port of ``quantum_basis_tpu.ops.apply`` — the equivalent of
 ``model::MultMv2`` (reference: src/model.cc:941-1121) — with native
-float64/complex128 vectors in place of split (re, im) pairs. Per row block:
+float64/complex128 vectors in place of split (re, im) pairs. Per row:
 
-1. slot values V and fermion counts F are precomputed per state (int8
-   storage, widened per block);
+1. slot values V (int8) and, where fermionic, the mask of slots with an odd
+   fermion count are precomputed per state;
 2. joint columns c = V[slots] . jstrides;
-3. the Jordan-Wigner parities of all terms at once, (F @ W^T) mod 2, in
-   float64 (exact for these small integer sums);
+3. the Jordan-Wigner parity of each term, (F @ W^T) mod 2, as
+   popcount(Fodd & Wmask) mod 2;
 4. the amplitude and label-displacement table lookups, hence the target
    labels of every image, and their row indices through the basis index;
 5. y[i] = diag[i] x[i] + sum conj(amp) * sign * x[j] — the Hermitian
@@ -19,22 +19,44 @@ float64/complex128 vectors in place of split (re, im) pairs. Per row block:
 :func:`mopr_x_vec` is the scatter direction, y[j] += amp * sign * x[i], for
 operators that are not Hermitian or map one sector into another.
 
-Row blocks run in a Python loop; the device's ``apply_block_budget``
-(``config.MEMORY``) bounds the (rows, terms, images) intermediates of one
-block.
+Both directions run on one fused kernel per call over tables packed once
+per operator (:func:`pack_rows`): :func:`apply_rows` and
+:func:`scatter_rows` launch ``csrc/apply_rows.cu`` (built with nvcc for
+sm_90a at first use, loaded with ctypes) on CUDA tensors, and run their
+plain PyTorch versions on CPU tensors; no (rows, terms, images)
+intermediate reaches device memory on the card. The plain versions loop
+over row blocks whose intermediates the device's ``apply_block_budget``
+(``config.MEMORY``) bounds. :func:`_row_images` (the plain versions' images of a
+block of rows) also serves the full sector's ELL build; :func:`_block_images`
+(the same images per term group) serves the other sectors' engines.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
-from quantum_basis_tpu_torch.basis.index import BasisIndex
+from quantum_basis_tpu_torch.basis.index import (BasisIndex, IndexTables,
+                                                 lookup_tables)
 from quantum_basis_tpu_torch.basis.lin_table import digit_split
+from quantum_basis_tpu_torch.ops import cuda_build
 from quantum_basis_tpu_torch.ops.compile import CompiledOperator, compile_diagonal
+
+_SRC = cuda_build.CSRC / "apply_rows.cu"
+
+# Kernel launches since the last reset, one count per wrapper (the CPU plain
+# versions are not counted): lets a run show that its applies went through
+# the kernel. ``launch_count`` is apply_rows', ``scatter_launch_count``
+# scatter_rows'.
+launch_count = 0
+scatter_launch_count = 0
+
+_lib = None
 
 
 def _choose_block(n: int, work_per_row: int, device) -> int:
@@ -49,8 +71,9 @@ class DeviceBasis:
 
     Holds labels (nb, B) int64, decoded slot values V (nb, B, S) int8 and
     fermion counts F (nb, B, S) int8 — shared by the Hamiltonian apply and
-    all measurement operators on the same sector. Padding rows repeat the
-    first label.
+    all measurement operators on the same sector — and, for a fermionic
+    space, ``fodd`` (nb * B,) int64: bit s set where slot s holds an odd
+    fermion count (None otherwise). Padding rows repeat the first label.
     """
 
     def __init__(self, space, labels: np.ndarray, index: BasisIndex | None = None,
@@ -80,11 +103,15 @@ class DeviceBasis:
                                         device=self.device)
         V = space.decode(self.labels_b)                          # (nb, B, S)
         self.V_b = V.to(torch.int8)
+        self.fodd = None
         if space.fermionic:
             Ftab = torch.as_tensor(space.fermion_count_table,
                                    device=self.device)
             self.F_b = Ftab[torch.arange(space.n_slots, device=self.device),
                             V].to(torch.int8)
+            if space.n_slots <= 63:
+                bits = torch.arange(space.n_slots, device=self.device)
+                self.fodd = ((self.F_b.long() & 1) << bits).sum(-1).view(-1)
         else:
             self.F_b = torch.zeros_like(self.V_b)
 
@@ -140,19 +167,315 @@ def _device_diag(compiled: CompiledOperator, dbasis: DeviceBasis):
     return compile_diagonal(compiled.diag_terms, compiled.space)(dbasis.V_b)
 
 
-def apply_block_rows(groups, index, labels, V, F, diag, xb, x):
-    """One block of rows of y = H x (Hermitian row-gather direction).
+# --------------------------------------------------------------------------
+# Term tables packed for the row kernels
+# --------------------------------------------------------------------------
 
-    ``xb`` is this block's slice of x, ``x`` the full vector the gathers
-    read from.
+
+@dataclass
+class RowTables:
+    """One compiled operator's off-diagonal tables, packed for
+    :func:`apply_rows` and :func:`scatter_rows`: one entry per image column
+    e = (group, term, image k) over all groups, E = ``nnz_per_row`` of them.
+
+    Image e of a row with slot values V reads the flat tables at
+    ``idx = off[e] + c * kstr[e]``, c = sum_a V[slots[e, a]] * strides[e, a]
+    (the term's joint column; arities below A pad with stride 0): amplitude
+    ``amp[idx]``, target label ``label + dlt[idx]``, and the Jordan-Wigner
+    sign (-1) ** popcount(Fodd & wmask[e]).
     """
-    y = diag * xb
-    for g in groups:
-        sign, amp, tgt = _block_images(g, labels, V, F)
-        j = index.lookup(tgt)
-        # y[i] += conj(amp) * sign * x[j]
-        y = y + (amp.conj() * sign[..., None] * x[j]).sum(dim=(1, 2))
+
+    slots: torch.Tensor      # (E, A) int32
+    strides: torch.Tensor    # (E, A) int32
+    off: torch.Tensor        # (E,) int32
+    kstr: torch.Tensor       # (E,) int32
+    wmask: torch.Tensor | None   # (E,) int64, None when no term has a string
+    dlt: torch.Tensor        # (M,) int64, the groups' (T, D, K) tables
+    amp: torch.Tensor        # (M,) float64, or complex128 where any is
+
+    @property
+    def n_cols(self) -> int:
+        return int(self.off.numel())
+
+    @property
+    def is_complex(self) -> bool:
+        return self.amp.is_complex()
+
+
+def pack_rows(compiled: CompiledOperator, device) -> RowTables:
+    """Pack the term groups of ``compiled`` into :class:`RowTables` on
+    ``device`` (host numpy, once per operator)."""
+    S = compiled.space.n_slots
+    A = max([g.arity for g in compiled.groups], default=1)
+    slots, strides, off, kstr, wmask, dlt, amp = [], [], [], [], [], [], []
+    base = 0
+    for g in compiled.groups:
+        T, D, K = g.dlt.shape
+        for t in range(T):
+            w = g.W[t].astype(np.int64)
+            if w.any() and S > 63:
+                raise ValueError("Jordan-Wigner masks need at most 63 slots")
+            mask = int(np.sum(w << np.arange(S, dtype=np.int64))) \
+                if w.any() else 0
+            for k in range(K):
+                slots.append(np.pad(g.slots[t], (0, A - g.arity)))
+                strides.append(np.pad(g.jstrides[t], (0, A - g.arity)))
+                off.append(base + t * D * K + k)
+                kstr.append(K)
+                wmask.append(mask)
+        dlt.append(g.dlt.reshape(-1))
+        a = g.amp_re.reshape(-1)
+        amp.append(a if g.amp_im is None else a + 1j * g.amp_im.reshape(-1))
+        base += T * D * K
+    if base >= 2 ** 31:
+        raise ValueError(f"term tables of {base} images exceed int32")
+    E = len(off)
+    cplx = any(np.iscomplexobj(a) for a in amp)
+
+    def t(a, dt, shape):
+        return torch.as_tensor(np.asarray(a, dtype=dt).reshape(shape),
+                               device=device)
+    return RowTables(
+        slots=t(slots, np.int32, (E, A)),
+        strides=t(strides, np.int32, (E, A)),
+        off=t(off, np.int32, (E,)),
+        kstr=t(kstr, np.int32, (E,)),
+        wmask=t(wmask, np.int64, (E,)) if any(wmask) else None,
+        dlt=t(np.concatenate(dlt) if dlt else [], np.int64, (-1,)),
+        amp=t(np.concatenate(amp) if amp else [],
+              np.complex128 if cplx else np.float64, (-1,)))
+
+
+def _parity(v: torch.Tensor) -> torch.Tensor:
+    """popcount(v) & 1 of non-negative int64 values, by xor folding."""
+    for sh in (32, 16, 8, 4, 2, 1):
+        v = v ^ (v >> sh)
+    return v & 1
+
+
+def _row_images(tabs: RowTables, labels, V, fodd):
+    """A block's images: (amp * sign, (rows, E)); target labels (rows, E)."""
+    c = (V.long()[:, tabs.slots] * tabs.strides).sum(-1)
+    idx = tabs.off + c * tabs.kstr
+    amp = tabs.amp[idx]
+    if tabs.wmask is not None:
+        amp = amp * (1 - 2 * _parity(fodd[:, None] & tabs.wmask)).double()
+    return amp, labels[:, None] + tabs.dlt[idx]
+
+
+# --------------------------------------------------------------------------
+# The kernels' plain versions
+# --------------------------------------------------------------------------
+
+
+def _apply_rows_plain(tabs, ix, labels, V, fodd, diag, x, row0, n_out,
+                      n_valid):
+    """Plain PyTorch :func:`apply_rows`: row blocks of at most
+    ``apply_block_budget`` (rows x image columns x arity) elements."""
+    y = torch.zeros(n_out, dtype=x.dtype, device=x.device)
+    rows = max(0, min(n_valid - row0, n_out))
+    B = _choose_block(max(rows, 1), tabs.n_cols * tabs.slots.shape[1],
+                      x.device)
+    for i0 in range(0, rows, B):
+        i1 = min(i0 + B, rows)
+        g0, g1 = row0 + i0, row0 + i1
+        acc = x[g0:g1] * (diag[i0:i1] if diag is not None else 0.0)
+        if tabs.n_cols:
+            amp, tgt = _row_images(tabs, labels[g0:g1], V[g0:g1],
+                                   None if fodd is None else fodd[g0:g1])
+            # y[i] += conj(amp) * sign * x[j]
+            acc = acc + (amp.conj() * x[lookup_tables(ix, tgt)]).sum(-1)
+        y[i0:i1] = acc
     return y
+
+
+def _scatter_rows_plain(tabs, ix, labels, V, fodd, diag, x, n_src):
+    """Plain PyTorch :func:`scatter_rows`, with ``index_add_`` over row
+    blocks of at most ``apply_block_budget`` elements."""
+    y = torch.zeros(ix.n, dtype=x.dtype, device=x.device)
+    if not ix.n:
+        return y
+    B = _choose_block(max(n_src, 1), tabs.n_cols * tabs.slots.shape[1],
+                      x.device)
+    for i0 in range(0, n_src, B):
+        i1 = min(i0 + B, n_src)
+        lab, xb = labels[i0:i1], x[i0:i1]
+        if diag is not None:
+            j = lookup_tables(ix, lab)
+            y.index_add_(0, j, torch.where(ix.labels[j] == lab,
+                                           diag[i0:i1] * xb, 0.0))
+        if tabs.n_cols:
+            amp, tgt = _row_images(tabs, lab, V[i0:i1],
+                                   None if fodd is None else fodd[i0:i1])
+            j = lookup_tables(ix, tgt)
+            # y[j] += amp * sign * x[i]   (no conjugate: forward direction)
+            contrib = torch.where(ix.labels[j] == tgt, amp, 0.0) * xb[:, None]
+            y.index_add_(0, j.reshape(-1), contrib.to(x.dtype).reshape(-1))
+    return y
+
+
+# --------------------------------------------------------------------------
+# The kernels: building, argument checks, wrappers
+# --------------------------------------------------------------------------
+
+
+_MODES = {"direct": 0, "lin": 1, "bsearch": 2}
+
+
+def build_library(verbose: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/apply_rows.cu`` (once per source content, into
+    ``quantum_basis_tpu_torch/_build/``, ops/cuda_build.py) and load it.
+    ``verbose`` prints nvcc's ptxas report when this call builds."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load(_SRC, verbose)
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        tables = [p] * 7 + [i, i, i]
+        index = [i, p, p, q, q, q, p]
+        rows = [p, p, i, p, p, p, i, p]
+        lib.qbt_apply_rows.argtypes = tables + index + rows + [q, q, q, p]
+        lib.qbt_scatter_rows.argtypes = tables + index + rows + [q, p]
+        lib.qbt_apply_rows.restype = lib.qbt_scatter_rows.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_diag, n_rows):
+    dev = x.device
+
+    def need(name, t, dt, shape):
+        if t is None:
+            return
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                             f"shape {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if x.dtype not in (torch.float64, torch.complex128) or x.dim() != 1 \
+            or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float64 or complex128 vector")
+    if tabs.is_complex and not x.is_complex():
+        raise ValueError("complex amplitudes need a complex128 vector")
+    E, A = tabs.slots.shape
+    for name in ("slots", "strides"):
+        need(name, getattr(tabs, name), torch.int32, (E, A))
+    need("off", tabs.off, torch.int32, (E,))
+    need("kstr", tabs.kstr, torch.int32, (E,))
+    need("wmask", tabs.wmask, torch.int64, (E,))
+    M = tabs.dlt.numel()
+    need("dlt", tabs.dlt, torch.int64, (M,))
+    need("amp", tabs.amp, tabs.amp.dtype, (M,))
+    if tabs.amp.dtype not in (torch.float64, torch.complex128):
+        raise ValueError("amp must be float64 or complex128")
+    if ix.mode not in _MODES:
+        raise ValueError(f"unknown index mode {ix.mode!r}")
+    need("index t0", ix.t0, torch.int64, tuple(ix.t0.shape))
+    need("index t1", ix.t1, torch.int64, tuple(ix.t1.shape)
+         if ix.t1 is not None else ())
+    need("index labels", ix.labels, torch.int64, (ix.n,))
+    if ix.mode == "lin" and (ix.t1 is None or ix.sa < 1):
+        raise ValueError("a lin index needs Jb and its split")
+    R = labels.numel()
+    if R < n_rows:
+        raise ValueError(f"{n_rows} rows read, the basis holds {R}")
+    need("labels", labels, torch.int64, (R,))
+    need("V", V, torch.int8, (R, V.shape[-1]))
+    need("fodd", fodd, torch.int64, (R,))
+    need("diag", diag, torch.float64, (n_diag,))
+    if tabs.wmask is not None and fodd is None:
+        raise ValueError("Jordan-Wigner strings need the basis' fodd")
+
+
+def _launch_args(tabs, ix, labels, V, fodd, diag, x, y):
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    E, A = tabs.slots.shape
+    return ([ptr(tabs.slots), ptr(tabs.strides), ptr(tabs.off),
+             ptr(tabs.kstr), ptr(tabs.wmask), ptr(tabs.dlt), ptr(tabs.amp),
+             E, A, int(tabs.is_complex),
+             _MODES[ix.mode], ptr(ix.t0), ptr(ix.t1), ix.sa, ix.label_space,
+             ix.n, ptr(ix.labels),
+             ptr(labels), ptr(V), V.shape[-1], ptr(fodd), ptr(diag), ptr(x),
+             int(x.is_complex()), ptr(y)])
+
+
+def _device_of(x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def apply_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, diag, x,
+               row0: int, n_out: int, n_valid: int) -> torch.Tensor:
+    """Rows ``row0 .. row0 + n_out - 1`` of y = H x (Hermitian row-gather
+    direction), one launch for all of them.
+
+    ``labels`` (R,) int64, ``V`` (R, S) int8 and ``fodd`` (R,) int64 (or
+    None: no fermions) are the basis' flat per-row arrays, ``ix`` its index;
+    ``diag`` (n_out,) float64 or None is the diagonal of the rows computed;
+    ``x`` is the whole vector, indexed by basis row (float64 or
+    complex128). Rows at or past ``n_valid`` come out zero. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (or raise).
+    """
+    global launch_count
+    if _device_of(x) == "cpu":
+        return _apply_rows_plain(tabs, ix, labels, V, fodd, diag, x, row0,
+                                 n_out, n_valid)
+    n_rows = max(0, min(n_valid, row0 + n_out))
+    _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_out, n_rows)
+    if x.numel() < max(n_rows, ix.n):
+        raise ValueError(f"x holds {x.numel()} rows, the apply reads "
+                         f"{max(n_rows, ix.n)}")
+    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
+    if n_out == 0:
+        return y
+    lib = build_library()
+    with torch.cuda.device(x.device):
+        err = lib.qbt_apply_rows(
+            *_launch_args(tabs, ix, labels, V, fodd, diag, x, y),
+            row0, n_out, n_valid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"apply_rows kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return y
+
+
+def scatter_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, diag, x,
+                 n_src: int) -> torch.Tensor:
+    """y = O x in the scatter direction, y[j] += amp * sign * x[i] (no
+    conjugate), over the source rows ``0 .. n_src - 1``; ``ix`` is the
+    destination's index (y has ``ix.n`` rows), images outside it are
+    dropped (``labels[j] == target`` checked), the diagonal ``diag`` (n_src,)
+    or None goes through the same check. The other arguments are the source
+    basis' as in :func:`apply_rows`. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise), whose float64 atomic adds
+    sum in an order that changes from run to run.
+    """
+    global scatter_launch_count
+    if _device_of(x) == "cpu":
+        return _scatter_rows_plain(tabs, ix, labels, V, fodd, diag, x, n_src)
+    _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_src, n_src)
+    if x.numel() < n_src:
+        raise ValueError(f"x holds {x.numel()} rows, {n_src} are read")
+    y = torch.zeros(ix.n, dtype=x.dtype, device=x.device)
+    if n_src == 0 or ix.n == 0:
+        return y
+    lib = build_library()
+    with torch.cuda.device(x.device):
+        err = lib.qbt_scatter_rows(
+            *_launch_args(tabs, ix, labels, V, fodd, diag, x, y), n_src,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_rows kernel launch failed: cudaError "
+                           f"{err}")
+    scatter_launch_count += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# The engines
+# --------------------------------------------------------------------------
 
 
 class MatvecFull:
@@ -161,6 +484,7 @@ class MatvecFull:
     ``H`` must be Hermitian and conserve the sector (every image stays in the
     basis). Use :func:`mopr_x_vec` for general operators. A real H applied to
     a complex vector acts on both parts; a complex H needs a complex vector.
+    One :func:`apply_rows` call per apply.
     """
 
     def __init__(self, compiled: CompiledOperator, dbasis: DeviceBasis):
@@ -169,8 +493,8 @@ class MatvecFull:
         self.n = dbasis.n
         self.device = dbasis.device
         self.dtype = torch.float64
-        self.groups = [_group_device(g, self.device) for g in compiled.groups]
-        self.is_complex = any(g["amp"].is_complex() for g in self.groups)
+        self.tables = pack_rows(compiled, self.device)
+        self.is_complex = self.tables.is_complex
         # precompute the diagonal once (reference: Ham_diag fast path)
         diag = _device_diag(compiled, dbasis)
         self.diag_b = diag if diag is not None else torch.zeros(
@@ -182,14 +506,12 @@ class MatvecFull:
             raise ValueError("complex Hamiltonian applied to real vector")
         x = x.to(torch.complex128 if x.is_complex() else torch.float64)
         b = self.basis
-        xb = b.pad_vec(x)
-        y = torch.empty_like(xb)
-        for k in range(b.n_blocks):
-            y[k] = apply_block_rows(self.groups, b.index, b.labels_b[k],
-                                    b.V_b[k], b.F_b[k], self.diag_b[k],
-                                    xb[k], x)
+        y = apply_rows(self.tables, b.index.tables, b.labels_b.view(-1),
+                       b.V_b.view(-1, b.space.n_slots), b.fodd,
+                       self.diag_b.view(-1)[: self.n], x.contiguous(), 0,
+                       self.n, self.n)
         self.n_applies += 1
-        return y.reshape(-1)[: self.n]
+        return y
 
 
 def mopr_x_vec(compiled: CompiledOperator, src: DeviceBasis, dst: DeviceBasis,
@@ -199,31 +521,15 @@ def mopr_x_vec(compiled: CompiledOperator, src: DeviceBasis, dst: DeviceBasis,
     ``src``/``dst`` may be different sectors (e.g. A_q maps Sz -> Sz-1 for
     dynamical structure factors; reference: model::moprXvec_full,
     src/model.cc:1468-1548). Images that leave ``dst`` are dropped, matching
-    the reference's binary-search miss behavior. The sums go through
-    ``index_add_``, whose order is not fixed on a CUDA device: two runs may
-    differ in the last bits.
+    the reference's binary-search miss behavior. One :func:`scatter_rows`
+    call; on a CUDA device its atomic sums are not in a fixed order: two
+    runs may differ in the last bits.
     """
-    dev = src.device
-    groups = [_group_device(g, dev) for g in compiled.groups]
-    cplx = x.is_complex() or any(g["amp"].is_complex() for g in groups)
-    dtype = torch.complex128 if cplx else torch.float64
-    xb = src.pad_vec(x.to(dtype))
-    diag_b = _device_diag(compiled, src)
-    y = torch.zeros(dst.n, dtype=dtype, device=dev)
-    row_iota = torch.arange(src.block_rows, device=dev)
-    for b in range(src.n_blocks):
-        labels, V, F = src.labels_b[b], src.V_b[b], src.F_b[b]
-        row_ok = (b * src.block_rows + row_iota) < src.n
-        if diag_b is not None:
-            j, valid = dst.index.lookup_checked(labels)
-            y.index_add_(0, j, torch.where(valid & row_ok,
-                                           diag_b[b] * xb[b], 0.0))
-        for g in groups:
-            sign, amp, tgt = _block_images(g, labels, V, F)
-            j, valid = dst.index.lookup_checked(tgt)
-            ok = valid & row_ok[:, None, None]
-            # y[j] += amp * sign * x[i]   (no conjugate: forward direction)
-            contrib = torch.where(ok, amp * sign[..., None], 0.0) \
-                * xb[b][:, None, None]
-            y.index_add_(0, j.reshape(-1), contrib.to(dtype).reshape(-1))
-    return y
+    tabs = pack_rows(compiled, src.device)
+    cplx = x.is_complex() or tabs.is_complex
+    x = x.to(torch.complex128 if cplx else torch.float64).contiguous()
+    diag = _device_diag(compiled, src)
+    return scatter_rows(tabs, dst.index.tables, src.labels_b.view(-1),
+                        src.V_b.view(-1, src.space.n_slots), src.fodd,
+                        None if diag is None else diag.view(-1)[: src.n],
+                        x, src.n)

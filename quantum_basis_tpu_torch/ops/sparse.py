@@ -6,10 +6,10 @@ are stored fixed-width (ELL): ``cols (n, W) int64`` + ``vals (n, W)``
 (complex128, or float64 for a real matrix) + real ``diag (n,)``. The SpMV
 is one gather ``x[cols]`` and a row reduction.
 
-The builds reuse the matrix-free image machinery (``_block_images`` for a
-full sector, ``MatvecRepr.images`` for a momentum sector) in one device pass
-over row blocks; duplicate columns are merged per block on
-the device by :func:`compact_rows`, which folds runs in the same order as
+The builds reuse the matrix-free image machinery (``_row_images`` over a
+full sector's packed tables, ``MatvecRepr.images`` for a momentum sector)
+in one device pass over row blocks; duplicate columns are merged per block
+on the device by :func:`compact_rows`, which folds runs in the same order as
 the JAX package's numpy ``_compact_rows_np``.
 """
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quantum_basis_tpu_torch.ops.apply import _block_images
+from quantum_basis_tpu_torch.ops.apply import _row_images
 
 _VAL_TOL = 1e-14  # drop |v| below this (reference sparse_precision)
 _INVALID = 1 << 62
@@ -96,30 +96,29 @@ def build_sparse_full(matvec) -> EllMatrix:
     """Extract the explicit matrix from a MatvecFull (one device pass).
 
     Row i's entries are H[i, j] = conj(A) * sign over the images of
-    applying each compiled term group to |i> (the same Hermitian row-gather
-    direction as the matrix-free apply). Values are float64 when every term
-    group is real, else complex128.
+    applying the operator's packed tables (``matvec.tables``) to |i> (the
+    same Hermitian row-gather direction as the matrix-free apply). Values
+    are float64 when every term group is real, else complex128.
     """
     db = matvec.basis
     B = db.block_rows
+    tabs = matvec.tables
     vdt = torch.complex128 if matvec.is_complex else torch.float64
     row_iota = torch.arange(B, device=db.device)
     cols_l, vals_l = [], []
     for b in range(db.n_blocks):
         row_ok = ((b * B + row_iota) < db.n)[:, None]
-        cols, vals = [], []
-        for g in matvec.groups:
-            sign, amp, tgt = _block_images(g, db.labels_b[b], db.V_b[b],
-                                           db.F_b[b])
+        if tabs.n_cols:
+            fodd = None if db.fodd is None else db.fodd[b * B:(b + 1) * B]
+            amp, tgt = _row_images(tabs, db.labels_b[b], db.V_b[b], fodd)
             # images always land in the sector
-            j = db.index.lookup(tgt).reshape(B, -1)
-            v = (amp.conj() * sign[..., None]).to(vdt).reshape(B, -1)
-            cols.append(torch.where(row_ok, j, -1))
-            vals.append(torch.where(row_ok, v, 0.0))
-        if not cols:
-            cols = [torch.zeros((B, 0), dtype=torch.int64, device=db.device)]
-            vals = [torch.zeros((B, 0), dtype=vdt, device=db.device)]
-        c, v = compact_rows(torch.cat(cols, dim=1), torch.cat(vals, dim=1))
+            j = db.index.lookup(tgt)
+            cols = torch.where(row_ok, j, -1)
+            vals = torch.where(row_ok, amp.conj().to(vdt), 0.0)
+        else:
+            cols = torch.zeros((B, 0), dtype=torch.int64, device=db.device)
+            vals = torch.zeros((B, 0), dtype=vdt, device=db.device)
+        c, v = compact_rows(cols, vals)
         cols_l.append(c)
         vals_l.append(v)
     return _assemble(cols_l, vals_l, db.n, matvec.diag_b)
