@@ -238,22 +238,30 @@ Phases (any failure raises, so the exit code is nonzero):
    version. Its launches are not counted in the kernel record's.
 18. (after 17, before 15; ``--apply-rows`` runs it alone) the fused row
    apply (csrc/apply_rows.cu) against its plain versions, 1e-12 * max|y|:
-   apply_rows through MatvecFull on chain-24 Sz=0 (direct index; again with
-   lin and bsearch forced), kagome-24 Sz=0, Hubbard 4x3 (N_up, N_dn) = (6,
-   6) (dim 853,776, slots of two fermions), the DM chain L=24 Sz=0
-   (complex H, complex vector), chain-26 Sz=0 and MatvecSharded on a 1-rank
-   NCCL group; scatter_rows through mopr_x_vec of <Sz0 Sz1> (phase 5's
-   shape), Sz(q) and S^-(q) from Sz=0 into Sz=-1 on chain-24. At chain-24,
-   kagome-24 and chain-26 (and the scatter at <Sz0 Sz1> and Sz(q)) it times
-   the kernel (CUDA events, 9x3), the plain version, the library call (one
-   torch.sparse CSR product of the same matrix, diagonal included, checked
-   against the kernel and used nowhere in the package) and computes the
-   least time the card could take (bytes: each row's label, V, Fodd,
-   diagonal and x read and y written once, the tables, the 32-byte sectors
-   of the index that this run's nonzero images touch; over 3.35 TB/s); then
-   solves chain-26 Sz=0 (dim 10,400,600) through locate_E0_lanczos("full")
-   on MatvecFull and on its ELL: E0 equal to 1e-10, both residuals under
-   the gate. Its launches are not counted in the kernel record's.
+   apply_rows through MatvecFull on chain-24 Sz=0 (direct index, int32
+   rows; again with lin and bsearch forced), Sz(q) on chain-24 in the
+   gather direction (every column diagonal, complex), an all-pairs exchange
+   with complex couplings on chain-24 (276 columns, 40 KB of tables: the
+   instance that reads them through the read-only cache), kagome-24 Sz=0,
+   Hubbard 4x3 (N_up, N_dn) = (6, 6) (dim 853,776, slots of two fermions),
+   the DM chain L=24 Sz=0 (complex H, complex vector), the spin-1 chain
+   L=16 Sz=0 (dim 5,196,627; local dim 3, so slot values staged from V),
+   chain-26 Sz=0 and MatvecSharded on a 1-rank NCCL group; scatter_rows
+   through mopr_x_vec of <Sz0 Sz1> (phase 5's shape), Sz(q) and S^-(q)
+   from Sz=0 into Sz=-1 on chain-24. At chain-24, kagome-24, spin-1 and
+   chain-26 (and the scatter at <Sz0 Sz1> and Sz(q)) it times the kernel
+   (CUDA events, 9x3, around the wrapper's call; and the launch's device
+   time alone, torch.profiler over 5 calls), the plain version, the
+   library call (one torch.sparse CSR product of the same matrix, diagonal
+   included, checked against the kernel and used nowhere in the package),
+   at chain-24 the kernel in lin mode, and for the two scatters (every
+   column diagonal) the row's own add as a plain store against an atomic
+   add in turns; and computes the least time the card could take (bytes:
+   each row's label or V, Fodd, diagonal and x read and y written once,
+   the packed tables, the 32-byte sectors of the index that this run's
+   nonzero images touch; over 3.35 TB/s); then solves chain-26 Sz=0 (dim
+   10,400,600) through locate_E0_lanczos("full") on MatvecFull and on its
+   ELL: E0 equal to 1e-10, both residuals under the gate.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -2831,25 +2839,34 @@ def wide_rows_case(dev, dt, nr=5, nb=30_000, W=6, seed=3):
             1.1, t(rng.standard_normal((nr, nb))))
 
 
-def kron_pass_ms(fn, reps=5):
-    """Device ms per launch of each kernel named kron_ell_a / kron_ell_b in
-    a torch.profiler window of ``reps`` calls of fn."""
+def kernel_device_ms(fn, tags, reps=5, windows=3):
+    """Device ms per launch of each kernel whose name holds one of ``tags``
+    in a torch.profiler window of ``reps`` calls of fn (the launch alone,
+    without the host work of its wrapper). The profiler's trace of the card
+    sometimes comes back without the launches' kernels; a tag that no window
+    of ``windows`` saw maps to None ("not measured"): the CUDA-event times
+    beside it stand."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CPU:
-            continue
-        for tag in ("kron_ell_a", "kron_ell_b"):
-            if tag in e.key:
-                out[tag] = e.self_device_time_total / 1e3 / e.count
+    out = {tag: None for tag in tags}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU:
+                continue
+            for tag in tags:
+                if tag in e.key:
+                    out[tag] = e.self_device_time_total / 1e3 / e.count
+        if all(v is not None for v in out.values()):
+            return out
+    print(f"torch.profiler saw no device time of {sorted(tags)} in "
+          f"{windows} windows: not measured", flush=True)
     return out
 
 
@@ -2923,7 +2940,8 @@ def kron_ell_run(dev):
                     rec["wide_form_ms"] = cuda_ms(lambda: kron_ell(*wide),
                                                   samples=9, per_sample=2)
                     del wide
-                rec["passes_ms"] = kron_pass_ms(lambda: kron_ell(*args))
+                rec["passes_ms"] = kernel_device_ms(
+                    lambda: kron_ell(*args), ("kron_ell_a", "kron_ell_b"))
                 rec["plain_ms"] = cuda_ms(
                     lambda: apply_kron._kron_ell_plain(*args, psi),
                     samples=3, per_sample=1)
@@ -2972,8 +2990,8 @@ def kron_ell_run(dev):
 def _k2_args(mv):
     """apply_rows' arguments of a MatvecFull's whole apply, x left out."""
     b = mv.basis
-    return (mv.tables, b.index.tables, b.labels_b.view(-1),
-            b.V_b.view(-1, b.space.n_slots), b.fodd,
+    return (mv.tables, b.index.tables,
+            b.labels_b.view(-1), b.V_b.view(-1, b.space.n_slots), b.fodd,
             mv.diag_b.view(-1)[: b.n])
 
 
@@ -3008,8 +3026,8 @@ def k2_bound(args, x, n_dst=None):
     read once as its label or its slot values V, whichever is smaller (each
     is decoded from the other), and only where it is used: by an image, or
     by the scatter's diagonal check; Fodd (where fermionic), diagonal and x
-    read once, y written once, the tables once, and the 32-byte sectors of
-    the direct index's position table that this run's nonzero images (and,
+    read once, y written once, the packed tables once, and the 32-byte
+    sectors of the direct index that this run's nonzero images (and,
     scattering, the diagonal's labels) touch, with the sectors of the
     destination's labels that the scatter's check reads; over the memory
     rate. Operations: 2 per nonzero image and vector component (4 with
@@ -3025,23 +3043,23 @@ def k2_bound(args, x, n_dst=None):
         + (8 if fodd is not None and tabs.wmask is not None else 0) \
         + (8 if diag is not None else 0) + 8 * comp
     n_out = n if n_dst is None else n_dst
-    tables = sum(t.numel() * t.element_size() for t in (
-        tabs.slots, tabs.strides, tabs.off, tabs.kstr, tabs.dlt, tabs.amp)) \
-        + (0 if tabs.wmask is None else 8 * tabs.wmask.numel())
-    pos = torch.zeros(-(-ix.label_space // 4), dtype=torch.bool,
+    per = 32 // ix.t0.element_size()     # position-table entries a sector
+    check = n_dst is not None            # the destination's labels read
+    pos = torch.zeros(-(-ix.label_space // per), dtype=torch.bool,
                       device=x.device)
     lab = torch.zeros(-(-ix.n // 4), dtype=torch.bool, device=x.device)
     images = 0
     for _, amp, tgt in _images(tabs, labels, V, fodd, n):
         images += tgt.numel()
         t = tgt.clamp(0, ix.label_space - 1)
-        pos[t // 4] = True
-        if n_dst is not None:
-            lab[ix.t0[t] // 4] = True
+        pos[t // per] = True
+        if check:
+            lab[ix.t0[t].long() // 4] = True
     if n_dst is not None and diag is not None:
-        pos[labels[:n] // 4] = True
-        lab[ix.t0[labels[:n]] // 4] = True
-    nbytes = (per_row * n + 8 * comp * n_out + tables
+        pos[labels[:n] // per] = True
+        if check:
+            lab[ix.t0[labels[:n]].long() // 4] = True
+    nbytes = (per_row * n + 8 * comp * n_out + tabs.nbytes
               + 32 * int(pos.sum()) + 32 * int(lab.sum()))
     flops = (4 if tabs.is_complex else 2) * comp * images + 2 * comp * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3066,8 +3084,8 @@ def k2_library(args, x, n_dst=None):
     n = min(n, x.numel())
     R, C, A = [], [], []
     for rows, amp, tgt in _images(tabs, labels, V, fodd, n):
-        j = ix.t0[tgt.clamp(0, ix.label_space - 1)] if ix.mode == "direct" \
-            else None
+        j = ix.t0[tgt.clamp(0, ix.label_space - 1)].long() \
+            if ix.mode == "direct" else None
         if n_dst is not None:    # the images the destination holds
             ok = ix.labels[j] == tgt
             rows, j, amp = j[ok], rows[ok], amp[ok]
@@ -3081,7 +3099,7 @@ def k2_library(args, x, n_dst=None):
         rows = cols = torch.arange(n, device=x.device)
         d = diag[:n]
         if n_dst is not None:
-            j = ix.t0[labels[:n]]
+            j = ix.t0[labels[:n]].long()
             ok = ix.labels[j] == labels[:n]
             rows, cols, d = j[ok], cols[ok], d[ok]
         R.append(rows)
@@ -3110,7 +3128,8 @@ def k2_check(tag, got, want, out, key="max_abs_err"):
 
 def k2_gather_case(tag, mv, out, vecs=("real", "complex"), time_it=False):
     """apply_rows of one MatvecFull against its plain version; with
-    ``time_it`` its record (kernel, plain, library, bound)."""
+    ``time_it`` its record (kernel, plain, library, bound), with
+    ``time_it="kernel"`` the kernel's time alone."""
     from quantum_basis_tpu_torch.ops import apply
     from quantum_basis_tpu_torch.ops.apply import _apply_rows_plain
 
@@ -3118,7 +3137,8 @@ def k2_gather_case(tag, mv, out, vecs=("real", "complex"), time_it=False):
     n = mv.n
     rng = np.random.default_rng(18)
     rec = {"case": tag, "dim": n, "index_mode": args[1].mode,
-           "image_columns": mv.tables.n_cols}
+           "image_columns": mv.tables.n_cols, "bits": mv.tables.bits,
+           "tables_bytes": mv.tables.nbytes}
     for vec in vecs:
         x = torch.as_tensor(rng.standard_normal(n), device=mv.device)
         if vec == "complex":
@@ -3131,8 +3151,11 @@ def k2_gather_case(tag, mv, out, vecs=("real", "complex"), time_it=False):
                                  f"{apply.launch_count - before} launches")
         yp = _apply_rows_plain(*args, x, 0, n, n)
         k2_check(f"{tag} {vec} apply_rows", y, yp, out)
-        if time_it and vec == "real":
+        if time_it and vec == vecs[0]:
             rec["ms"] = cuda_ms(lambda: mv(x), samples=9, per_sample=3)
+            rec["device_ms"] = kernel_device_ms(
+                lambda: mv(x), ("apply_rows_kernel",))["apply_rows_kernel"]
+        if time_it is True and vec == vecs[0]:
             rec["plain_ms"] = cuda_ms(
                 lambda: _apply_rows_plain(*args, x, 0, n, n), samples=3,
                 per_sample=1)
@@ -3171,6 +3194,9 @@ def k2_scatter_case(tag, op, src, dst, out, x, time_it=False):
         # the diagonal at every call
         rec["ms"] = cuda_ms(lambda: scatter_rows(*args, xx, src.n),
                             samples=9, per_sample=3)
+        rec["device_ms"] = kernel_device_ms(
+            lambda: scatter_rows(*args, xx, src.n),
+            ("scatter_rows_kernel",))["scatter_rows_kernel"]
         rec["mopr_x_vec_ms"] = cuda_ms(lambda: mopr_x_vec(op, src, dst, x),
                                        samples=5, per_sample=2)
         rec["plain_ms"] = cuda_ms(
@@ -3181,6 +3207,29 @@ def k2_scatter_case(tag, op, src, dst, out, x, time_it=False):
         if yl is not None:
             _hx_check(f"18 {tag}: library CSR product vs kernel", yl, y,
                       1e-12)
+        if args[0].diag_only:
+            # the row's own add as the plain store that diag_only takes
+            # against an atomic add, in turns: store, atomic, atomic, store
+            import dataclasses
+
+            a2 = (dataclasses.replace(args[0], diag_only=False),) + args[1:]
+            k2_check(f"{tag} scatter_rows, atomic own add",
+                     scatter_rows(*a2, xx, src.n), yp, out,
+                     "scatter_max_abs_err")
+
+            def store():
+                return scatter_rows(*args, xx, src.n)
+
+            def atomic():
+                return scatter_rows(*a2, xx, src.n)
+            t = [cuda_ms(f, samples=9, per_sample=3)
+                 for f in (store, atomic, atomic, store)]
+            rec["own_add_turns_ms"] = {"store": [t[0], t[3]],
+                                       "atomic": [t[1], t[2]]}
+            rec["own_add_device_ms"] = {
+                k: kernel_device_ms(f, ("scatter_rows_kernel",))[
+                    "scatter_rows_kernel"]
+                for k, f in (("store", store), ("atomic", atomic))}
     print("scatter_rows", json.dumps(rec), flush=True)
     return rec
 
@@ -3233,16 +3282,21 @@ def k2_sharded(dev, model, x, out):
 def apply_rows_run(dev):
     """Phase 18: the fused row apply (csrc/apply_rows.cu) against its plain
     versions on the card, 1e-12 of max|y|: apply_rows on chain-24 Sz=0
-    (direct, and with lin and bsearch forced), kagome-24 Sz=0, Hubbard 4x3
-    (6, 6) (two fermions a slot), the DM chain L=24 (complex H), chain-26
-    Sz=0 and MatvecSharded at P = 1; scatter_rows through mopr_x_vec of
-    <Sz0 Sz1> (phase 5's shape), Sz(q) and S^-(q) into Sz=-1 on chain-24.
-    Times kernel, plain version, library and bound at chain-24, kagome-24
-    and chain-26, and for the scatter at the first two operators; solves
-    chain-26 Sz=0 on the matrix-free route and on its ELL (E0 1e-10,
-    residuals under the gate). Returns the kernel record's numbers."""
+    (direct, and with lin and bsearch forced), Sz(q) in the gather
+    direction (diagonal columns), an all-pairs exchange whose tables exceed
+    TABLES_SHARED_MAX, kagome-24 Sz=0, Hubbard 4x3 (6, 6) (two fermions a
+    slot), the DM chain L=24 (complex H), the spin-1 chain L=16 (staged
+    V), chain-26 Sz=0 and MatvecSharded at P = 1; scatter_rows through
+    mopr_x_vec of <Sz0 Sz1> (phase 5's shape), Sz(q) and S^-(q) into Sz=-1
+    on chain-24. Times kernel, plain version, library and bound at
+    chain-24, kagome-24, spin-1 and chain-26, and for the scatter at the
+    first two operators (with the own add stored and added in turns);
+    solves chain-26 Sz=0 on the matrix-free route and
+    on its ELL (E0 1e-10, residuals under the gate). Returns the kernel
+    record's numbers."""
     from quantum_basis_tpu_torch.basis.index import BasisIndex
     from quantum_basis_tpu_torch.basis.lin_table import digit_split
+    from quantum_basis_tpu_torch.ops import apply
     from quantum_basis_tpu_torch.ops.apply import DeviceBasis, MatvecFull
     from torch_zoo import (SP_HALF, dm_chain, fermi_hubbard_square,
                            heisenberg_chain, kagome_heisenberg, sz_pair)
@@ -3261,22 +3315,50 @@ def apply_rows_run(dev):
         if ix.mode != mode:
             raise AssertionError(f"18 chain24: index mode {ix.mode}")
         db = DeviceBasis(m.space, sec.labels, ix, device=dev)
-        k2_gather_case(f"chain24_Sz0_{mode}", MatvecFull(m.compiled_Ham, db),
-                       out, vecs=("real",))
+        r = k2_gather_case(f"chain24_Sz0_{mode}",
+                           MatvecFull(m.compiled_Ham, db), out,
+                           vecs=("real",),
+                           time_it="kernel" if mode == "lin" else False)
+        if mode == "lin":
+            out["apply_rows"]["lin_ms"] = r["ms"]
         del db, ix
-    x = torch.as_tensor(np.random.default_rng(8).standard_normal(sec.dim),
-                        device=dev)
-    x /= torch.linalg.vector_norm(x)
     L = 24
-    out["scatter_rows"] = k2_scatter_case(
-        "chain24 <Sz0 Sz1>", m.compile_op(sz_pair(0, 1)), sec.dbasis,
-        sec.dbasis, out, x, time_it=True)
     q = 2 * np.pi * 5 / L
     szq, smq = Mopr(), Mopr()
     for s in range(L):
         ph = np.exp(1j * q * s) / np.sqrt(L)
         szq += ph * Opr(s, 0, False, SP_HALF["Sz"])
         smq += ph * Opr(s, 0, False, SP_HALF["Sm"])
+    # the kernel paths the main shapes do not take: a diagonal column with
+    # a complex amplitude in the gather direction (Sz(q)'s columns), and
+    # tables above TABLES_SHARED_MAX (an all-pairs exchange with complex
+    # couplings: 276 columns, 40 KB), read through the read-only cache
+    mv_szq = MatvecFull(m.compile_op(szq), sec.dbasis)
+    if not bool(mv_szq.tables.diagonal.all()):
+        raise AssertionError("18 Sz(q): a column is not diagonal")
+    k2_gather_case("chain24_Sz0 Sz(q) gather (diagonal columns)", mv_szq,
+                   out, vecs=("complex",))
+    rng = np.random.default_rng(24)
+    pairs = Mopr()
+    for i in range(L):
+        for j in range(i + 1, L):
+            J = 0.1 * complex(*rng.standard_normal(2))
+            pairs += J * (Opr(i, 0, False, SP_HALF["Sp"])
+                          * Opr(j, 0, False, SP_HALF["Sm"]))
+            pairs += np.conj(J) * (Opr(i, 0, False, SP_HALF["Sm"])
+                                   * Opr(j, 0, False, SP_HALF["Sp"]))
+    mv_pairs = MatvecFull(m.compile_op(pairs), sec.dbasis)
+    if mv_pairs.tables.nbytes <= apply.TABLES_SHARED_MAX:
+        raise AssertionError("18 all-pairs: tables fit shared memory")
+    k2_gather_case("chain24_Sz0 all-pairs complex (tables via __ldg)",
+                   mv_pairs, out, vecs=("complex",), time_it="kernel")
+    del mv_szq, mv_pairs
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(sec.dim),
+                        device=dev)
+    x /= torch.linalg.vector_norm(x)
+    out["scatter_rows"] = k2_scatter_case(
+        "chain24 <Sz0 Sz1>", m.compile_op(sz_pair(0, 1)), sec.dbasis,
+        sec.dbasis, out, x, time_it=True)
     out["scatter_szq"] = k2_scatter_case(
         "chain24 Sz(q)", m.compile_op(szq), sec.dbasis, sec.dbasis, out, x,
         time_it=True)
@@ -3304,6 +3386,14 @@ def apply_rows_run(dev):
         raise AssertionError("18 DM chain: H not complex")
     k2_gather_case("dm_chain24_Sz0", m.sec_full[0].matvec, out,
                    vecs=("complex",))
+    del m
+    # slot values staged from V: spin-1 (local dim 3, no bit fields)
+    m, ops = heisenberg_chain(16, spin="1", device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    if m.sec_full[0].matvec.tables.bits:
+        raise AssertionError("18 spin-1: bit fields where dim 3")
+    out["spin1"] = k2_gather_case("spin1_chain16_Sz0 (staged V)",
+                                  m.sec_full[0].matvec, out, time_it=True)
     del m
     torch.cuda.empty_cache()
 
@@ -3872,8 +3962,14 @@ def main() -> int:
         "bound_ms": k2[name]["bound_ms"],
         "bound_by": k2[name]["bound_by"],
         "library_ms": k2[name]["library_ms"],
-    } for name, line, err in (("apply_rows", 117, "max_abs_err"),
-                              ("scatter_rows", 242, "scatter_max_abs_err"))]}
+        "device_ms": k2[name]["device_ms"],
+        # the other timed shapes of phase 18
+        "shapes": {k2[key]["case"]: {f: k2[key][f] for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            for key in keys},
+    } for name, line, err, keys in (
+        ("apply_rows", 117, "max_abs_err", ("kagome24", "chain26")),
+        ("scatter_rows", 242, "scatter_max_abs_err", ("scatter_szq",)))]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

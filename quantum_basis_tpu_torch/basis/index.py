@@ -28,7 +28,9 @@ class IndexTables(NamedTuple):
     """The device arrays of one index, as a kernel reads them: ``t0`` is the
     position table (``direct``), ``Ja`` (``lin``, with ``t1`` = ``Jb`` and
     ``sa`` the split) or the sorted labels (``bsearch``); ``labels`` are the
-    sorted basis labels in every mode (for checked lookups)."""
+    sorted basis labels in every mode (for checked lookups). The position
+    table holds int32 rows: a direct index takes fewer than 2 ** 31 of
+    them."""
 
     mode: str
     t0: torch.Tensor
@@ -40,10 +42,10 @@ class IndexTables(NamedTuple):
 
 
 def lookup_tables(ix: IndexTables, tgt: torch.Tensor) -> torch.Tensor:
-    """Row indices of target labels (any shape) through ``ix``; a label not
-    in the basis maps to an arbitrary in-range row."""
-    if ix.mode == "direct":
-        return ix.t0[tgt.clamp(0, ix.label_space - 1)]
+    """Row indices (int64) of target labels (any shape) through ``ix``; a
+    label not in the basis maps to an arbitrary in-range row."""
+    if ix.mode == "direct":    # the int32 position table
+        return ix.t0[tgt.clamp(0, ix.label_space - 1)].long()
     if ix.mode == "lin":
         t = tgt.clamp(0, ix.label_space - 1)
         j = ix.t0[t % ix.sa] + ix.t1[t // ix.sa]
@@ -70,7 +72,8 @@ class BasisIndex:
         self.label_space = int(label_space)
         if mode is None:
             if self.label_space <= config.memory("direct_lookup_max",
-                                                 device):
+                                                 device) \
+                    and self.n < 2 ** 31:
                 mode = "direct"
             elif lin_split is not None and self.n:
                 mode = "lin"  # try Lin; fall back to bsearch below
@@ -91,8 +94,13 @@ class BasisIndex:
                 # graceful fallback, reference: src/model.cc:266-270
                 mode = "bsearch"
         if mode == "direct":
-            pos = np.zeros(self.label_space, dtype=np.int64)
-            pos[labels] = np.arange(self.n, dtype=np.int64)
+            # int32 rows: half the bytes of an int64 table, which the row
+            # kernels gather from at every image (ops/apply.py)
+            if self.n >= 2 ** 31:
+                raise ValueError("a direct index holds int32 rows; take "
+                                 "'lin' or 'bsearch' for 2 ** 31 or more")
+            pos = np.zeros(self.label_space, dtype=np.int32)
+            pos[labels] = np.arange(self.n, dtype=np.int32)
             self._pos = torch.as_tensor(pos, device=device)
         self.mode = mode
 

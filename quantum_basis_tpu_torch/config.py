@@ -187,7 +187,8 @@ ROUTING = {
 #   record a crash redoes one solver stage from its warm start; without the
 #   completion record it redoes the product solve.
 # - direct_lookup_max: label spaces up to this size get an O(1) direct
-#   position table on the device (basis/index.py); larger ones the Lin
+#   position table on the device (basis/index.py; int32 rows, 4 bytes a
+#   label, where the basis has fewer than 2^31 rows); larger ones the Lin
 #   tables, else binary search.
 # - apply_block_budget: elements of each (rows, terms, images) intermediate
 #   of the row blocks of a full sector's DeviceBasis (ops/apply.py), which

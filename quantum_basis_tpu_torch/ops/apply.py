@@ -24,7 +24,11 @@ per operator (:func:`pack_rows`): :func:`apply_rows` and
 :func:`scatter_rows` launch ``csrc/apply_rows.cu`` (built with nvcc for
 sm_90a at first use, loaded with ctypes) on CUDA tensors, and run their
 plain PyTorch versions on CPU tensors; no (rows, terms, images)
-intermediate reaches device memory on the card. The plain versions loop
+intermediate reaches device memory on the card. The kernels read the
+packed form of the tables (one 16-byte record a column, interleaved
+entries, slot values from the label's bit fields where every local dim is
+a power of two, diagonal columns flagged); the plain versions read the flat
+tables beside it. The plain versions loop
 over row blocks whose intermediates the device's ``apply_block_budget``
 (``config.MEMORY``) bounds. :func:`_row_images` (the plain versions' images of a
 block of rows) also serves the full sector's ELL build; :func:`_block_images`
@@ -178,11 +182,28 @@ class RowTables:
     :func:`apply_rows` and :func:`scatter_rows`: one entry per image column
     e = (group, term, image k) over all groups, E = ``nnz_per_row`` of them.
 
-    Image e of a row with slot values V reads the flat tables at
-    ``idx = off[e] + c * kstr[e]``, c = sum_a V[slots[e, a]] * strides[e, a]
-    (the term's joint column; arities below A pad with stride 0): amplitude
-    ``amp[idx]``, target label ``label + dlt[idx]``, and the Jordan-Wigner
-    sign (-1) ** popcount(Fodd & wmask[e]).
+    The flat tables, read by the plain versions: image e of a row with slot
+    values V reads them at ``idx = off[e] + c * kstr[e]``, c = sum_a
+    V[slots[e, a]] * strides[e, a] (the term's joint column; arities below A
+    pad with stride 0): amplitude ``amp[idx]``, target label ``label +
+    dlt[idx]``, and the Jordan-Wigner sign (-1) ** popcount(Fodd &
+    wmask[e]).
+
+    The same columns packed for the kernels (``csrc/apply_rows.cu``): ``rec``
+    holds one 16-byte record a column, four int32 words; ``ad`` the
+    amplitudes and displacements interleaved, one entry (amp bits, dlt) or
+    (re bits, im bits, dlt, 0) as int64, each column's D entries
+    contiguous. Word 0 is the offset of the column's entries (bits 0-27: the
+    entry of joint column c is ``ad[off + c]``), bit 30 flags a diagonal
+    column (every dlt of the column 0), bit 31 a column of arity > 2. Word 1
+    holds, for arity <= 2, slot 0 (bits 0-7), slot 1 (8-15) and the joint
+    stride of slot 1 (16-23, 0 at arity 1); with ``bits`` (every local dim a
+    power of two) it holds instead the label shifts of the two slots' bit
+    fields (0-7, 8-15) and their masks (16-23, 24-31; slot 1's 0 at arity
+    1), so V[s] = (label >> shift) & mask and c = v0 + v1 * (mask0 + 1).
+    A column of arity > 2 reads its slots from ``gsel`` (E, A) (shift | mask
+    << 8 with ``bits``, else the slot) and ``strides``. Words 2 and 3 are
+    the low and high halves of wmask.
     """
 
     slots: torch.Tensor      # (E, A) int32
@@ -192,6 +213,12 @@ class RowTables:
     wmask: torch.Tensor | None   # (E,) int64, None when no term has a string
     dlt: torch.Tensor        # (M,) int64, the groups' (T, D, K) tables
     amp: torch.Tensor        # (M,) float64, or complex128 where any is
+    rec: torch.Tensor        # (E, 4) int32, the kernels' column records
+    ad: torch.Tensor         # (M, 2) or (M, 4) int64, interleaved entries
+    gsel: torch.Tensor | None    # (E, A) int32 where A > 2, else None
+    bits: bool               # slot values from the label's bit fields
+    diag_only: bool          # every column diagonal (or none at all)
+    n_simple: int            # leading columns of arity <= 2
 
     @property
     def n_cols(self) -> int:
@@ -201,13 +228,44 @@ class RowTables:
     def is_complex(self) -> bool:
         return self.amp.is_complex()
 
+    @property
+    def diagonal(self) -> torch.Tensor:
+        """(E,) bool: the columns whose every image keeps the label."""
+        return (self.rec[:, 0] & _DIAG) != 0
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of ``rec`` and ``ad``, which a block stages."""
+        return 16 * self.n_cols + 8 * self.ad.numel()
+
+
+# word 0 of a column record (csrc/apply_rows.cu): the offset's bits, flags
+_OFFSET = (1 << 28) - 1
+_DIAG = 1 << 30
+_GENERIC = 1 << 31
+
+
+def slot_bit_fields(space):
+    """(shift, width) of every slot's bit field in a label, int64 (S,)
+    each, where every local dim is a power of two (labels are then bit
+    strings: V[s] = (label >> shift[s]) & (2 ** width[s] - 1)); else
+    None."""
+    dims = np.asarray(space.dims, dtype=np.int64)
+    if np.any(dims & (dims - 1)):
+        return None
+    width = np.array([int(d).bit_length() - 1 for d in dims], np.int64)
+    return np.concatenate([[0], np.cumsum(width)[:-1]]).astype(np.int64), \
+        width
+
 
 def pack_rows(compiled: CompiledOperator, device) -> RowTables:
     """Pack the term groups of ``compiled`` into :class:`RowTables` on
     ``device`` (host numpy, once per operator)."""
     S = compiled.space.n_slots
     A = max([g.arity for g in compiled.groups], default=1)
+    fields = slot_bit_fields(compiled.space)
     slots, strides, off, kstr, wmask, dlt, amp = [], [], [], [], [], [], []
+    rec, gsel, adlt, aamp = [], [], [], []
     base = 0
     for g in compiled.groups:
         T, D, K = g.dlt.shape
@@ -217,20 +275,59 @@ def pack_rows(compiled: CompiledOperator, device) -> RowTables:
                 raise ValueError("Jordan-Wigner masks need at most 63 slots")
             mask = int(np.sum(w << np.arange(S, dtype=np.int64))) \
                 if w.any() else 0
+            sl = [int(s) for s in g.slots[t]]
+            if fields is not None:      # (shift, mask) of each slot
+                sm = [(int(fields[0][s]), (1 << int(fields[1][s])) - 1)
+                      for s in sl]
+                sel = [sh | mk << 8 for sh, mk in sm]
+            else:
+                sel = sl
+            flags, word = 0, 0
+            if g.arity <= 2:
+                if int(g.jstrides[t][0]) != 1:
+                    raise ValueError("joint strides must start at 1")
+                if fields is not None:
+                    word = sm[0][0] | sm[-1][0] << 8 | sm[0][1] << 16
+                    if g.arity == 2:
+                        word |= sm[1][1] << 24
+                else:
+                    word = sl[0] | sl[-1] << 8
+                    if g.arity == 2:
+                        word |= int(g.jstrides[t][1]) << 16
+            else:
+                flags = _GENERIC
             for k in range(K):
                 slots.append(np.pad(g.slots[t], (0, A - g.arity)))
                 strides.append(np.pad(g.jstrides[t], (0, A - g.arity)))
+                gsel.append(np.pad(sel, (0, A - g.arity)))
                 off.append(base + t * D * K + k)
                 kstr.append(K)
                 wmask.append(mask)
+                diag = 0 if g.dlt[t, :, k].any() else _DIAG
+                rec.append((base + (t * K + k) * D | flags | diag, word,
+                            mask & 0xFFFFFFFF, mask >> 32))
         dlt.append(g.dlt.reshape(-1))
-        a = g.amp_re.reshape(-1)
-        amp.append(a if g.amp_im is None else a + 1j * g.amp_im.reshape(-1))
+        a = g.amp_re if g.amp_im is None else g.amp_re + 1j * g.amp_im
+        amp.append(a.reshape(-1))
+        # each column's D entries contiguous: (T, K, D)
+        adlt.append(g.dlt.transpose(0, 2, 1).reshape(-1))
+        aamp.append(a.transpose(0, 2, 1).reshape(-1))
         base += T * D * K
-    if base >= 2 ** 31:
-        raise ValueError(f"term tables of {base} images exceed int32")
+    if base > _OFFSET:
+        raise ValueError(f"term tables of {base} images exceed 2 ** 28")
     E = len(off)
     cplx = any(np.iscomplexobj(a) for a in amp)
+    a = np.concatenate(aamp) if aamp else np.zeros(0)
+    if cplx:
+        a = a.astype(np.complex128)
+        parts = [a.real, a.imag]
+    else:
+        parts = [a.astype(np.float64)]
+    ad = np.zeros((base, len(parts) + (2 if cplx else 1)), np.int64)
+    for col, part in enumerate(parts):
+        ad[:, col] = np.ascontiguousarray(part, np.float64).view(np.int64)
+    ad[:, len(parts)] = np.concatenate(adlt) if adlt else []
+    rec = np.asarray(rec, np.int64).reshape(E, 4)
 
     def t(a, dt, shape):
         return torch.as_tensor(np.asarray(a, dtype=dt).reshape(shape),
@@ -243,7 +340,14 @@ def pack_rows(compiled: CompiledOperator, device) -> RowTables:
         wmask=t(wmask, np.int64, (E,)) if any(wmask) else None,
         dlt=t(np.concatenate(dlt) if dlt else [], np.int64, (-1,)),
         amp=t(np.concatenate(amp) if amp else [],
-              np.complex128 if cplx else np.float64, (-1,)))
+              np.complex128 if cplx else np.float64, (-1,)),
+        rec=t(rec.astype(np.uint32).view(np.int32), np.int32, (E, 4)),
+        ad=torch.as_tensor(ad, device=device),
+        gsel=t(gsel, np.int32, (E, A)) if A > 2 else None,
+        bits=fields is not None,
+        diag_only=bool(np.all(rec[:, 0] & _DIAG)),
+        n_simple=int(np.argmax(rec[:, 0] & _GENERIC != 0))
+        if np.any(rec[:, 0] & _GENERIC) else E)
 
 
 def _parity(v: torch.Tensor) -> torch.Tensor:
@@ -320,6 +424,10 @@ def _scatter_rows_plain(tabs, ix, labels, V, fodd, diag, x, n_src):
 
 
 _MODES = {"direct": 0, "lin": 1, "bsearch": 2}
+# A block stages a column's record and entries in shared memory up to this
+# many bytes of them (RowTables.nbytes); above it the kernels' other
+# instance reads them through the read-only cache.
+TABLES_SHARED_MAX = 32 * 1024
 
 
 def build_library(verbose: bool = False) -> ctypes.CDLL:
@@ -330,7 +438,7 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load(_SRC, verbose)
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tables = [p] * 7 + [i, i, i]
+        tables = [p] * 4 + [i, i, i, q, i, i, i, i]
         index = [i, p, p, q, q, q, p]
         rows = [p, p, i, p, p, p, i, p]
         lib.qbt_apply_rows.argtypes = tables + index + rows + [q, q, q, p]
@@ -340,36 +448,48 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
+def _need(name, t, dt, shape, dev):
+    if t is None:
+        return
+    if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                         f"shape {shape} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_tables(tabs, dev):
+    """The packed tables' checks, once per RowTables and device (the
+    tables do not change after pack_rows)."""
+    if getattr(tabs, "_checked_on", None) == dev:
+        return
+    E, A = tabs.slots.shape
+    _need("rec", tabs.rec, torch.int32, (E, 4), dev)
+    _need("strides", tabs.strides, torch.int32, (E, A), dev)
+    if A > 2 and tabs.gsel is None:
+        raise ValueError("columns of arity > 2 need gsel")
+    _need("gsel", tabs.gsel, torch.int32, (E, A), dev)
+    M = tabs.dlt.numel()
+    _need("ad", tabs.ad, torch.int64, (M, 4 if tabs.is_complex else 2), dev)
+    tabs._checked_on = dev
+
+
 def _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_diag, n_rows):
     dev = x.device
 
     def need(name, t, dt, shape):
-        if t is None:
-            return
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
-                             f"shape {shape} on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        _need(name, t, dt, shape, dev)
     if x.dtype not in (torch.float64, torch.complex128) or x.dim() != 1 \
             or not x.is_contiguous():
         raise ValueError("x must be a contiguous float64 or complex128 vector")
     if tabs.is_complex and not x.is_complex():
         raise ValueError("complex amplitudes need a complex128 vector")
-    E, A = tabs.slots.shape
-    for name in ("slots", "strides"):
-        need(name, getattr(tabs, name), torch.int32, (E, A))
-    need("off", tabs.off, torch.int32, (E,))
-    need("kstr", tabs.kstr, torch.int32, (E,))
-    need("wmask", tabs.wmask, torch.int64, (E,))
-    M = tabs.dlt.numel()
-    need("dlt", tabs.dlt, torch.int64, (M,))
-    need("amp", tabs.amp, tabs.amp.dtype, (M,))
-    if tabs.amp.dtype not in (torch.float64, torch.complex128):
-        raise ValueError("amp must be float64 or complex128")
+    _check_tables(tabs, dev)
     if ix.mode not in _MODES:
         raise ValueError(f"unknown index mode {ix.mode!r}")
-    need("index t0", ix.t0, torch.int64, tuple(ix.t0.shape))
+    # a direct index's position table holds int32 rows (basis/index.py)
+    need("index t0", ix.t0, torch.int32 if ix.mode == "direct"
+         else torch.int64, tuple(ix.t0.shape))
     need("index t1", ix.t1, torch.int64, tuple(ix.t1.shape)
          if ix.t1 is not None else ())
     need("index labels", ix.labels, torch.int64, (ix.n,))
@@ -380,6 +500,8 @@ def _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_diag, n_rows):
         raise ValueError(f"{n_rows} rows read, the basis holds {R}")
     need("labels", labels, torch.int64, (R,))
     need("V", V, torch.int8, (R, V.shape[-1]))
+    if not 1 <= V.shape[-1] <= 255:
+        raise ValueError("the kernels take 1 to 255 slots")
     need("fodd", fodd, torch.int64, (R,))
     need("diag", diag, torch.float64, (n_diag,))
     if tabs.wmask is not None and fodd is None:
@@ -390,13 +512,14 @@ def _launch_args(tabs, ix, labels, V, fodd, diag, x, y):
     def ptr(t):
         return None if t is None else t.data_ptr()
     E, A = tabs.slots.shape
-    return ([ptr(tabs.slots), ptr(tabs.strides), ptr(tabs.off),
-             ptr(tabs.kstr), ptr(tabs.wmask), ptr(tabs.dlt), ptr(tabs.amp),
-             E, A, int(tabs.is_complex),
+    return ([ptr(tabs.rec), ptr(tabs.ad), ptr(tabs.gsel),
+             ptr(tabs.strides) if tabs.gsel is not None else None,
+             E, tabs.n_simple, A, tabs.dlt.numel(), int(tabs.is_complex),
+             int(tabs.bits),
+             int(tabs.nbytes <= TABLES_SHARED_MAX), int(tabs.diag_only),
              _MODES[ix.mode], ptr(ix.t0), ptr(ix.t1), ix.sa, ix.label_space,
-             ix.n, ptr(ix.labels),
-             ptr(labels), ptr(V), V.shape[-1], ptr(fodd), ptr(diag), ptr(x),
-             int(x.is_complex()), ptr(y)])
+             ix.n, ptr(ix.labels), ptr(labels), ptr(V), V.shape[-1],
+             ptr(fodd), ptr(diag), ptr(x), int(x.is_complex()), ptr(y)])
 
 
 def _device_of(x):

@@ -363,13 +363,28 @@ def test_cuda_arg_checks_refuse_what_the_kernel_does_not_take():
         _check_cuda_args(ctabs, ix, labels, V, fodd, diag, x, n, n)
 
 
+def _sz_q(L, q):
+    """Sz(q) = sum_x exp(i q x) Sz_x / sqrt(L): complex diagonal columns."""
+    out = tz.Mopr()
+    for x in range(L):
+        out += (np.exp(1j * q * x) / np.sqrt(L)) * tz.Opr(
+            x, 0, False, tz.SP_HALF["Sz"])
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-def test_kernels_match_plain_on_cuda(mode):
+def test_kernels_match_plain_on_cuda(mode, monkeypatch):
     """apply_rows and scatter_rows on the card against their plain versions
-    (1e-12 of max|y|): chain-16 Sz=0 on real and complex vectors, a range of
-    rows past the sector's end, S^-_q into Sz=-1; t-J-10 (Jordan-Wigner
-    strings) and the DM chain L=12 (complex amplitudes)."""
+    (1e-12 of max|y|), each kernel path in every index mode: slot values
+    from label bit fields (chain-16, the DM chain L=12 with complex
+    amplitudes, the three-site chain L=12 whose arity-3 columns take the
+    generic path) and from staged V (t-J-10 with Jordan-Wigner strings,
+    spin-1 L=10); tables in shared memory and, with the bound set to 0,
+    through the read-only cache; in direct mode the position table with
+    int32 rows; real and complex vectors, a range of rows past the sector's
+    end; Sz(q) (every column diagonal, complex) in both
+    directions; S^-_q into Sz=-1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     dev = "cuda"
@@ -379,17 +394,11 @@ def test_kernels_match_plain_on_cuda(mode):
         err = float((got - want).abs().max())
         assert err <= 1e-12 * max(float(want.abs().max()), 1e-300), err
 
-    cases = [(tz.heisenberg_chain(16, device=dev), ["Sz"], [0.0]),
-             (tz.tj_chain(10, device=dev), ["Sz", "N"], [0.0, 8.0]),
-             (tz.dm_chain(12, 0.3, device=dev), ["Sz"], [0.0])]
-    for (m, ops), names, vals in cases:
-        m.enumerate_basis_full([ops[c] for c in names], vals)
-        st = m.sec_full[0]
-        db = _basis(m, st.labels, mode, device=dev, block_rows=None)
+    def gather_and_scatter(tabs, db, diag):
         n = db.n
-        tabs = pack_rows(m.compiled_Ham, dev)
-        diag = MatvecFull(m.compiled_Ham, db).diag_b.view(-1)[:n]
         ix = db.index.tables
+        assert ix.t0.dtype == (torch.int32 if ix.mode == "direct"
+                               else torch.int64)
         for vec in ("real", "complex"):
             if tabs.is_complex and vec == "real":
                 continue
@@ -398,25 +407,52 @@ def test_kernels_match_plain_on_cuda(mode):
             before = ap.launch_count
             yk = apply_rows(tabs, ix, *_rows(db), diag, x, 0, n, n)
             assert ap.launch_count == before + 1
-            close(yk, _apply_rows_plain(tabs, ix, *_rows(db), diag, x, 0, n,
-                                        n))
+            close(yk, _apply_rows_plain(tabs, ix, *_rows(db), diag, x, 0,
+                                        n, n))
             r0 = n // 3    # rows past the sector's end come out zero
-            pad = torch.zeros(n, dtype=torch.float64, device=dev)
-            pad[: n - r0] = diag[r0:]
+            pad = None
+            if diag is not None:
+                pad = torch.zeros(n, dtype=torch.float64, device=dev)
+                pad[: n - r0] = diag[r0:]
             close(apply_rows(tabs, ix, *_rows(db), pad, x, r0, n, n),
-                  _apply_rows_plain(tabs, ix, *_rows(db), pad, x, r0, n, n))
+                  _apply_rows_plain(tabs, ix, *_rows(db), pad, x, r0, n,
+                                    n))
             before = ap.scatter_launch_count
             zk = scatter_rows(tabs, ix, *_rows(db), diag, x, n)
             assert ap.scatter_launch_count == before + 1
-            close(zk, _scatter_rows_plain(tabs, ix, *_rows(db), diag, x, n))
+            close(zk, _scatter_rows_plain(tabs, ix, *_rows(db), diag, x,
+                                          n))
+
+    cases = [(tz.heisenberg_chain(16, device=dev), ["Sz"], [0.0], True),
+             (tz.tj_chain(10, device=dev), ["Sz", "N"], [0.0, 8.0], False),
+             (tz.dm_chain(12, 0.3, device=dev), ["Sz"], [0.0], True),
+             (tz.heisenberg_chain(10, spin="1", device=dev), ["Sz"], [0.0],
+              False),
+             (tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr, tz.Mopr,
+                                       12, device=dev), ["Sz"], [0.0], True)]
+    shared_max = ap.TABLES_SHARED_MAX
+    for (m, ops), names, vals, bits in cases:
+        m.enumerate_basis_full([ops[c] for c in names], vals)
+        st = m.sec_full[0]
+        db = _basis(m, st.labels, mode, device=dev, block_rows=None)
+        tabs = pack_rows(m.compiled_Ham, dev)
+        assert tabs.bits == bits
+        diag = MatvecFull(m.compiled_Ham, db).diag_b.view(-1)[: db.n]
+        for smax in (shared_max, 0):
+            monkeypatch.setattr(ap, "TABLES_SHARED_MAX", smax)
+            gather_and_scatter(tabs, db, diag)
+    monkeypatch.setattr(ap, "TABLES_SHARED_MAX", shared_max)
     m, ops = tz.heisenberg_chain(16, device=dev)
     m.enumerate_basis_full([ops["Sz"]], [0.0], sec=0)
     m.enumerate_basis_full([ops["Sz"]], [-1.0], sec=1)
-    src = m.sec_full[0].dbasis
+    src = _basis(m, m.sec_full[0].labels, mode, device=dev, block_rows=None)
+    szq = pack_rows(m.compile_op(_sz_q(16, 2 * np.pi * 5 / 16)), dev)
+    assert bool(szq.diagonal.all()) and szq.is_complex
+    gather_and_scatter(szq, src, None)
     dst = _basis(m, m.sec_full[1].labels, mode, device=dev, block_rows=None)
     tabs = pack_rows(m.compile_op(_sminus_q(tz, 16, 2 * np.pi * 5 / 16)), dev)
     re, im = _vec(src.n, "complex", seed=2)
     x = vec_from_split(re, im, device=dev)
-    close(scatter_rows(tabs, dst.index.tables, *_rows(src), None, x, src.n),
-          _scatter_rows_plain(tabs, dst.index.tables, *_rows(src), None, x,
-                              src.n))
+    ix = dst.index.tables
+    close(scatter_rows(tabs, ix, *_rows(src), None, x, src.n),
+          _scatter_rows_plain(tabs, ix, *_rows(src), None, x, src.n))
