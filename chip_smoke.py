@@ -196,7 +196,8 @@ Phases (any failure raises, so the exit code is nonzero):
 15. prints the kernel record (launches on the main path: bsr_spmv's in
    phases 4, 5, 10 and 13, kron_ell's in phase 7's 4x4 solve, two per apply,
    apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
-   measure_full_static, each count set to 0 just before its path and read
+   measure_full_static, the K6 kernels' in phase 5's chain-24 solve and
+   phase 7's 4x4 solve, each count set to 0 just before its path and read
    just after; the worst
    error against the plain version, the
    kernel's, plain version's and library call's ms and the bound at the
@@ -262,6 +263,24 @@ Phases (any failure raises, so the exit code is nonzero):
    nonzero images touch; over 3.35 TB/s); then solves chain-26 Sz=0 (dim
    10,400,600) through locate_E0_lanczos("full") on MatvecFull and on its
    ELL: E0 equal to 1e-10, both residuals under the gate.
+19. (after 18, before 15; ``--krylov`` runs it alone) the Krylov basis work
+   (csrc/krylov.cu, K6) against its plain versions, on a basis of 14 random
+   unit vectors at the two main-path shapes, the Hubbard 4x4 f32 basis (n =
+   165,636,900) and chain-24 Sz=0 in f64 (n = 2,704,156): a CGS2 step at r =
+   4, 8 and 13 (rows 0..r-1 read, row r written; the kernels' four passes,
+   the plain versions, the torch CGS2 they replaced) checked (f64 1e-12,
+   f32 1e-5 of max|y|, or of 1 for inner products of unit vectors) and
+   timed (CUDA events; the four launches' torch.profiler device time); at r
+   = 8 each pass alone (and krylov_project beside one cuBLAS GEMV) and a
+   compaction of m = 12 rows to 3 (beside the GEMM S^T V), with bounds
+   from this run's shapes (bytes: (r + 1), (r + 2), (r + 2) and 2 vectors a
+   pass, (m + 1) + 13 for the compaction; over 3.35 TB/s); then
+   ||V^H V - I|| after one full expand of 12 steps on the 4x4 f32 KronOp
+   (1e-5) and on chain-24's MatvecFull (1e-12). Phases 5 and 7 reset the
+   K6 counts before their chain-24 and 4x4 solves and assert one launch of
+   each step kernel per Krylov step (the solve's applies; the f32 stage's
+   at 4x4) and at least one compaction; the kernel record's K6 launches
+   are those two solves'.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -289,7 +308,7 @@ driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 -20.497352266554) with a temporary checkpoint directory, then again, every
 sector resumed from its completion record with no apply and the same gaps;
 ``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17;
-``--apply-rows`` phase 18; ``--ranks N``
+``--apply-rows`` phase 18; ``--krylov`` phase 19; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -721,7 +740,7 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
     ``locate_E0_lanczos("full")`` on the card's route, MatvecFull, whose
     every apply must be one apply_rows launch."""
     from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
-    from quantum_basis_tpu_torch.ops import apply
+    from quantum_basis_tpu_torch.ops import apply, krylov
     from quantum_basis_tpu_torch.ops.apply import MatvecFull
 
     torch.cuda.reset_peak_memory_stats()
@@ -746,9 +765,12 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
             raise AssertionError(f"{tag}: locate_E0_lanczos('full') does not "
                                  f"route to MatvecFull")
         apply.launch_count = 0
+        krylov.reset_launches()
         _, rec["solve_free_s"] = _timed(
             lambda: model.locate_E0_lanczos("full", maxit=maxit))
         rec["apply_rows_launches"] = apply.launch_count
+        # every apply of the solve is one Krylov step (eigs_smallest)
+        rec["k6_launches"] = k6_launches(tag, mv.n_applies)
         rec["E0_free"] = model.eigenvals_full[0]
         rec["matvecs_free"] = mv.n_applies
         print(f"check {tag} apply_rows launches {apply.launch_count} = the "
@@ -806,6 +828,7 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
     rec = full_width(dev, "chain24_Sz0", m, ops["Sz"], True, 4000)
     _check("chain24 E0, matrix-free vs ELL", rec["E0_free"], rec["E0_ell"],
            1e-10)
+    launches_k6 = rec["k6_launches"]
     apply.scatter_launch_count = 0
     (szsz, t_meas) = _timed(
         lambda: m.measure_full_static(sz_pair(0, 1), 0, 0).real)
@@ -854,7 +877,7 @@ def full_sector_run(bsr_mod, dev, e0_chain20):
                              "BSR kernel")
     print("bsr_spmv launches in the full-sector phase:", launches,
           flush=True)
-    return launches, wide, launches_k2
+    return launches, wide, launches_k2, launches_k6
 
 
 def _hx_check(tag, y, y_ref, rel_tol):
@@ -2622,7 +2645,7 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     from quantum_basis_tpu_torch.benchmarks import hubbard4x4
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized)
-    from quantum_basis_tpu_torch.ops import apply_kron
+    from quantum_basis_tpu_torch.ops import apply_kron, krylov
     from quantum_basis_tpu_torch.ops.apply_kron import KronOp, kron_layout
     from quantum_basis_tpu_torch.solvers.lanczos import lanczos_ground
     from quantum_basis_tpu_torch.utils.rng import vec_randomize
@@ -2685,10 +2708,12 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
     torch.cuda.empty_cache()
 
     # the solve; its count of applies on this card is in PERF.md section 5.
-    # Beside each apply a Krylov step reads and writes the basis: at most
-    # 4 passes over ncv float32 vectors at the memory rate (CGS2)
+    # Beside each apply a Krylov step reads and writes the basis: the K6
+    # kernels' (3r + 7) float32 vectors at the memory rate, r the rows
+    # projected, on average (K6_KEEP + 1 + ncv) / 2 after a restart
     ncv = config.memory("product_ncv", dev)
-    step_ms = 4 * ncv * pm.dim * 4 / HBM_BYTES_PER_S * 1e3
+    r_mean = (K6_KEEP + 1 + ncv) / 2
+    step_ms = (3 * r_mean + 7) * pm.dim * 4 / HBM_BYTES_PER_S * 1e3
     projected = (HUBBARD4X4_F32_APPLIES * (rec["kron_f32_ms"] + step_ms)
                  + HUBBARD4X4_F64_APPLIES * rec["kron_f64_ms"]) * 1.15e-3
     elapsed = time.perf_counter() - t_start
@@ -2713,13 +2738,19 @@ def product_run(dev, t_start, force_full, ckpt_dir=None):
         rec["applies"] = hubbard4x4.applies(pm) - applied0
         rec["capped_steps"], rec["E0"] = steps, out["E0"]
         rec["residual"] = out["residual"]
+        rec["k6_launches"] = {}
     else:
         # the ported driver's solve (benchmarks/hubbard4x4.py)
         with (config.pinned(enable_ckpt=True, ckpt_dir=ckpt_dir)
               if ckpt_dir else contextlib.nullcontext()):
             apply_kron.launch_count = 0   # the kernel's main path: the solve
+            krylov.reset_launches()
             out = hubbard4x4.solve_sector(pm)
             rec["kron_ell_launches"] = apply_kron.launch_count
+        # the f32 bulk stage's applies are its Krylov steps (the RQI
+        # polish after it makes none)
+        rec["k6_launches"] = k6_launches(
+            "hubbard 4x4", out["solver"]["f32_stage_matvecs"])
         rec["applies"] = out["applies"]
         rec["solve_s"], rec["E0"] = out["solve_s"], out["E0"]
         rec["residual"] = out["residual_f64"]
@@ -3434,6 +3465,315 @@ def apply_rows_run(dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the thick-restart Krylov step and compaction (K6)
+# --------------------------------------------------------------------------
+
+K6_KEEP = 3        # Ritz vectors a restart keeps at nev = 1
+
+
+def k6_bound(nbytes, flops, dt):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of dt's real type."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOPS[torch.empty(0, dtype=dt).real.dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _k6_basis(dt, rows, n, dev, seed):
+    """rows random unit vectors of length n (orthonormal enough for the
+    timings and the kernel-vs-plain checks, whose results do not depend on
+    it)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    real = torch.empty(0, dtype=dt).real.dtype
+    V = torch.empty((rows, n), dtype=dt, device=dev)
+    Vr = torch.view_as_real(V) if dt.is_complex else V
+    for i in range(rows):   # a row at a time: no second basis-sized temp
+        Vr[i].normal_(generator=g)
+        V[i] /= torch.linalg.vector_norm(V[i])
+    return V
+
+
+def _plain_step(V, r, w, dst, wp, h_out, beta_out):
+    from quantum_basis_tpu_torch.ops import krylov
+
+    krylov._project_plain(V, 0, r, w, wp.h1)
+    krylov._subtract_project_plain(V, r, wp.h1, w, wp.work, wp.h2)
+    krylov._subtract_norm_plain(V, r, wp.h2, wp.work, V[dst], wp.nrm)
+    krylov._scale_plain(V[dst], wp.nrm, beta_out, True, (wp.h1, wp.h2),
+                        h_out, r)
+
+
+def _library_step(V, r, w, dst, h_out, beta_out):
+    """The torch CGS2 step the kernels replaced (solvers/restarted.py up to
+    PR 14: four cuBLAS GEMVs and the elementwise ops around them)."""
+    Vj = V[:r]
+    h1 = Vj.conj() @ w
+    w = w - h1 @ Vj
+    h2 = Vj.conj() @ w
+    w = w - h2 @ Vj
+    b = torch.linalg.vector_norm(w)
+    inv = torch.where(b > 1e-13, 1.0 / torch.clamp(b, min=1e-13), 0.0)
+    V[dst] = w * inv
+    h_out.copy_(h1 + h2)
+    beta_out.copy_(b)
+
+
+def _k6_err(name, got, want, tol, errs, scale=None):
+    """Kernel vs plain: max |got - want| <= tol * scale (default max|want|;
+    an inner product of unit vectors takes 1, the scale of its rounding)."""
+    diff = float((got - want).abs().max())
+    if scale is None:
+        scale = float(want.abs().max())
+    errs[name] = max(errs.get(name, 0.0), diff)
+    if not diff <= tol * max(scale, 1e-300):
+        raise AssertionError(f"19 {name}: kernel vs plain {diff:.3e} "
+                             f"(max {scale:.3e}, tol {tol})")
+
+
+def k6_case(tag, dt, n, dev, rs, main_r, errs, ncv=12):
+    """Phase 19 at one shape: a basis of ncv + 2 rows (so that r = ncv + 1
+    has a row to write) of random unit vectors; for each r of ``rs`` one
+    step (rows 0..r-1 read, row r written) by the kernels, the plain
+    versions and the torch CGS2, checked against the plain versions and
+    timed (CUDA events); at ``main_r`` each pass alone (events and the
+    launch's torch.profiler device time); one compaction (m = ncv, keep
+    K6_KEEP) likewise. Bounds from this run's shapes."""
+    from quantum_basis_tpu_torch.ops import krylov
+
+    tol = 1e-12 if torch.empty(0, dtype=dt).real.dtype == torch.float64 \
+        else 1e-5
+    rows = ncv + 2
+    s = torch.empty(0, dtype=dt).element_size()
+    cf = 8 if dt.is_complex else 2        # flops of one multiply-add
+    V = _k6_basis(dt, rows, n, dev, 19)
+    w = _k6_basis(dt, 1, n, dev, 20)[0]
+    ws = krylov.Workspace(rows, n, dt, dev)
+    wp = krylov.Workspace(rows, n, dt, dev)    # for the plain versions
+    real = V.real.dtype
+    H = torch.zeros((rows, rows), dtype=dt, device=dev)
+    Hp = torch.zeros_like(H)
+    b, bp = (torch.zeros(rows, dtype=real, device=dev) for _ in range(2))
+    rec = {"case": tag, "dtype": str(dt)[6:], "n": n, "rows": rows,
+           "steps": {}}
+
+    for r in rs:
+        # the step writes row r, which a later r reads: put it back after
+        row_r = V[r].clone()
+
+        def kern():
+            krylov.cgs2(V, r, w, r, ws, H[:r, r - 1], b[r - 1: r])
+
+        def plain():
+            _plain_step(V, r, w, r, wp, Hp[:r, r - 1], bp[r - 1: r])
+
+        def library():
+            _library_step(V, r, w, r, Hp[:r, r - 1], bp[r - 1: r])
+
+        kern()
+        got = V[r].clone()
+        plain()
+        _k6_err("step", got, V[r], tol, errs)
+        _k6_err("step h", H[:r, r - 1], Hp[:r, r - 1], tol, errs, 1.0)
+        _k6_err("step beta", b[r - 1], bp[r - 1], tol, errs)
+        del got
+        bound, by = k6_bound((3 * r + 7) * n * s, 4 * cf * r * n + 3 * n,
+                             dt)
+        st = {"ms": cuda_ms(kern, samples=5, per_sample=2),
+              "plain_ms": cuda_ms(plain, samples=3, per_sample=1),
+              "library_ms": cuda_ms(library, samples=3, per_sample=1),
+              "bound_ms": bound, "bound_by": by}
+        dev_ms = kernel_device_ms(kern, krylov.KERNELS[:4], reps=3)
+        st["device_ms"] = (None if None in dev_ms.values()
+                           else sum(dev_ms.values()))
+        rec["steps"][str(r)] = st
+        print(f"19 {tag} step r={r}: {json.dumps(st)}", flush=True)
+        V[r] = row_r
+        del row_r
+
+    # each pass alone at main_r, from the same inputs for the kernel and
+    # its plain version (w has norm 1, the rows too)
+    r = main_r
+    Vc = V[: ncv + 1].clone()       # the compaction's input, kept apart
+    krylov.krylov_project(V, 0, r, w, ws.h1)
+    krylov._project_plain(V, 0, r, w, wp.h1)
+    _k6_err("krylov_project", ws.h1[:r].sum(1), wp.h1[:r].sum(1), tol,
+            errs, 1.0)
+    krylov.krylov_subtract_project(V, r, ws.h1, w, ws.work, ws.h2)
+    krylov._subtract_project_plain(V, r, ws.h1, w, wp.work, wp.h2)
+    _k6_err("krylov_subtract_project", ws.work, wp.work, tol, errs)
+    _k6_err("krylov_subtract_project", ws.h2[:r].sum(1), wp.h2[:r].sum(1),
+            tol, errs, 1.0)
+    krylov.krylov_subtract_norm(V, r, ws.h2, ws.work, V[r], ws.nrm)
+    w2 = V[r].clone()
+    krylov._subtract_norm_plain(V, r, ws.h2, ws.work, V[r], wp.nrm)
+    _k6_err("krylov_subtract_norm", w2, V[r], tol, errs)
+    _k6_err("krylov_subtract_norm", ws.nrm.sum(), wp.nrm.sum(), tol, errs)
+    V[r] = w2
+    krylov.krylov_scale(V[r], ws.nrm, ws.beta, True)
+    got = V[r].clone()
+    V[r] = w2
+    krylov._scale_plain(V[r], ws.nrm, wp.beta, True, None, None, r)
+    _k6_err("krylov_scale", got, V[r], tol, errs)
+    _k6_err("krylov_scale", ws.beta, wp.beta, tol, errs)
+    del got, w2
+    passes = {
+        "krylov_project": (
+            lambda: krylov.krylov_project(V, 0, r, w, ws.h1),
+            lambda: krylov._project_plain(V, 0, r, w, wp.h1),
+            lambda: V[:r].conj() @ w,
+            (r + 1) * n * s, cf * r * n),
+        "krylov_subtract_project": (
+            lambda: krylov.krylov_subtract_project(V, r, ws.h1, w, ws.work,
+                                                   ws.h2),
+            lambda: krylov._subtract_project_plain(V, r, wp.h1, w, wp.work,
+                                                   wp.h2),
+            None, (r + 2) * n * s, 2 * cf * r * n + n),
+        "krylov_subtract_norm": (
+            lambda: krylov.krylov_subtract_norm(V, r, ws.h2, ws.work, V[r],
+                                                ws.nrm),
+            lambda: krylov._subtract_norm_plain(V, r, wp.h2, wp.work, V[r],
+                                                wp.nrm),
+            None, (r + 2) * n * s, cf * r * n + 3 * n),
+        "krylov_scale": (
+            lambda: krylov.krylov_scale(V[r], ws.nrm, ws.beta, True),
+            lambda: krylov._scale_plain(V[r], wp.nrm, wp.beta, True, None,
+                                        None, r),
+            None, 2 * n * s, n),
+    }
+    rec["passes"] = {}
+    for name, (kern, plain, lib, nbytes, flops) in passes.items():
+        bound, by = k6_bound(nbytes, flops, dt)
+        p = {"ms": cuda_ms(kern, samples=5, per_sample=3),
+             "device_ms": kernel_device_ms(kern, (name,), reps=3)[name],
+             "plain_ms": cuda_ms(plain, samples=3, per_sample=1),
+             "library_ms": (cuda_ms(lib, samples=3, per_sample=1)
+                            if lib is not None else None),
+             "bound_ms": bound, "bound_by": by, "r": r}
+        rec["passes"][name] = p
+        print(f"19 {tag} {name} r={r}: {json.dumps(p)}", flush=True)
+
+    # one compaction, m = ncv, keep K6_KEEP, on copies of the basis (the
+    # timed passes above left row r scaled many times over)
+    del V
+    m = ncv
+    q, _ = np.linalg.qr(np.random.default_rng(29).standard_normal((m,
+                                                                   K6_KEEP)))
+    S = torch.as_tensor(q, device=dev).to(dt).contiguous()
+    Vk = Vc.clone()
+    krylov.krylov_compact(Vk, S, m)
+    krylov._compact_plain(Vc, S, m)
+    _k6_err("krylov_compact", Vk, Vc, tol, errs)
+    if Vk[K6_KEEP + 1:].any():
+        raise AssertionError("19 compact: rows past keep + 1 not zero")
+    del Vc
+    bound, by = k6_bound((m + 1 + ncv + 1) * n * s, cf * K6_KEEP * m * n, dt)
+    Sw = S.T.contiguous()
+
+    def compact_kern():
+        krylov.krylov_compact(Vk, S, m)
+
+    def compact_plain():
+        krylov._compact_plain(Vk, S, m)
+
+    rec["passes"]["krylov_compact"] = p = {
+        "ms": cuda_ms(compact_kern, samples=5, per_sample=2),
+        "device_ms": kernel_device_ms(compact_kern, ("krylov_compact",),
+                                      reps=3)["krylov_compact"],
+        "plain_ms": cuda_ms(compact_plain, samples=3, per_sample=1),
+        # one GEMM, S^T V, the compaction's product alone
+        "library_ms": cuda_ms(lambda: Sw @ Vk[:m], samples=3,
+                              per_sample=1),
+        "bound_ms": bound, "bound_by": by, "m": m, "keep": K6_KEEP}
+    print(f"19 {tag} krylov_compact m={m}: {json.dumps(p)}", flush=True)
+    del Vk, w, ws, wp, S, Sw
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k6_orthogonality(tag, op, n, complex_vec, tol, ncv=12):
+    """One full expand (ncv steps from a random start) on ``op`` through
+    the kernels, then ||V^H V - I|| of its ncv + 1 rows (the Gram matrix in
+    float64 over column blocks)."""
+    from quantum_basis_tpu_torch.solvers import restarted
+
+    kry = restarted._Krylov(op, n, ncv, complex_vec)
+    x = restarted._random_start(op, n, 1, complex_vec, kry.V.device)
+    kry.V[0] = restarted._projected(op, x, getattr(op, "mask", None)).to(
+        kry.dtype)
+    del x
+    _, bs = kry.expand(0, ncv)
+    G = torch.zeros((ncv + 1, ncv + 1), dtype=torch.complex128
+                    if complex_vec else torch.float64, device=kry.V.device)
+    for c0 in range(0, n, 1 << 24):
+        blk = kry.V[:, c0: c0 + (1 << 24)].to(G.dtype)
+        G += blk.conj() @ blk.T
+    err = float((G - torch.eye(ncv + 1, dtype=G.dtype,
+                               device=G.device)).abs().max())
+    print(f"check 19 {tag}: ||V^H V - I|| after {ncv} steps {err:.3e} "
+          f"(tol {tol}; betas {bs[:ncv].min():.3e}..{bs[:ncv].max():.3e})",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"19 {tag}: basis not orthonormal, {err:.3e}")
+    del kry, G
+    torch.cuda.empty_cache()
+    return err
+
+
+def krylov_run(dev):
+    """Phase 19: the K6 kernels (csrc/krylov.cu) against their plain
+    versions on the card at the main path's two shapes, the Hubbard 4x4 f32
+    basis (n = 165,636,900, ncv 12: 662.5 MB a vector) and chain-24 Sz=0 in
+    f64 (n = 2,704,156): a step at r = 4, 8 and 13 (kernels, plain
+    versions, the torch CGS2 they replaced, bound), each pass alone and a
+    compaction at r = 8, m = 12; then ||V^H V - I|| after one full expand
+    on each sector's operator (f32 1e-5, f64 1e-12). Returns the record."""
+    from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
+        build_factorized)
+    from torch_zoo import heisenberg_chain
+
+    t19 = time.perf_counter()
+    errs = {}
+    out = {"card": card_line()}
+    out["hubbard4x4"] = k6_case("hubbard4x4 f32", torch.float32,
+                                HUBBARD4X4_DIMS[1], dev, (4, 8, 13), 8, errs)
+    out["chain24"] = k6_case("chain24 f64", torch.float64, DIM_24, dev,
+                             (4, 8, 13), 8, errs)
+    pm, _ = build_factorized(4, 4, device=dev)
+    op = pm.op(torch.float32)
+    out["hubbard4x4"]["orthogonality"] = k6_orthogonality(
+        "hubbard4x4 f32 KronOp", op, op.N, False, 1e-5)
+    del pm, op
+    torch.cuda.empty_cache()
+    m, ops = heisenberg_chain(24, device=dev)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    mv = m.sec_full[0].matvec
+    out["chain24"]["orthogonality"] = k6_orthogonality(
+        "chain24 f64 MatvecFull", mv, mv.n, False, 1e-12)
+    del m, mv
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = errs
+    out["s"] = time.perf_counter() - t19
+    print("krylov", json.dumps(out), flush=True)
+    print(f"phase 19: {out['s']:.1f} s", flush=True)
+    return out
+
+
+def k6_launches(tag, steps):
+    """The K6 launches of a solve of ``steps`` Krylov steps (set to 0 just
+    before it): the four step kernels once a step (r <= 16 at ncv 12; the
+    solve made no restart vector), the compaction at least once."""
+    from quantum_basis_tpu_torch.ops import krylov
+
+    got = dict(krylov.launches)
+    print(f"check {tag} K6 launches {got} for {steps} steps", flush=True)
+    step_kernels = [got[k] for k in krylov.KERNELS[:4]]
+    if step_kernels != [steps] * 4 or not 0 < got["krylov_compact"] <= steps:
+        raise AssertionError(f"{tag}: K6 launches {got} for {steps} Krylov "
+                             "steps")
+    return got
+
+
 def _spy(module, name, seen, tag):
     """Wrap module.name so that each call appends ``tag(*args, **kw)`` to
     ``seen``; returns the original for the caller to put back."""
@@ -3781,9 +4121,9 @@ def profile_windows(dev):
 
 
 def main() -> int:
-    """Phases 1-13, 16-18 and 15 on one card; or one mode: ``--profile``,
+    """Phases 1-13, 16-19 and 15 on one card; or one mode: ``--profile``,
     ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--apply-rows``
-    (phase 18), ``--gaps``,
+    (phase 18), ``--krylov`` (phase 19), ``--gaps``,
     ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
@@ -3832,6 +4172,12 @@ def main() -> int:
         apply.build_library(verbose=True)
         apply_rows_run("cuda")
         return 0
+    if "--krylov" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import krylov
+
+        krylov.build_library(verbose=True)
+        krylov_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -3851,16 +4197,18 @@ def main() -> int:
         print(f"chain24 ELL E0 {m.eigenvals_full[0]!r}", flush=True)
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
-    from quantum_basis_tpu_torch.ops import apply, apply_kron, cuda_build
+    from quantum_basis_tpu_torch.ops import (apply, apply_kron, cuda_build,
+                                             krylov)
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
-    cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC],
-                     verbose=True)
+    cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC,
+                      krylov._SRC], verbose=True)
     bsr_mod.build_library()
     apply_kron.build_library()
     apply.build_library()
+    krylov.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     dev = "cuda"
@@ -3868,7 +4216,8 @@ def main() -> int:
     with jax_bounds("fullspace_repr_max_blowup", "bsr_blowup_max",
                     "bsr_stored_max_bytes"):
         launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
-    launches5, wide, launches_k2 = full_sector_run(bsr_mod, dev, e0_chain20)
+    launches5, wide, launches_k2, launches_k6 = full_sector_run(
+        bsr_mod, dev, e0_chain20)
     launches += launches5
     with jax_bounds("fullspace_max_blowup", "fullspace_mixed_max_blowup"):
         engines_run(dev, wide)
@@ -3922,6 +4271,10 @@ def main() -> int:
     k2 = apply_rows_run(dev)
     print(f"phases 1-13, 16-18: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    k6 = krylov_run(dev)
+    print(f"phases 1-13, 16-19: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")
@@ -3970,6 +4323,29 @@ def main() -> int:
     } for name, line, err, keys in (
         ("apply_rows", 117, "max_abs_err", ("kagome24", "chain26")),
         ("scatter_rows", 242, "scatter_max_abs_err", ("scatter_szq",)))]}
+    # K6: launches in phase 5's chain-24 solve and phase 7's 4x4 solve (none
+    # when phase 7 was capped: one Lanczos cycle); times at the 4x4 f32
+    # basis, a step's passes at r = 8 and the compaction at m = 12
+    k6_main = k6["hubbard4x4"]["passes"]
+    record["kernels"] += [{
+        "name": name,
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/krylov.cu",
+        "replaces": "quantum_basis_tpu/solvers/restarted.py:"
+                    + ("153" if name == "krylov_compact" else "118"),
+        "launches": launches_k6[name] + prod["k6_launches"].get(name, 0),
+        "max_abs_err": k6["max_abs_err"][name],
+        "ms": k6_main[name]["ms"],
+        "plain_ms": k6_main[name]["plain_ms"],
+        "bound_ms": k6_main[name]["bound_ms"],
+        "bound_by": k6_main[name]["bound_by"],
+        "library_ms": k6_main[name]["library_ms"],
+        "device_ms": k6_main[name]["device_ms"],
+        # chain-24 f64, the same pass
+        "shapes": {"chain24_f64": {f: k6["chain24"]["passes"][name][f]
+                                   for f in ("ms", "device_ms", "plain_ms",
+                                             "bound_ms", "library_ms")}},
+    } for name in krylov.KERNELS]
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

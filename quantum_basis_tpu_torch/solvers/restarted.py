@@ -3,12 +3,13 @@ reference: src/lanczos.cc:393-603 ``iram``/``call_arpack``).
 
 Port of ``quantum_basis_tpu.solvers.restarted.eigs_smallest``. A fixed-size
 device basis V (ncv+1, n) of complex (or real) vectors of the operator's
-working precision; each step does CGS2 reorthogonalization (two products
-V^H w and V^T h), so the projected Rayleigh matrix is exact; at each restart
-the best ``keep`` Ritz vectors are compacted by one (keep, m) x (m, n)
-product and the iteration continues thick-restarted [Wu & Simon, SIAM J.
-Matrix Anal. 22(2)]. Degenerate levels are recovered by a deflate-and-verify
-pass.
+working precision; each step does CGS2 reorthogonalization (twice V^H w and
+w - V^T h), so the projected Rayleigh matrix is exact; at each restart the
+best ``keep`` Ritz vectors are compacted in place, [S^T V ; v_m], and the
+iteration continues thick-restarted [Wu & Simon, SIAM J. Matrix Anal.
+22(2)]. Both run in ops/krylov.py (K6): fused CUDA kernels on the card,
+their plain versions on the CPU. Degenerate levels are recovered by a
+deflate-and-verify pass.
 
 Operators are callables ``y = op(x)`` on 1-d tensors with attributes
 ``dtype`` (float32 or float64: the working precision), ``device`` and
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from quantum_basis_tpu_torch import config
+from quantum_basis_tpu_torch.ops import krylov
 from quantum_basis_tpu_torch.solvers.reduce import (
     ckpt_store,
     dot,
@@ -103,7 +105,8 @@ class DeflatedMatvec:
 
 
 class _Krylov:
-    """The basis-buffer operations of one solve (CGS2 steps, compaction)."""
+    """The basis-buffer operations of one solve (CGS2 steps, compaction),
+    on the kernels of ops/krylov.py (their plain versions on the CPU)."""
 
     def __init__(self, matvec, n, ncv, complex_vec):
         self.matvec = matvec
@@ -111,56 +114,52 @@ class _Krylov:
         self.rows = ncv + 1
         self.dtype = _vec_dtype(matvec.dtype, complex_vec)
         lo, hi = span_of(matvec, n)
+        dev = matvec.device
         self.V = torch.zeros((self.rows, hi - lo), dtype=self.dtype,
-                             device=matvec.device)
-
-    def _cgs2(self, w, j):
-        """Orthogonalize w against rows 0..j twice; returns (w, h (j+1,))."""
-        Vj = self.V[: j + 1]
-        h1 = dot(Vj, w, self.mesh)
-        w = w - h1 @ Vj
-        h2 = dot(Vj, w, self.mesh)
-        w = w - h2 @ Vj
-        return w, h1 + h2
+                             device=dev)
+        self.ws = krylov.Workspace(self.rows, hi - lo, self.dtype, dev,
+                                   self.mesh)
+        # the projection columns and betas of the steps, written in place
+        # by every expand (entries no step of a call writes are zeroed on
+        # the host)
+        self.H = torch.zeros((self.rows, self.rows), dtype=self.dtype,
+                             device=dev)
+        self.bvec = torch.zeros(self.rows, dtype=self.V.real.dtype,
+                                device=dev)
 
     def expand(self, m0, ncv):
         """Steps m0..ncv-1 with no host sync: returns the projection columns
         H (rows, rows) and the betas (rows,), both on the host. A breakdown
         (beta <= 1e-13) zeroes the next vector, so later columns are zeros."""
-        H = torch.zeros((self.rows, self.rows), dtype=self.dtype,
-                        device=self.V.device)
-        bvec = torch.zeros(self.rows, dtype=self.V.real.dtype,
-                           device=self.V.device)
         for j in range(m0, ncv):
             y = self.matvec(self.V[j]).to(self.dtype)
-            y, h = self._cgs2(y, j)
-            b = norm(y, self.mesh)
-            inv = torch.where(b > _BREAKDOWN,
-                              1.0 / torch.clamp(b, min=_BREAKDOWN), 0.0)
-            self.V[j + 1] = y * inv
-            H[: j + 1, j] = h
-            bvec[j] = b
-        return (H.cpu().numpy().astype(np.complex128),
-                bvec.cpu().numpy().astype(np.float64))
+            krylov.cgs2(self.V, j + 1, y, j + 1, self.ws,
+                        h_out=self.H[: j + 1, j],
+                        beta_out=self.bvec[j: j + 1])
+        H = self.H.cpu().numpy().astype(np.complex128)
+        bvec = self.bvec.cpu().numpy().astype(np.float64)
+        H[:, :m0] = 0.0     # an earlier call's columns
+        bvec[:m0] = 0.0
+        return H, bvec
 
     def insert_random(self, r, j, row):
-        """Orthogonalize r against rows 0..j, normalize, put it at ``row``."""
-        r, _ = self._cgs2(torch.as_tensor(r, device=self.V.device).to(
-            self.dtype), j)
-        b = float(norm(r, self.mesh))
-        self.V[row] = r / max(b, _BREAKDOWN)
-        return b
+        """Orthogonalize r (the basis' type, on its device) against rows
+        0..j, normalize, put it at ``row``; returns its norm."""
+        krylov.cgs2(self.V, j + 1, r, row, self.ws, zero_breakdown=False)
+        return float(self.ws.beta[0])
 
     def compact(self, S, m):
-        """Thick restart: rows <- [S^T V ; v_m] for S (rows, keep)."""
-        keep = S.shape[1]
-        Sd = torch.as_tensor(S, device=self.V.device).to(self.dtype)
-        Y = Sd.T @ self.V
-        vm = self.V[m].clone()
-        self.V.zero_()
-        self.V[:keep] = Y
-        self.V[keep] = vm
-        return Y
+        """Thick restart: rows <- [S^T V ; v_m] for S (rows, keep) whose
+        rows from m on are zero; returns the new rows 0..keep-1."""
+        if np.any(S[m:]):
+            raise ValueError("compact: S has nonzero rows past m")
+        Sd = torch.as_tensor(np.ascontiguousarray(
+            S[:m], dtype=_NP_DTYPES[self.dtype]), device=self.V.device)
+        return krylov.krylov_compact(self.V, Sd, m)
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def _host_vec(re, im, complex_vec):
@@ -305,7 +304,7 @@ def _eigs_core(matvec, n, nev=2, ncv=12, maxit=1000, tol=1e-10, seed=1,
                 r = _projected(matvec, _random_start(
                     matvec, n, rng_seed, complex_vec, kry.V.device), mask)
                 rng_seed += 7
-                bnorm = kry.insert_random(r, stop, stop + 1)
+                bnorm = kry.insert_random(r.to(kry.dtype), stop, stop + 1)
                 if bnorm < _BREAKDOWN * 10 or m >= n:
                     break
 

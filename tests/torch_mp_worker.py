@@ -4,12 +4,13 @@ Usage: torch_mp_worker.py <rank> <ranks> <rendezvous file> <suite> <out dir>
 
 Starts this rank with ``init_distributed`` (file:// rendezvous), builds the
 basis mesh on the CPU, runs every case of the suite ("sort", "sharded",
-"model", "ckpt", "mesh4" or "kron_ell", below) on the port
+"model", "ckpt", "mesh4", "kron_ell" or "krylov", below) on the port
 (quantum_basis_tpu_torch, no JAX), and writes ``<out dir>/<suite>_r<rank>.npz``
 (arrays) and ``.json`` (scalars). The tests (tests/test_torch_sample_sort.py,
 test_torch_sharded.py, test_torch_model_mesh.py, test_torch_mesh_ckpt.py,
-test_torch_mesh4.py, test_torch_kron_ell.py) hold them against the JAX
-package on a P-device mesh, or against the port's single-device engine.
+test_torch_mesh4.py, test_torch_kron_ell.py, test_torch_krylov.py) hold them
+against the JAX package on a P-device mesh, or against the port's
+single-device engine.
 Inputs are made from seeds with numpy, as the tests make them."""
 
 from __future__ import annotations
@@ -365,7 +366,75 @@ def suite_kron_ell(mesh, arrays, scalars):
                 scalars[tag + "_na"] = sh.na
 
 
+# the krylov suite's basis: ncv vectors (rows ncv + 1), the row and step
+# of its restart vector, and the vectors a compaction keeps
+KRYLOV_NCV = 8
+KRYLOV_INSERT = 4
+KRYLOV_KEEP = 3
+
+
+def krylov_ells():
+    """(name, the port's ELL, complex) of the krylov suite: chain-12 Sz=0
+    (real, dim 924) and its k=2 momentum sector (complex)."""
+    m, c = tz.heisenberg_chain(12)
+    m.enumerate_basis_full([c["Sz"]], [0.0])
+    yield "chain12", m.generate_Ham_sparse_full(0), False
+    m.enumerate_basis_repr([2], [c["Sz"]], [0.0])
+    yield "chain12_k2", m.generate_Ham_sparse_repr(0), True
+
+
+def krylov_sequence(op, n_logical, complex_vec, mesh=None):
+    """One basis of solvers/restarted.py::_Krylov on ``op`` (a sharded
+    engine with ``mesh``): a random start row, ``expand(0, KRYLOV_NCV)``, a
+    random restart vector through ``insert_random`` after row
+    KRYLOV_INSERT, then a compaction by a fixed orthonormal S. Returns the
+    whole basis after each of the three (rows, n_logical), the projection
+    columns and betas, and the restart vector's norm."""
+    from quantum_basis_tpu_torch.solvers.restarted import _Krylov
+
+    n = getattr(op, "n_pad", n_logical)
+    lo, hi = getattr(op, "span", None) or (0, n)
+    kry = _Krylov(op, n, KRYLOV_NCV, complex_vec)
+
+    def rand_row(seed):
+        x = np.zeros(n, dtype=np.complex128 if complex_vec else np.float64)
+        x[:n_logical] = tz.rand_vec(n_logical, complex_vec, seed)
+        x /= np.linalg.norm(x)
+        return torch.as_tensor(x[lo:hi]).to(kry.dtype)
+
+    def whole(V):
+        if mesh is not None:
+            V = mesh.all_gather(V.T.contiguous()).T
+        return V[:, :n_logical].numpy().copy()
+
+    out = {}
+    kry.V[0] = rand_row(21)
+    out["H"], out["b"] = kry.expand(0, KRYLOV_NCV)
+    out["V_expand"] = whole(kry.V)
+    out["b_insert"] = kry.insert_random(rand_row(22), KRYLOV_INSERT,
+                                        KRYLOV_INSERT + 1)
+    out["V_insert"] = whole(kry.V)
+    q, _ = np.linalg.qr(np.random.default_rng(23).standard_normal(
+        (KRYLOV_NCV, KRYLOV_KEEP)))
+    S = np.zeros((KRYLOV_NCV + 1, KRYLOV_KEEP))
+    S[:KRYLOV_NCV] = q
+    kry.compact(S.astype(np.complex128) if complex_vec else S, KRYLOV_NCV)
+    out["V_compact"] = whole(kry.V)
+    return out
+
+
+def suite_krylov(mesh, arrays, scalars):
+    """krylov_sequence on EllShardedHalo engines of krylov_ells()
+    (tests/test_torch_krylov.py holds them against one device)."""
+    for name, ell, cv in krylov_ells():
+        out = krylov_sequence(EllShardedHalo(ell, mesh), ell.n, cv, mesh)
+        scalars[f"{name}_b_insert"] = out.pop("b_insert")
+        for key, a in out.items():
+            arrays[f"{name}_{key}"] = a
+
+
 SUITES = {"sort": lambda mesh, a, s, out: suite_sort(mesh, a, s),
+          "krylov": lambda mesh, a, s, out: suite_krylov(mesh, a, s),
           "kron_ell": lambda mesh, a, s, out: suite_kron_ell(mesh, a, s),
           "sharded": lambda mesh, a, s, out: suite_sharded(mesh, a, s),
           "model": suite_model, "ckpt": suite_ckpt, "mesh4": suite_mesh4}
