@@ -271,16 +271,19 @@ Phases (any failure raises, so the exit code is nonzero):
    the plain versions, the torch CGS2 they replaced) checked (f64 1e-12,
    f32 1e-5 of max|y|, or of 1 for inner products of unit vectors) and
    timed (CUDA events; the four launches' torch.profiler device time); at r
-   = 8 each pass alone (and krylov_project beside one cuBLAS GEMV) and a
-   compaction of m = 12 rows to 3 (beside the GEMM S^T V), with bounds
-   from this run's shapes (bytes: (r + 1), (r + 2), (r + 2) and 2 vectors a
-   pass, (m + 1) + 13 for the compaction; over 3.35 TB/s); then
-   ||V^H V - I|| after one full expand of 12 steps on the 4x4 f32 KronOp
-   (1e-5) and on chain-24's MatvecFull (1e-12). Phases 5 and 7 reset the
-   K6 counts before their chain-24 and 4x4 solves and assert one launch of
-   each step kernel per Krylov step (the solve's applies; the f32 stage's
-   at 4x4) and at least one compaction; the kernel record's K6 launches
-   are those two solves'.
+   = 8 each pass alone; krylov_project at r = 4, 8 and 13 beside one cuBLAS
+   GEMV, and the compaction of m + 1 rows to 3 at m = 4, 8, 12 (the main
+   path's) and 13 beside the GEMM S^T V, each checked against its plain
+   version; with bounds from this run's shapes (bytes: (r + 1), (r + 2),
+   (r + 2) and 2 vectors a pass, 2 (m + 1) for the compaction; over 3.35
+   TB/s); on chain-24's dim the compaction of 120 rows (past the 113 the
+   first kernel staged) in float64 and complex128 to keep 3, 59 and 99
+   against the plain version (1e-12); then ||V^H V - I|| after one full
+   expand of 12 steps on the 4x4 f32 KronOp (1e-5) and on chain-24's
+   MatvecFull (1e-12). Phases 5 and 7 reset the K6 counts before their
+   chain-24 and 4x4 solves and assert one launch of each step kernel per
+   Krylov step (the solve's applies; the f32 stage's at 4x4) and at least
+   one compaction; the kernel record's K6 launches are those two solves'.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -3594,7 +3597,7 @@ def k6_case(tag, dt, n, dev, rs, main_r, errs, ncv=12):
     # each pass alone at main_r, from the same inputs for the kernel and
     # its plain version (w has norm 1, the rows too)
     r = main_r
-    Vc = V[: ncv + 1].clone()       # the compaction's input, kept apart
+    Vc = V.clone()                  # the compactions' input, kept apart
     krylov.krylov_project(V, 0, r, w, ws.h1)
     krylov._project_plain(V, 0, r, w, wp.h1)
     _k6_err("krylov_project", ws.h1[:r].sum(1), wp.h1[:r].sum(1), tol,
@@ -3653,42 +3656,115 @@ def k6_case(tag, dt, n, dev, rs, main_r, errs, ncv=12):
         rec["passes"][name] = p
         print(f"19 {tag} {name} r={r}: {json.dumps(p)}", flush=True)
 
-    # one compaction, m = ncv, keep K6_KEEP, on copies of the basis (the
-    # timed passes above left row r scaled many times over)
+    # krylov_project alone at each r of the steps, beside one GEMV
+    rec["project_by_r"] = {}
+    for rr in rs:
+        krylov.krylov_project(V, 0, rr, w, ws.h1)
+        krylov._project_plain(V, 0, rr, w, wp.h1)
+        _k6_err("krylov_project", ws.h1[:rr].sum(1), wp.h1[:rr].sum(1), tol,
+                errs, 1.0)
+        bound, by = k6_bound((rr + 1) * n * s, cf * rr * n, dt)
+        rec["project_by_r"][str(rr)] = p = {
+            "ms": cuda_ms(lambda: krylov.krylov_project(V, 0, rr, w, ws.h1),
+                          samples=5, per_sample=3),
+            "library_ms": cuda_ms(lambda: V[:rr].conj() @ w, samples=5,
+                                  per_sample=3),
+            "bound_ms": bound, "bound_by": by}
+        print(f"19 {tag} krylov_project r={rr}: {json.dumps(p)}", flush=True)
+
+    # the compaction of a basis of m + 1 rows (a restart at ncv = m) to
+    # K6_KEEP, at m = ncv (the main path's) and at the steps' r, on copies
+    # of the basis (the timed passes above left row r scaled many times
+    # over), each checked and timed beside the GEMM S^T V alone
     del V
-    m = ncv
-    q, _ = np.linalg.qr(np.random.default_rng(29).standard_normal((m,
-                                                                   K6_KEEP)))
-    S = torch.as_tensor(q, device=dev).to(dt).contiguous()
-    Vk = Vc.clone()
-    krylov.krylov_compact(Vk, S, m)
-    krylov._compact_plain(Vc, S, m)
-    _k6_err("krylov_compact", Vk, Vc, tol, errs)
-    if Vk[K6_KEEP + 1:].any():
-        raise AssertionError("19 compact: rows past keep + 1 not zero")
-    del Vc
-    bound, by = k6_bound((m + 1 + ncv + 1) * n * s, cf * K6_KEEP * m * n, dt)
-    Sw = S.T.contiguous()
-
-    def compact_kern():
+    rec["compact_by_m"] = {}
+    for m in sorted({ncv, *rs}):
+        q, _ = np.linalg.qr(np.random.default_rng(29 + m).standard_normal(
+            (m, K6_KEEP)))
+        S = torch.as_tensor(q, device=dev).to(dt).contiguous()
+        Vk, Vp = Vc[: m + 1].clone(), Vc[: m + 1].clone()
         krylov.krylov_compact(Vk, S, m)
+        krylov._compact_plain(Vp, S, m)
+        _k6_err("krylov_compact", Vk, Vp, tol, errs)
+        if Vk[K6_KEEP + 1:].any():
+            raise AssertionError("19 compact: rows past keep + 1 not zero")
+        del Vp
+        bound, by = k6_bound(2 * (m + 1) * n * s, cf * K6_KEEP * m * n, dt)
+        Sw = S.T.contiguous()
 
-    def compact_plain():
-        krylov._compact_plain(Vk, S, m)
+        def compact_kern():
+            krylov.krylov_compact(Vk, S, m)
 
-    rec["passes"]["krylov_compact"] = p = {
-        "ms": cuda_ms(compact_kern, samples=5, per_sample=2),
-        "device_ms": kernel_device_ms(compact_kern, ("krylov_compact",),
-                                      reps=3)["krylov_compact"],
-        "plain_ms": cuda_ms(compact_plain, samples=3, per_sample=1),
-        # one GEMM, S^T V, the compaction's product alone
-        "library_ms": cuda_ms(lambda: Sw @ Vk[:m], samples=3,
-                              per_sample=1),
-        "bound_ms": bound, "bound_by": by, "m": m, "keep": K6_KEEP}
-    print(f"19 {tag} krylov_compact m={m}: {json.dumps(p)}", flush=True)
-    del Vk, w, ws, wp, S, Sw
+        p = {"ms": cuda_ms(compact_kern, samples=5, per_sample=2),
+             # one GEMM, S^T V, the compaction's product alone
+             "library_ms": cuda_ms(lambda: Sw @ Vk[:m], samples=3,
+                                   per_sample=1),
+             "bound_ms": bound, "bound_by": by, "m": m, "keep": K6_KEEP}
+        if m == ncv:
+            p["device_ms"] = kernel_device_ms(
+                compact_kern, ("krylov_compact",), reps=3)["krylov_compact"]
+            p["plain_ms"] = cuda_ms(lambda: krylov._compact_plain(Vk, S, m),
+                                    samples=3, per_sample=1)
+            # a copy_ of the bytes the compaction must move ((m + 1) rows
+            # read, as many written): what a plain stream reaches here
+            Vd = torch.empty_like(Vk)
+            p["copy_ms"] = cuda_ms(lambda: Vd.copy_(Vk), samples=3,
+                                   per_sample=2)
+            del Vd
+            rec["passes"]["krylov_compact"] = p
+        rec["compact_by_m"][str(m)] = p
+        print(f"19 {tag} krylov_compact m={m}: {json.dumps(p)}", flush=True)
+        del Vk, S, Sw
+    del Vc, w, ws, wp
     torch.cuda.empty_cache()
     return rec
+
+
+def k6_wide_compact(dev, errs, rows=120):
+    """Phase 19: the compaction of rows = 120 (past the 113 the first
+    kernel staged) on chain-24's dim in float64 and complex128 (2.6 / 5.2 GB
+    of basis), to keep 3 (the main path's form), m // 2 = 59 (one chunk of
+    sums, 16 threads a column) and 99 (two chunks, the first kept in the
+    stash), against the plain version on the card (1e-12), the rows past
+    keep + 1 zero; timed beside the GEMM."""
+    from quantum_basis_tpu_torch.ops import krylov
+
+    out = {}
+    m = rows - 1
+    for dt in (torch.float64, torch.complex128):
+        s = torch.empty(0, dtype=dt).element_size()
+        cf = 8 if dt.is_complex else 2
+        V = _k6_basis(dt, rows, DIM_24, dev, 31)
+        for keep in (K6_KEEP, m // 2, 99):
+            rng = np.random.default_rng(37 + keep)
+            q = rng.standard_normal((m, keep))
+            if dt.is_complex:
+                q = q + 1j * rng.standard_normal((m, keep))
+            q, _ = np.linalg.qr(q)
+            S = torch.as_tensor(q, device=dev).to(dt).contiguous()
+            Vk, Vp = V.clone(), V.clone()
+            krylov.krylov_compact(Vk, S, m)
+            krylov._compact_plain(Vp, S, m)
+            _k6_err("krylov_compact", Vk, Vp, 1e-12, errs)
+            if Vk[keep + 1:].any():
+                raise AssertionError("19 wide compact: rows past keep + 1 "
+                                     "not zero")
+            del Vp
+            bound, by = k6_bound(2 * rows * DIM_24 * s,
+                                 cf * keep * m * DIM_24, dt)
+            Sw = S.T.contiguous()
+            p = {"ms": cuda_ms(lambda: krylov.krylov_compact(Vk, S, m),
+                               samples=3, per_sample=1),
+                 "library_ms": cuda_ms(lambda: Sw @ Vk[:m], samples=3,
+                                       per_sample=1),
+                 "bound_ms": bound, "bound_by": by}
+            out[f"{str(dt)[6:]}_keep{keep}"] = p
+            print(f"19 chain24 {str(dt)[6:]} krylov_compact rows={rows} "
+                  f"keep={keep}: {json.dumps(p)}", flush=True)
+            del Vk, S, Sw
+        del V
+        torch.cuda.empty_cache()
+    return out
 
 
 def k6_orthogonality(tag, op, n, complex_vec, tol, ncv=12):
@@ -3725,9 +3801,11 @@ def krylov_run(dev):
     versions on the card at the main path's two shapes, the Hubbard 4x4 f32
     basis (n = 165,636,900, ncv 12: 662.5 MB a vector) and chain-24 Sz=0 in
     f64 (n = 2,704,156): a step at r = 4, 8 and 13 (kernels, plain
-    versions, the torch CGS2 they replaced, bound), each pass alone and a
-    compaction at r = 8, m = 12; then ||V^H V - I|| after one full expand
-    on each sector's operator (f32 1e-5, f64 1e-12). Returns the record."""
+    versions, the torch CGS2 they replaced, bound), each pass alone at r =
+    8, krylov_project at each r beside a GEMV and the compaction at m = 4,
+    8, 12, 13 beside a GEMM; the compaction of 120 rows on chain-24's dim;
+    then ||V^H V - I|| after one full expand on each sector's operator (f32
+    1e-5, f64 1e-12). Returns the record."""
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized)
     from torch_zoo import heisenberg_chain
@@ -3739,6 +3817,7 @@ def krylov_run(dev):
                                 HUBBARD4X4_DIMS[1], dev, (4, 8, 13), 8, errs)
     out["chain24"] = k6_case("chain24 f64", torch.float64, DIM_24, dev,
                              (4, 8, 13), 8, errs)
+    out["chain24"]["compact_wide"] = k6_wide_compact(dev, errs)
     pm, _ = build_factorized(4, 4, device=dev)
     op = pm.op(torch.float32)
     out["hubbard4x4"]["orthogonality"] = k6_orthogonality(
@@ -4346,6 +4425,15 @@ def main() -> int:
                                    for f in ("ms", "device_ms", "plain_ms",
                                              "bound_ms", "library_ms")}},
     } for name in krylov.KERNELS]
+    # the two kernels that a library call also computes, at each r (m)
+    for rec in record["kernels"][-5:]:
+        key = {"krylov_project": "project_by_r",
+               "krylov_compact": "compact_by_m"}.get(rec["name"])
+        if key:
+            rec["by_size"] = {case: k6[case][key]
+                              for case in ("hubbard4x4", "chain24")}
+    record["kernels"][-1]["by_size"]["chain24_wide"] = \
+        k6["chain24"]["compact_wide"]
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,14 +19,19 @@ card), ``chain24``, the float64 matrix-free apply of the Heisenberg chain
 L = 24 Sz = 0 (dim 2,704,156; ncv 12, as ``Model.locate_E0_lanczos``). A
 case runs a first cycle from one start vector (warm-up), a second timed by
 the host clock, and a third traced; ``compact`` takes a random orthonormal
-(ncv + 1, 3) matrix, the shape of a restart at nev = 1 (its values do not
-change the cost). With ``--solve`` each case's whole solve is timed as well:
+(ncv + 1, keep) matrix, keep 3 the shape of a restart at nev = 1 (its values
+do not change the cost). ``--shapes NCV:KEEP,...`` sets the cycles'
+shapes, one cycle record each (a restart at nev >= 2 keeps 2 nev;
+``locate_E0_lanczos`` takes ncv = max(12, 2 nev + 6)). Each K6 kernel's device time and launches in the
+traced cycle are recorded by name, and the compaction of that shape is
+timed alone (CUDA events, median of 7) beside one GEMM S^T V[:ncv], its
+product. With ``--solve`` each case's whole solve is timed as well:
 ``ProductModel.locate_E0_lanczos`` with its ``solve_info`` (``f32_stage_s``,
 ``polish_s``, the applies of both precisions; beside it the host time of the
 f32 stage's start vector), and the chain's
 ``locate_E0_lanczos("full")`` with its applies.
 
-Run:  python -m quantum_basis_tpu_torch.benchmarks.krylov_trace [--cases hubbard4x4,chain24] [--solve] [--out PATH]
+Run:  python -m quantum_basis_tpu_torch.benchmarks.krylov_trace [--cases hubbard4x4,chain24] [--shapes NCV:KEEP,...] [--solve] [--out PATH]
 
 To trace another tree of the package (a parent commit unpacked in DIR):
 ``cd DIR && PYTHONPATH=. python <this file> ...``.
@@ -49,6 +54,8 @@ APPLY_KERNELS = ("kron_ell", "apply_rows")
 GEMV_KERNELS = ("gemv", "dot_kernel", "reduce_1Block")
 GEMM_KERNELS = ("gemm", "splitKreduce")
 KEEP = 3   # Ritz vectors a restart keeps at nev = 1: nev + max(2, nev)
+K6 = ("krylov_project", "krylov_subtract_project", "krylov_subtract_norm",
+      "krylov_scale", "krylov_compact")
 
 
 def _kind(name: str) -> str:
@@ -87,7 +94,7 @@ def _split(prof) -> dict:
             and e.cpu_parent is None]
     start = min(e.time_range.start for e in evs)
     end = max(e.time_range.end for e in evs)
-    by_kind, names = {}, {}
+    by_kind, names, k6 = {}, {}, {}
     busy = 0.0
     for e in kern:
         us = e.time_range.end - e.time_range.start
@@ -96,6 +103,11 @@ def _split(prof) -> dict:
         by_kind[k][0] += us
         by_kind[k][1] += 1
         names[e.name[:60]] = names.get(e.name[:60], 0.0) + us
+        for name in K6:
+            if name + "<" in e.name or e.name.startswith(name):
+                k6.setdefault(name, [0.0, 0])
+                k6[name][0] += us / 1e3
+                k6[name][1] += 1
         busy += us
     # the gaps between consecutive kernels, credited to the host ops that
     # overlap them
@@ -126,6 +138,8 @@ def _split(prof) -> dict:
         "gap_share": gaps / (busy + gaps),
         "by_kind_ms": {k: v[0] / 1e3 for k, v in by_kind.items()},
         "by_kind_kernels": {k: v[1] for k, v in by_kind.items()},
+        # each K6 kernel's [device ms, launches] in the window
+        "k6_kernels_ms": k6,
         "gaps_by_host_op_ms": {k: v / 1e3 for k, v in top},
         "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
             names.items(), key=lambda kv: -kv[1])[:8]},
@@ -140,8 +154,24 @@ def _orthonormal(rows: int, m: int, keep: int, seed: int) -> np.ndarray:
     return s
 
 
-def cycle_case(tag, op, n, ncv, device) -> dict:
-    """Three restart cycles on ``op`` (warm-up, host-timed, traced)."""
+def _events_ms(fn, samples=7) -> float:
+    """The median of ``samples`` CUDA-event times of one call of fn."""
+    fn()
+    out = []
+    for _ in range(samples):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def cycle_case(tag, op, n, ncv, keep, device) -> dict:
+    """Three restart cycles on ``op`` (warm-up, host-timed, traced) that
+    expand rows keep..ncv and compact to keep; then the compaction alone
+    beside the GEMM."""
     from torch.profiler import ProfilerActivity, profile
 
     kry = restarted._Krylov(op, n, ncv, False)
@@ -149,7 +179,7 @@ def cycle_case(tag, op, n, ncv, device) -> dict:
     kry.V[0] = restarted._projected(op, x, getattr(op, "mask", None)).to(
         kry.dtype)
     del x
-    S = _orthonormal(ncv + 1, ncv, KEEP, 7)
+    S = _orthonormal(ncv + 1, ncv, keep, 7)
 
     def one(m0):
         kry.expand(m0, ncv)
@@ -158,23 +188,33 @@ def cycle_case(tag, op, n, ncv, device) -> dict:
     one(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    one(KEEP)
+    one(keep)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     before = _launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        one(KEEP)
+        one(keep)
         torch.cuda.synchronize()
     after = _launches()
-    steps = ncv - KEEP
+    steps = ncv - keep
     s = kry.V.element_size()
     rec = {"case": tag, "card": card_line(device), "dim": n, "ncv": ncv,
-           "dtype": str(kry.dtype), "steps": steps,
-           "rows_projected": [KEEP + 1, ncv], "cycle_host_ms": host_ms,
+           "keep": keep, "dtype": str(kry.dtype), "steps": steps,
+           "rows_projected": [keep + 1, ncv], "cycle_host_ms": host_ms,
            "step_host_ms": host_ms / steps}
     rec.update(_split(prof))
-    rs = range(KEEP + 1, ncv + 1)
+    # the compaction alone (its cost does not depend on V's values), and
+    # the GEMM of its product
+    from quantum_basis_tpu_torch.ops import krylov
+
+    Sd = torch.as_tensor(S[:ncv], device=kry.V.device).to(kry.dtype)
+    St = Sd.T.contiguous()
+    rec["compact_ms"] = _events_ms(
+        lambda: krylov.krylov_compact(kry.V, Sd, ncv))
+    rec["gemm_ms"] = _events_ms(lambda: St @ kry.V[:ncv])
+    del Sd, St
+    rs = range(keep + 1, ncv + 1)
     # the bytes each design must move in this cycle's steps
     rec["torch_gemv_bytes"] = sum(4 * (r + 1) * n * s for r in rs)
     rec["k6_bytes"] = (sum((3 * r + 7) * n * s for r in rs)
@@ -195,16 +235,19 @@ def cycle_case(tag, op, n, ncv, device) -> dict:
     return rec
 
 
-def hubbard4x4(device, solve) -> list:
+def hubbard4x4(device, solve, shapes=None) -> list:
     from quantum_basis_tpu_torch.benchmarks import hubbard4x4 as h44
     from quantum_basis_tpu_torch.examples.square_fermi_hubbard import (
         build_factorized)
 
     pm, _ = build_factorized(4, 4, device=device)
     op = pm.op(torch.float32)
-    ncv = config.memory("product_ncv", device)
-    out = [cycle_case("hubbard4x4 f32 KronOp", op, op.N, ncv, device)]
-    print("krylov_trace", json.dumps(out[-1]), flush=True)
+    out = []
+    for ncv, keep in shapes or [(config.memory("product_ncv", device),
+                                 KEEP)]:
+        out.append(cycle_case("hubbard4x4 f32 KronOp", op, op.N, ncv, keep,
+                              device))
+        print("krylov_trace", json.dumps(out[-1]), flush=True)
     if solve:
         # the host's share of the f32 stage: its start vector (a Lehmer
         # stream over all 165,636,900 entries, made on the host)
@@ -232,7 +275,7 @@ def hubbard4x4(device, solve) -> list:
     return out
 
 
-def chain24(device, solve) -> list:
+def chain24(device, solve, shapes=None) -> list:
     from quantum_basis_tpu_torch.examples.chain_heisenberg_spin_half import (
         build)
 
@@ -241,8 +284,11 @@ def chain24(device, solve) -> list:
     mv = m.sec_full[0].matvec
     if type(mv).__name__ != "MatvecFull" or m._fullspace_op(m.sec_full[0]):
         raise AssertionError("chain24: the sector is not on MatvecFull")
-    out = [cycle_case("chain24 f64 MatvecFull", mv, mv.n, 12, device)]
-    print("krylov_trace", json.dumps(out[-1]), flush=True)
+    out = []
+    for ncv, keep in shapes or [(12, KEEP)]:
+        out.append(cycle_case("chain24 f64 MatvecFull", mv, mv.n, ncv, keep,
+                              device))
+        print("krylov_trace", json.dumps(out[-1]), flush=True)
     if solve:
         n0, a0 = _launches(), mv.n_applies
         torch.cuda.synchronize()
@@ -264,15 +310,19 @@ def chain24(device, solve) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cases", default="hubbard4x4,chain24")
+    ap.add_argument("--shapes", default=None,
+                    help="NCV:KEEP,... (default: the case's ncv, keep 3)")
     ap.add_argument("--solve", action="store_true")
     ap.add_argument("--out", default=out_path("krylov_trace.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("krylov_trace: no CUDA device (it traces the card)")
+    shapes = ([tuple(int(v) for v in sh.split(":"))
+               for sh in args.shapes.split(",")] if args.shapes else None)
     recs = []
     for case in args.cases.split(","):
         recs += {"hubbard4x4": hubbard4x4, "chain24": chain24}[case](
-            "cuda", args.solve)
+            "cuda", args.solve, shapes)
     write_json(args.out, recs)
     return 0
 

@@ -30,6 +30,8 @@ So one step makes no host sync and calls no GEMV.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -47,10 +49,16 @@ launches = dict.fromkeys(KERNELS, 0)
 
 BREAKDOWN = 1e-13
 GROUP = 16                 # rows pass B keeps in registers (kGroup)
-THREADS = 256              # a block of the step's passes (kThreads)
-COMPACT_THREADS = 128      # a block of the compaction (kCompactThreads)
+THREADS = 256              # a block's computing threads (kThreads)
+COMPACT_STAGES = 4         # slots the compaction's ring holds
+COMPACT_REGS = 4           # sums a compaction thread holds in registers
+COMPACT_CHUNK = 64         # the most sums one pass over a tile holds
+COMPACT_WIDE = 4           # packs a thread takes of a row tile (kWide)
+COMPACT_SLOT = COMPACT_WIDE * THREADS   # packs a slot holds (16 KB)
+COMPACT_SLOT_ROWS = COMPACT_CHUNK // COMPACT_REGS   # rows a slot at most
 PARTS = 4 * 132            # the most partial sums a pass leaves
 SMEM_MAX = 232_448         # a block's dynamic shared memory on the H100
+SMEM_STATIC = 1024         # at most the kernels' static shared memory
 _CODES = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
           torch.complex128: 3}
 
@@ -87,8 +95,10 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
                                                  q, p, i, p]
         lib.qbt_krylov_scale.argtypes = [i, i, p, q, p, i, p, p, i, i, p, q,
                                          p, i, p]
-        lib.qbt_krylov_compact.argtypes = [i, i, p, q, q, i, i, p, i, p]
-        for name in KERNELS:
+        lib.qbt_krylov_compact.argtypes = [i, i, p, q, q, i, i, p, i, i, p,
+                                           p]
+        lib.qbt_krylov_compact_blocks.argtypes = [i, i, q, i]
+        for name in (*KERNELS, "krylov_compact_blocks"):
             getattr(lib, f"qbt_{name}").restype = i
         _lib = lib
     return _lib
@@ -235,9 +245,11 @@ def _packs(n: int, ld: int, *tensors) -> int:
 
 
 def _launch(name, fn, V, vec, *args):
-    with torch.cuda.device(V.device):
-        err = fn(_CODES[V.dtype], vec, *args,
-                 torch.cuda.current_stream(V.device).cuda_stream)
+    if V.device.index != torch.cuda.current_device():
+        with torch.cuda.device(V.device):
+            return _launch(name, fn, V, vec, *args)
+    err = fn(_CODES[V.dtype], vec, *args,
+             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     _count(name)
@@ -332,15 +344,68 @@ def krylov_scale(row, norm_parts, beta_out, zero_breakdown: bool,
             int(bool(zero_breakdown)))
 
 
-# The most rows (m + 1) the compaction kernel stages: 16 bytes a row for
-# each of its 128 threads
-COMPACT_MAX_ROWS = SMEM_MAX // (COMPACT_THREADS * 16)
+@dataclass(frozen=True)
+class CompactPlan:
+    """How ``krylov_compact``'s kernel cuts V (rows, nv packs): block b of
+    a grid takes the packs [nv b / grid, nv (b + 1) / grid) in column tiles
+    of ``tw`` packs (its last one short), G = COMPACT_SLOT / tw threads a
+    column; each tile's rows 0..m are streamed ``chunks`` times (once for
+    each COMPACT_REGS x G sums) through a ring of COMPACT_STAGES slots of G
+    rows (``bulk``), the chunks before the last kept in a stash of
+    ``stash`` packs a block; ``smem`` the dynamic shared-memory bytes a
+    block stages: the ring and two buffers of a slot's S entries
+    (COMPACT_SLOT_ROWS x COMPACT_CHUNK entries each). The grid is as many
+    blocks as the card holds at once, at most one a tile."""
+
+    nv: int
+    m: int
+    tw: int
+    chunks: int
+    bulk: bool
+    smem: int
+    stash: int
+
+    @property
+    def G(self) -> int:
+        return COMPACT_SLOT // self.tw
+
+    def loads(self, block: int, grid: int):
+        """The (row, first pack, packs) of each row tile block ``block`` of
+        ``grid`` reads, in the kernel's order."""
+        b0 = self.nv * block // grid
+        b1 = self.nv * (block + 1) // grid
+        for c0 in range(b0, b1, self.tw):
+            for _ in range(self.chunks):
+                for i in range(self.m + 1):
+                    yield i, c0, min(self.tw, b1 - c0)
+
+
+@functools.lru_cache(maxsize=64)
+def compact_plan(nv: int, m: int, keep: int, pack_bytes: int,
+                 item_bytes: int, bulk: bool = True) -> CompactPlan:
+    """The compaction's plan for rows 0..m of nv packs of ``pack_bytes``
+    (16 where the rows are 16-byte aligned and ``bulk``) of entries of
+    ``item_bytes``, and ``keep`` sums:
+    G = the least power of two with min(keep, COMPACT_CHUNK) <= G
+    COMPACT_REGS threads share a column, each holding at most COMPACT_REGS
+    sums a chunk, and a tile is COMPACT_SLOT / G packs (16 KB a row at G =
+    1); past COMPACT_CHUNK sums, one chunk of them a pass over the tile. The
+    ring is the same 64 KB at every keep."""
+    G = 1
+    while G * COMPACT_REGS < min(keep, COMPACT_CHUNK):
+        G *= 2
+    tw = COMPACT_SLOT // G
+    chunks = max(1, -(-keep // (G * COMPACT_REGS)))
+    smem = ((COMPACT_STAGES * COMPACT_SLOT * pack_bytes if bulk else 0)
+            + 2 * COMPACT_SLOT_ROWS * COMPACT_CHUNK * item_bytes)
+    return CompactPlan(nv, m, tw, chunks, bulk, smem,
+                       (chunks - 1) * G * COMPACT_REGS * tw)
 
 
 def krylov_compact(V, S, m: int):
     """Thick restart, in place: V[:keep] = S^T V[:m], V[keep] = the old
     V[m], the rows after zero, for S (m, keep) of V's type; returns
-    V[:keep]."""
+    V[:keep]. Any m and keep (compact_plan)."""
     keep = S.shape[1] if S.dim() == 2 else -1
     if _on_cpu(V):
         _compact_plain(V, S, m)
@@ -353,10 +418,22 @@ def krylov_compact(V, S, m: int):
         raise ValueError(f"krylov_compact: S must be a contiguous {V.dtype} "
                          f"(m, keep) with keep <= m < {rows}, got "
                          f"{tuple(S.shape)} at m = {m}")
-    if m + 1 > COMPACT_MAX_ROWS:
-        raise ValueError(f"krylov_compact: {m + 1} rows exceed the "
-                         f"{COMPACT_MAX_ROWS} the kernel stages")
-    _launch("krylov_compact", build_library().qbt_krylov_compact, V,
-            _packs(V.shape[1], V.stride(0), V), V.data_ptr(), V.stride(0),
-            V.shape[1], rows, m, S.data_ptr(), keep)
+    vec = _packs(V.shape[1], V.stride(0), V)
+    pack = 16 if vec else V.element_size()
+    plan = compact_plan(V.shape[1] * V.element_size() // pack, m, keep, pack,
+                        V.element_size(), bool(vec))
+    lib = build_library()
+    stash = None
+    if plan.stash:
+        with torch.cuda.device(V.device):
+            grid = lib.qbt_krylov_compact_blocks(_CODES[V.dtype], vec,
+                                                 V.shape[1], plan.tw)
+        if grid <= 0:
+            raise RuntimeError("krylov_compact: the grid query failed: "
+                               f"cudaError {-grid}")
+        stash = torch.empty(grid * plan.stash * pack // V.element_size(),
+                            dtype=V.dtype, device=V.device)
+    _launch("krylov_compact", lib.qbt_krylov_compact, V, vec, V.data_ptr(),
+            V.stride(0), V.shape[1], rows, m, S.data_ptr(), keep, plan.tw,
+            None if stash is None else stash.data_ptr())
     return V[:keep]

@@ -251,25 +251,152 @@ def test_compact_refuses_rows_past_m():
         kry.compact(S, 4)
 
 
-@pytest.mark.parametrize("nev", [1, 2])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64,
+                                torch.complex64, torch.complex128])
+@pytest.mark.parametrize("bulk", [True, False])
+def test_compact_plan_fits_and_covers(dt, bulk):
+    """krylov_compact's plan (ops/krylov.py::compact_plan) for every m from
+    1 to 2000 and keep 0..m (all of them up to m = 40, then eleven
+    spread over 0..m): the ring (COMPACT_STAGES slots of COMPACT_SLOT packs
+    with bulk copies, none without) and two buffers of a slot's S entries
+    fit in a block's shared memory (SMEM_MAX less the static bytes); G
+    threads a column (a power of two
+    dividing the block's threads, the rows a slot holds) take at most
+    COMPACT_REGS sums each a chunk, a chunk holds every sum up to
+    COMPACT_CHUNK and the chunks hold them all; and, for a few widths nv,
+    the row tiles the blocks of a grid read cover rows 0..m of every column
+    once a chunk."""
+    item = torch.empty(0, dtype=dt).element_size()
+    pack = 16 if bulk else item
+    room = krylov.SMEM_MAX - krylov.SMEM_STATIC
+    for m in range(1, 2001):
+        keeps = range(m + 1) if m <= 40 else sorted(
+            {0, 1, 3, 4, 5, m // 4, m // 3, m // 2, m - 1, m, 2 * m // 3})
+        for keep in keeps:
+            p = krylov.compact_plan(1000, m, keep, pack, item, bulk)
+            assert p.smem == ((krylov.COMPACT_STAGES * krylov.COMPACT_SLOT
+                               * pack if bulk else 0)
+                              + 2 * krylov.COMPACT_SLOT_ROWS
+                              * krylov.COMPACT_CHUNK * item)
+            assert p.smem <= room
+            assert p.G * p.tw == krylov.COMPACT_SLOT
+            assert krylov.THREADS % p.G == 0 and p.G & (p.G - 1) == 0
+            assert p.G <= krylov.COMPACT_SLOT_ROWS
+            chunk = p.G * krylov.COMPACT_REGS
+            assert min(keep, krylov.COMPACT_CHUNK) <= chunk
+            assert chunk <= krylov.COMPACT_CHUNK
+            assert p.chunks == max(1, -(-keep // chunk))
+            assert p.stash == (p.chunks - 1) * chunk * p.tw
+    for nv, m, keep, grid in ((1, 1, 1, 1), (257, 3, 2, 2), (1000, 12, 3, 3),
+                              (1000, 119, 59, 4), (4097, 5, 5, 7),
+                              (3000, 299, 149, 5)):
+        p = krylov.compact_plan(nv, m, keep, pack, item, bulk)
+        seen = np.zeros((m + 1, nv), dtype=np.int64)
+        for b in range(grid):
+            for i, c0, cnt in p.loads(b, grid):
+                assert 0 < cnt <= p.tw
+                seen[i, c0: c0 + cnt] += 1
+        assert (seen == p.chunks).all()
+
+
+def _emulate_compact(V, S, m, grid):
+    """krylov_compact's kernel, its index arithmetic in numpy, one entry a
+    pack: block b's share in tiles; for each chunk of sums, each thread's
+    (j, g) packs j + p tw1 and sums k0 + g R + q (q < R), their S entries
+    read from a step's buffer (entry row * C + sum); the chunks before the
+    last into the block's stash (each stash entry written at most once a
+    tile, read back by the thread that wrote it), the last chunk, the
+    stash and the old row m into V once the tile's reads are done; the
+    rows past keep zeroed over the share."""
+    rows, nv = V.shape
+    keep = S.shape[1]
+    p = krylov.compact_plan(nv, m, keep, 16, 8)
+    W, R = krylov.COMPACT_WIDE, krylov.COMPACT_REGS
+    tw1, G = p.tw // W, p.G
+    C = G * R
+    stash = np.full((grid, max(p.stash, 1)), np.nan)
+    tid = np.arange(krylov.THREADS)
+    j, g = tid % tw1, tid // tw1
+    for b in range(grid):
+        b0, b1 = nv * b // grid, nv * (b + 1) // grid
+        for c0 in range(b0, b1, p.tw):
+            src = V.copy()          # the tile's reads precede its writes
+            written = set()
+            for k0 in range(0, max(keep, 1), C):
+                last = k0 + C >= keep
+                for pp in range(W):
+                    col = c0 + j + pp * tw1
+                    live = col < b1
+                    for q in range(R):
+                        c = k0 + g * R + q
+                        ok = live & (c < keep)
+                        cc, co, jj = c[ok], col[ok], j[ok]
+                        # row i's entry of sum c - k0 in the buffer of the
+                        # step holding row i
+                        sb = np.zeros((m, C))
+                        ci = np.arange(C)
+                        inside = k0 + ci < keep
+                        sb[:, inside] = S[:m, k0 + ci[inside]]
+                        y = (sb[:, cc - k0] * src[:m, co]).sum(0)
+                        if last:
+                            V[cc, co] = y
+                        else:
+                            at = cc * p.tw + jj + pp * tw1
+                            assert at.max(initial=0) < p.stash
+                            assert not written & set(at.tolist())
+                            written |= set(at.tolist())
+                            stash[b, at] = y
+                    if last:
+                        for t in np.flatnonzero(live):
+                            cs = (np.arange(0, k0, C)[:, None] + g[t] * R
+                                  + np.arange(R)[None, :]).ravel()
+                            V[cs, col[t]] = stash[b, cs * p.tw + j[t]
+                                                  + pp * tw1]
+                        V[keep, col[live & (g == 0)]] = src[
+                            m, col[live & (g == 0)]]
+        V[keep + 1:, b0:b1] = 0.0
+    return V
+
+
+@pytest.mark.parametrize("nv, m, keep, grid", [
+    (2100, 12, 3, 2), (300, 30, 20, 3), (300, 80, 59, 2), (200, 150, 99, 2),
+    (130, 200, 150, 1), (90, 9, 0, 2)])
+def test_compact_schedule_matches_plain(nv, m, keep, grid):
+    """The kernel's schedule (_emulate_compact: tiles, chunks of sums past
+    COMPACT_CHUNK, the stash) computes the compaction: equal to the plain
+    version to 1e-12, for keep in one chunk (3, 20, 59, with G = 1, 8, 16
+    threads a column), two (99) and three (150), and keep 0."""
+    rng = np.random.default_rng(nv + m + keep)
+    V = rng.standard_normal((m + 1, nv))
+    S = rng.standard_normal((m, keep))
+    want = torch.from_numpy(V.copy())
+    krylov._compact_plain(want, torch.from_numpy(S), m)
+    _close(_emulate_compact(V, S, m, grid), want.numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("nev", [1, 2, 20])
 def test_eigs_smallest_matches_jax(nev):
     """eigs_smallest through _Krylov on two tests/models_zoo.py models
-    (chain-12 Sz=0; spinless fermions on the honeycomb 3x2, N = 4)
-    against the JAX
-    solver on the same ELL: eigenvalues to 1e-10."""
+    (chain-12 Sz=0; spinless fermions on the honeycomb 3x2, N = 4) at ncv
+    12, and, at nev = 20, on chain-10 Sz=0 (dim 252) at ncv 114, whose
+    three compactions (keep 40, then 20) move 115 rows, past the 113 that
+    the first compaction kernel staged; against the JAX solver on the same
+    ELL: eigenvalues to 1e-10."""
     import models_zoo as jz
     from quantum_basis_tpu.ops.sparse import build_sparse_full
     from quantum_basis_tpu.solvers.restarted import eigs_smallest as jeigs
 
-    for m, conserve, vals in ((jz.heisenberg_chain(12), ["Sz"], [0.0]),
-                              (jz.spinless_fermion_honeycomb(3, 2), ["N"],
-                               [4.0])):
+    cases = (((jz.heisenberg_chain(12), ["Sz"], [0.0]),
+              (jz.spinless_fermion_honeycomb(3, 2), ["N"], [4.0]))
+             if nev < 20 else ((jz.heisenberg_chain(10), ["Sz"], [0.0]),))
+    ncv = 12 if nev < 20 else 114
+    for m, conserve, vals in cases:
         model, c = m
         model.enumerate_basis_full([c[k] for k in conserve], vals)
         ej = build_sparse_full(model.sec_full[0].matvec)
         et = ell_from_numpy(ej.cols, ej.vre, ej.vim, ej.diag, device="cpu")
-        vj, _ = jeigs(ej, ej.n, nev=nev, ncv=12)
-        vt, _ = eigs_smallest(et, et.n, nev=nev, ncv=12)
+        vj, _ = jeigs(ej, ej.n, nev=nev, ncv=ncv)
+        vt, _ = eigs_smallest(et, et.n, nev=nev, ncv=ncv)
         np.testing.assert_allclose(vt, vj, rtol=0, atol=1e-10)
 
 
@@ -327,13 +454,18 @@ def _cuda_basis(dt, rows, n, seed):
                                 torch.complex64, torch.complex128])
 def test_kernels_match_plain_on_cuda(dt, n):
     """Each kernel of csrc/krylov.cu against its plain version on the card,
-    at r = 1, 8 and ncv + 1 = 19 (past the 16 rows pass B keeps in
+    at r = 1, 8, 13 and ncv + 1 = 19 (past the 16 rows pass B keeps in
     registers), on a basis of n columns (200,003: one entry a load;
-    200,004: 16 bytes a load; complex128 moves 16 bytes in both): the
-    partial sums' totals, w', w'', the scaled row, h, beta (1e-12 in
-    float64 and complex128, 1e-5 in float32 and complex64, of the largest
-    entry, or of 1 for the inner products of unit vectors); a compaction
-    (keep 3 of m = 18 rows) likewise, the rows past keep + 1 zero."""
+    200,004: 16 bytes a load, krylov_project and the compaction through
+    the bulk-copy ring; complex128 moves 16 bytes in both): the partial
+    sums' totals, w', w'', the scaled row, h, beta (1e-12 in float64 and
+    complex128, 1e-5 in float32 and complex64, of the largest entry, or of
+    1 for the inner products of unit vectors); a compaction (keep 3 of m =
+    18 rows) likewise, the rows past keep + 1 zero; then compactions past
+    the 113 rows the first kernel staged, m + 1 = 120 and 300 with keep 3
+    and m // 2 (59: one chunk of sums, 16 threads a column; 149: three
+    chunks, two kept in the stash), against the plain version run on the
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     tol = 1e-12 if dt in (torch.float64, torch.complex128) else 1e-5
@@ -351,7 +483,7 @@ def test_kernels_match_plain_on_cuda(dt, n):
             scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= tol * max(scale, 1e-300)
 
-    for r in (1, 8, 19):
+    for r in (1, 8, 13, 19):
         V, Vp = V0.clone(), V0.cpu()
         krylov.krylov_project(V, 0, r, w, ws.h1)
         krylov._project_plain(Vp, 0, r, w.cpu(), wp.h1)
@@ -379,3 +511,64 @@ def test_kernels_match_plain_on_cuda(dt, n):
     krylov._compact_plain(Vp, S.cpu(), 18)
     close(V, Vp)
     assert not V[4:].any()
+    del V, Vp, V0, ws, wp
+    for rows in (120, 300):
+        m = rows - 1
+        V0 = _cuda_basis(dt, rows, n, 5)
+        for keep in (3, m // 2):
+            V, Vp = V0.clone(), V0.clone()
+            S = _cuda_basis(dt, keep, m, 6 + keep).T.contiguous()
+            krylov.krylov_compact(V, S, m)
+            krylov._compact_plain(Vp, S, m)
+            close(V, Vp)
+            assert not V[keep + 1:].any()
+            del V, Vp
+        del V0
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt, n, rows, keep, r", [
+    (torch.float64, 2_704_156, 13, 3, 13),      # chain-24's basis, ncv 12
+    (torch.float64, 2_704_156, 120, 99, 8),     # two chunks of sums
+    (torch.float32, 16_777_220, 13, 8, 8)])     # rows past 2^22 packs
+def test_ring_kernels_repeat_bit_equal_on_cuda(dt, n, rows, keep, r):
+    """The two kernels that stream rows through the bulk-copy ring,
+    krylov_compact and krylov_project, forty times each on fresh copies of
+    one basis: every result bit-equal to the first, and the first within
+    tolerance of the plain version (1e-12 float64, 1e-5 float32). A slot
+    refilled before every warp has read it shows up as a rare wrong
+    result, which one run per shape would almost never catch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    m = rows - 1
+    V0 = _cuda_basis(dt, rows, n, 11)
+    S = _cuda_basis(dt, keep, m, 12).T.contiguous()
+    Vp = V0.clone()
+    krylov._compact_plain(Vp, S, m)
+    first = None
+    for _ in range(40):
+        V = V0.clone()
+        krylov.krylov_compact(V, S, m)
+        if first is None:
+            first = V
+            err = float((V - Vp).abs().max())
+            assert err <= tol * float(Vp.abs().max())
+        else:
+            assert torch.equal(V, first)
+        del V
+    del Vp, first
+    w = _cuda_basis(dt, 1, n, 13)[0]
+    ws = krylov.Workspace(rows, n, dt, "cuda")
+    want = V0[:r].conj() @ w
+    first = None
+    for _ in range(40):
+        ws.h1.zero_()
+        krylov.krylov_project(V0, 0, r, w, ws.h1)
+        got = ws.h1[:r].clone()
+        if first is None:
+            first = got
+            assert float((got.sum(1) - want).abs().max()) <= tol
+        else:
+            assert torch.equal(got, first)
