@@ -89,7 +89,8 @@ Phases (any failure raises, so the exit code is nonzero):
    that was launched, norm 0 at q = 0, sum_q norm_q^2 = N/4 = 5 (1e-10),
    mu_0 = 1 (1e-6), |mu_n| <= 1 + 1e-5, for two q the moments of
    chebyshev.kpm_moments on the f64 ELL with the same bounds (5e-5), and
-   measure_repr_dynamic (40 steps) the same norm (1e-12); (b) the flagship
+   measure_repr_dynamic (40 steps, on the target's MatvecRepr: repr_rows)
+   the same norm (1e-12); (b) the flagship
    benchmarks/flagship_kagome24_sqw.py at N = 2^24: the 8 q of the cell zone
    from phase 8's k0 = (0,2) ground state, 192 moments each on the float64
    P_k H engine (kpm_fullspace_max_N pinned to 2^24, as the flagship sets it)
@@ -197,8 +198,8 @@ Phases (any failure raises, so the exit code is nonzero):
    phases 4, 5, 10 and 13, kron_ell's in phase 7's 4x4 solve, two per apply,
    apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
    measure_full_static, the K6 kernels' in phase 5's chain-24 solve and
-   phase 7's 4x4 solve, each count set to 0 just before its path and read
-   just after; the worst
+   phase 7's 4x4 solve, the K9 kernels' in phases 4, 8 and 10, each count
+   set to 0 just before its path and read just after; the worst
    error against the plain version, the
    kernel's, plain version's and library call's ms and the bound at the
    main path's shape), the card line, and as the last line
@@ -284,6 +285,26 @@ Phases (any failure raises, so the exit code is nonzero):
    chain-24 and 4x4 solves and assert one launch of each step kernel per
    Krylov step (the solve's applies; the f32 stage's at 4x4) and at least
    one compaction; the kernel record's K6 launches are those two solves'.
+20. (after 19, before 15; ``--apply-repr`` runs it alone) the
+   momentum-sector kernels (csrc/apply_repr.cu, K9) against their plain
+   versions: on kagome-24 Sz=0 at k = (0,0) and (0,2), chain-24 Sz=0 at k
+   = 0 and 5 and the honeycomb spinless fermions 4x3 at half filling
+   (2^24 labels, G = 12) at k = (0,0) and (1,0), repr_rows (MatvecRepr),
+   repr_images (every block of the ELL build; columns exactly) and
+   repr_scatter of H from the sector into itself (f64 atomics), to 1e-12
+   of max|y| or 4x the measured spread of two kernel runs where wider
+   (stated in the output); repr_scatter of the diagonal wave Sz(q)
+   (density for the fermions) from one momentum into the other through
+   mopr_x_vec_repr (no translation, plain stores). At kagome-24 k=(0,2)
+   and chain-24 k=0 times each kernel (CUDA events; torch.profiler's
+   device time) beside its plain version, its bound (bytes: each row's
+   label, 1/sqrt(nu), Fodd, diagonal and x read once, y or the images
+   written once, the tables, the 32-byte sectors of the position table,
+   labels and sqrt(nu) that this run's images touch; over 3.35 TB/s) and
+   one torch.sparse CSR complex128 product of the same matrix (used
+   nowhere in the package), with the sector's ELL apply beside it. Phases
+   4, 8 and 10 count the three kernels' launches on the main path and
+   assert each one launched.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -311,7 +332,8 @@ driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 -20.497352266554) with a temporary checkpoint directory, then again, every
 sector resumed from its completion record with no apply and the same gaps;
 ``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17;
-``--apply-rows`` phase 18; ``--krylov`` phase 19; ``--ranks N``
+``--apply-rows`` phase 18; ``--krylov`` phase 19; ``--apply-repr`` phase
+20; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -1415,7 +1437,8 @@ def tilted_dynamics(bsr_mod, dev, tilted):
         (nrm, mu, lo, hi), t_kpm = _timed(
             lambda: mt.measure_repr_dynamic_kpm(A, 0, 1, KPM_MOMENTS))
         applies = bsr_mod.launch_count - before
-        mt.generate_Ham_sparse_repr(1, check=False)   # the ELL, built above
+        # the continued fraction on the sector's MatvecRepr (repr_rows):
+        # its ELL, built above, is not made its matvec
         (nrm_cf, _, _), t_cf = _timed(
             lambda: mt.measure_repr_dynamic(A, 0, 1, CF_STEPS))
         norms2.append(nrm ** 2)
@@ -3866,6 +3889,345 @@ def _spy(module, name, seen, tag):
     return real
 
 
+# --------------------------------------------------------------------------
+# Phase 20: the momentum-sector row apply (K9)
+# --------------------------------------------------------------------------
+
+# (name, model, the value of its conserved quantity, two momenta):
+# kagome-24 and chain-24 Sz=0, the honeycomb spinless fermions 4x3 at half
+# filling (2^24 labels, G = 12)
+K9_MODELS = (("kagome24", "kagome", 0.0, ((0, 0), (0, 2))),
+             ("chain24", "chain", 0.0, ((0,), (5,))),
+             ("honeycomb4x3", "honeycomb", 12.0, ((0, 0), (1, 0))))
+
+
+def _k9_model(kind, dev):
+    from torch_zoo import (heisenberg_chain, kagome_heisenberg,
+                           spinless_fermion_honeycomb)
+
+    if kind == "kagome":
+        m, ops = kagome_heisenberg(2, 4, device=dev)
+        return m, ops["Sz"]
+    if kind == "chain":
+        m, ops = heisenberg_chain(24, device=dev)
+        return m, ops["Sz"]
+    m, ops = spinless_fermion_honeycomb(4, 3, device=dev)
+    return m, ops["N"]
+
+
+def _k9_wave(m, kind, q):
+    """The diagonal wave sum_x e^{-i q.x} O_x / sqrt(N) (O = Sz, or the
+    density of the spinless fermions): every column diagonal."""
+    from quantum_basis_tpu_torch import Mopr, Opr
+    from torch_zoo import SP_HALF
+
+    lat = m.lattice
+    d = SP_HALF["Sz"] if kind != "honeycomb" else np.array([0.0, 1.0])
+    A = Mopr()
+    for s in range(lat.n_sites):
+        ph = np.exp(-2j * np.pi * float(lat.k_dot_R(
+            list(q), lat.site2coor(s)[0])[0])) / np.sqrt(lat.n_sites)
+        A += complex(ph) * Opr(s, 0, False, d)
+    return A
+
+
+def k9_coo(args, n_src, scatter, block=1 << 15):
+    """(rows, cols, vals, looked) of the operator a repr kernel applies,
+    from its plain routine block by block: H (gather; diagonal included) or
+    A (scatter, the destination's rows); ``looked`` marks the entries whose
+    row or column came from an index lookup."""
+    from quantum_basis_tpu_torch.basis.index import lookup_tables
+    from quantum_basis_tpu_torch.ops.apply_repr import _translate_plain
+
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = args
+    ph = torch.complex(phase[:, 0], phase[:, 1])
+    R, C, V, L = [], [], [], []
+
+    def put(r, c, v, looked):
+        R.append(r)
+        C.append(c)
+        V.append(v)
+        L.append(torch.full(r.shape, looked, device=r.device))
+    for i0 in range(0, n_src, block):
+        i1 = min(i0 + block, n_src)
+        rows = torch.arange(i0, i1, device=labels.device)
+        own = torch.zeros(i1 - i0, dtype=torch.complex128,
+                          device=labels.device)
+        if diag is not None:
+            own = own + diag[i0:i1]
+        if tabs.n_cols:
+            out = _translate_plain(rt, tabs, ix, labels, fodd, i0, i1,
+                                   translate=not tabs.diag_only)
+            own = own + torch.where(out[1], out[0], 0).sum(1)
+            if not tabs.diag_only:
+                amp, _, valid, j, sig, gs = out
+                ii = rows[:, None].expand_as(j)
+                if scatter:
+                    c = sqrt_nu[j] * sig * amp * ph[gs] * isn[ii]
+                    put(j[valid], ii[valid], c[valid], True)
+                else:
+                    c = sqrt_nu[j] * isn[ii] * sig * amp.conj() * ph[gs]
+                    put(ii[valid], j[valid], c[valid], True)
+        if scatter:
+            j0 = lookup_tables(ix, labels[i0:i1])
+            ok = (ix.labels[j0] == labels[i0:i1]) & (own != 0)
+            put(j0[ok], rows[ok], (sqrt_nu[j0] * own * isn[i0:i1])[ok], True)
+        else:
+            put(rows, rows, own.conj(), False)
+    return torch.cat(R), torch.cat(C), torch.cat(V), torch.cat(L)
+
+
+def k9_bound(args, n_src, n_dst, kind, E=0):
+    """Least time of one repr kernel call on this card in ms, and which
+    bound it is. Bytes: each source row's label, 1/sqrt(nu), Fodd (where
+    fermionic), diagonal (where there is one) and x (gather and scatter)
+    read once; y written once (16 bytes a destination row), or the images'
+    (column, value) pairs (24 bytes an image column a row); the tables;
+    and the 32-byte sectors that this run's looked-up images touch in the
+    destination's direct position table, its labels (the check) and
+    sqrt(nu); over the memory rate. Operations: 8 a kept image (the
+    complex multiply-add and its coefficient), 8 a row, over the float64
+    peak (the translation's integer work not counted)."""
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = args
+    if ix.mode != "direct":
+        raise ValueError("the bound counts the direct index's sectors")
+    dev = labels.device
+    per = 32 // ix.t0.element_size()
+    pos = torch.zeros(-(-ix.label_space // per), dtype=torch.bool,
+                      device=dev)
+    lab = torch.zeros(-(-ix.n // 4), dtype=torch.bool, device=dev)
+    rows, cols, _, looked = k9_coo(args, n_src, kind == "repr_scatter")
+    tgt = (rows if kind == "repr_scatter" else cols)[looked]
+    pos[ix.labels[tgt] // per] = True
+    lab[tgt // 4] = True
+    images = kind == "repr_images"
+    per_row = 16 + (8 if fodd is not None else 0) \
+        + (8 if diag is not None and not images else 0) \
+        + (0 if images else 16)
+    nbytes = (per_row * n_src + (24 * E * n_src if images else 16 * n_dst)
+              + tabs.nbytes + rt.nbytes + 32 * int(pos.sum())
+              + 2 * 32 * int(lab.sum()))
+    flops = 8 * tgt.numel() + 8 * n_src
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k9_library(args, n_src, n_dst, x, scatter):
+    """(ms, y) of one torch.sparse CSR complex128 product of the same
+    operator on the same vector (timed only: nothing in the package calls
+    it), or (None, None) where this PyTorch has no such product."""
+    rows, cols, vals, _ = k9_coo(args, n_src, scatter)
+    try:
+        M = _csr(rows, cols, vals, (n_dst, n_src))
+        y = M @ x[:n_src]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library call: {str(e).splitlines()[0]}", flush=True)
+        return None, None
+    return cuda_ms(lambda: M @ x[:n_src], samples=5, per_sample=2), y
+
+
+def k9_check(tag, got, want, out, name, spread=0.0):
+    """Kernel against plain version: 1e-12 of max|y|, or the atomics'
+    measured spread where wider (stated); the worst absolute error kept in
+    out["max_abs_err"][name]."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    out["max_abs_err"][name] = max(out["max_abs_err"][name], err)
+    scale = float(want.abs().max())
+    tol = max(1e-12 * scale, 4.0 * spread)
+    print(f"check 20 {tag}: {err:.3e} (max|y| {scale:.3e}, tol "
+          f"{tol:.3e} = max(1e-12 max|y|, 4 x the spread of two kernel "
+          f"runs {spread:.3e}))", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"20 {tag}: kernel vs plain {err:.3e} > {tol:.3e}")
+
+
+def k9_sector(tag, m, sec, out, time_it, dev):
+    """repr_rows, repr_images and repr_scatter (H from the sector into
+    itself) of one momentum sector against their plain versions; with
+    ``time_it`` the record's times, bounds and library calls."""
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+    from quantum_basis_tpu_torch.ops.apply_repr import (
+        _repr_images_plain, _repr_rows_plain, _repr_scatter_plain,
+        phase_table, repr_images, repr_scatter)
+    from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
+
+    s = m.sec_repr[sec]
+    mv = s.matvec
+    rb = s.dbasis
+    n = mv.n
+    args = mv.args()
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = args
+    rec = {"case": tag, "dim": n, "G": rt.G, "index_mode": ix.mode,
+           "image_columns": tabs.n_cols, "bits": rt.bits,
+           "fermionic": rt.qmask is not None,
+           "tables_bytes": tabs.nbytes + rt.nbytes}
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(n, dtype=torch.complex128, device=dev, generator=g)
+    before = ar.launches["repr_rows"]
+    y = mv(x)
+    if ar.launches["repr_rows"] != before + 1:
+        raise AssertionError(f"20 {tag}: MatvecRepr made no one launch")
+    yp = _repr_rows_plain(*args, x)
+    k9_check(f"{tag} repr_rows", y, yp, out, "repr_rows")
+    # the ELL build's calls: one a basis block
+    B = rb.block_rows
+    for b in range(rb.n_blocks):
+        r = min(B, n - b * B)
+        c, v = repr_images(*args[:7], phase, b * B, r)
+        c2, v2 = _repr_images_plain(*args[:7], phase, b * B, r)
+        torch.cuda.synchronize()
+        if not torch.equal(c, c2):
+            raise AssertionError(f"20 {tag} repr_images: columns differ")
+        k9_check(f"{tag} repr_images block {b}", v, v2, out, "repr_images")
+        del c, v, c2, v2
+    # H scattered from the sector into itself: the atomics' path
+    ph = phase_table(rb.tset, rb.momentum, +1)
+    sargs = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, ph)
+    z = repr_scatter(*sargs, x, n)
+    z2 = repr_scatter(*sargs, x, n)
+    torch.cuda.synchronize()
+    spread = float((z - z2).abs().max())
+    rec["scatter_spread"] = spread
+    zp = _repr_scatter_plain(*sargs, x, n)
+    k9_check(f"{tag} repr_scatter (H, atomics)", z, zp, out, "repr_scatter",
+             spread)
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: mv(x), samples=9, per_sample=3)
+        rec["device_ms"] = kernel_device_ms(
+            lambda: mv(x), ("repr_rows_kernel",))["repr_rows_kernel"]
+        rec["plain_ms"] = cuda_ms(lambda: _repr_rows_plain(*args, x),
+                                  samples=3, per_sample=1)
+        rec["bound_ms"], rec["bound_by"] = k9_bound(args, n, n, "repr_rows")
+        rec["library_ms"], yl = k9_library(args, n, n, x, False)
+        if yl is not None:
+            _hx_check(f"20 {tag}: library CSR product vs kernel", yl, y,
+                      1e-12)
+        del yl
+        ell, rec["ell_build_s"] = _timed(lambda: build_sparse_repr(mv))
+        _hx_check(f"20 {tag}: ELL from repr_images vs repr_rows", ell(x), y,
+                  1e-12)
+        rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=9, per_sample=3)
+        rec["ell_width"] = ell.width
+        del ell
+        r = min(B, n)
+        img = {"rows": r}
+        img["ms"] = cuda_ms(lambda: repr_images(*args[:7], phase, 0, r),
+                            samples=9, per_sample=3)
+        img["device_ms"] = kernel_device_ms(
+            lambda: repr_images(*args[:7], phase, 0, r),
+            ("repr_images_kernel",))["repr_images_kernel"]
+        img["plain_ms"] = cuda_ms(
+            lambda: _repr_images_plain(*args[:7], phase, 0, r), samples=3,
+            per_sample=1)
+        part = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, None, phase)
+        img["bound_ms"], img["bound_by"] = k9_bound(part, r, r,
+                                                    "repr_images",
+                                                    tabs.n_cols)
+        img["library_ms"] = None
+        rec["images"] = img
+        sc = {"operator": "H, k -> k (atomics)"}
+        sc["ms"] = cuda_ms(lambda: repr_scatter(*sargs, x, n), samples=9,
+                           per_sample=3)
+        sc["device_ms"] = kernel_device_ms(
+            lambda: repr_scatter(*sargs, x, n),
+            ("repr_scatter_kernel",))["repr_scatter_kernel"]
+        sc["plain_ms"] = cuda_ms(lambda: _repr_scatter_plain(*sargs, x, n),
+                                 samples=3, per_sample=1)
+        sc["bound_ms"], sc["bound_by"] = k9_bound(sargs, n, n,
+                                                  "repr_scatter")
+        sc["library_ms"], _ = k9_library(sargs, n, n, x, True)
+        rec["scatter_h"] = sc
+    print("apply_repr", json.dumps(rec), flush=True)
+    del x, y, yp, z, z2, zp
+    return rec
+
+
+def k9_wave_scatter(tag, m, kind, out, time_it, dev):
+    """repr_scatter of the diagonal wave from sector 0 into sector 1 (q =
+    k0 - k1; every column diagonal: the S(q, omega) injection's path, no
+    translation, plain stores) through mopr_x_vec_repr, against its plain
+    version."""
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+    from quantum_basis_tpu_torch.ops.apply_repr import (
+        _repr_scatter_plain, mopr_x_vec_repr, repr_scatter, scatter_args)
+
+    src, dst = m.sec_repr[0].dbasis, m.sec_repr[1].dbasis
+    q = [a - b for a, b in zip(src.momentum, dst.momentum)]
+    op = m.compile_op(_k9_wave(m, kind, q))
+    args = scatter_args(op, src, dst)
+    if not args[1].diag_only:
+        raise AssertionError(f"20 {tag}: the wave has off-diagonal columns")
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(src.n, dtype=torch.complex128, device=dev, generator=g)
+    before = ar.launches["repr_scatter"]
+    y = mopr_x_vec_repr(op, src, dst, x)
+    if ar.launches["repr_scatter"] != before + 1:
+        raise AssertionError(f"20 {tag}: mopr_x_vec_repr made no one launch")
+    yp = _repr_scatter_plain(*args, x, src.n)
+    k9_check(f"{tag} repr_scatter (wave q={q}, stores)", y, yp, out,
+             "repr_scatter")
+    rec = {"case": tag, "q": q, "src_dim": src.n, "dst_dim": dst.n}
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: repr_scatter(*args, x, src.n),
+                            samples=9, per_sample=3)
+        rec["device_ms"] = kernel_device_ms(
+            lambda: repr_scatter(*args, x, src.n),
+            ("repr_scatter_kernel",))["repr_scatter_kernel"]
+        rec["mopr_x_vec_repr_ms"] = cuda_ms(
+            lambda: mopr_x_vec_repr(op, src, dst, x), samples=5,
+            per_sample=2)
+        rec["plain_ms"] = cuda_ms(
+            lambda: _repr_scatter_plain(*args, x, src.n), samples=3,
+            per_sample=1)
+        rec["bound_ms"], rec["bound_by"] = k9_bound(args, src.n, dst.n,
+                                                    "repr_scatter")
+        rec["library_ms"], yl = k9_library(args, src.n, dst.n, x, True)
+        if yl is not None:
+            _hx_check(f"20 {tag}: library CSR product vs kernel", yl, y,
+                      1e-12)
+    print("apply_repr", json.dumps(rec), flush=True)
+    return rec
+
+
+def apply_repr_run(dev):
+    """Phase 20: the momentum-sector kernels (csrc/apply_repr.cu, K9)
+    against their plain versions on the card: on kagome-24 Sz=0 at k =
+    (0,0) and (0,2), chain-24 Sz=0 at k = 0 and 5 (complex), and the
+    honeycomb spinless fermions 4x3 at half filling at k = (0,0) and (1,0)
+    (2^24 labels, G = 12, signs), repr_rows (MatvecRepr), repr_images (the
+    ELL build's blocks; columns exactly) and repr_scatter of H from each
+    sector into itself (f64 atomics) to 1e-12 of max|y| (or the measured
+    spread of two kernel runs, where wider); repr_scatter of the diagonal
+    wave Sz(q) (density, for the fermions) from one sector into the other
+    through mopr_x_vec_repr (no translation, plain stores). Times, on
+    kagome-24 k=(0,2) (the explicit route's sector of phase 8) and
+    chain-24 k=0, each kernel (CUDA events and torch.profiler) beside its
+    plain version, its bound and one torch.sparse CSR complex128 product of
+    the same matrix, with the sector's ELL apply beside it. Returns the
+    kernel record's numbers."""
+    t20 = time.perf_counter()
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+
+    out = {"max_abs_err": dict.fromkeys(ar.KERNELS, 0.0)}
+    for name, kind, val, ks in K9_MODELS:
+        m, op = _k9_model(kind, dev)
+        for sec, k in enumerate(ks):
+            m.enumerate_basis_repr(list(k), [op], [val], sec=sec)
+        for sec, k in enumerate(ks):
+            tag = f"{name}_k{''.join(map(str, k))}"
+            time_it = tag in ("kagome24_k02", "chain24_k0")
+            out[tag] = k9_sector(tag, m, sec, out, time_it, dev)
+        out[f"{name}_wave"] = k9_wave_scatter(
+            f"{name} wave", m, kind, out, name == "kagome24", dev)
+        del m
+        torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+    return out
+
+
 def memory_run(dev, prod, ckpt_dir):
     """Phase 16: each size of config.MEMORY["cuda"] read by a model on the
     card, at full width, beside the golden of the sector it solves; the
@@ -4257,6 +4619,12 @@ def main() -> int:
         krylov.build_library(verbose=True)
         krylov_run("cuda")
         return 0
+    if "--apply-repr" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import apply_repr
+
+        apply_repr.build_library(verbose=True)
+        apply_repr_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -4276,25 +4644,38 @@ def main() -> int:
         print(f"chain24 ELL E0 {m.eigenvals_full[0]!r}", flush=True)
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
-    from quantum_basis_tpu_torch.ops import (apply, apply_kron, cuda_build,
-                                             krylov)
+    from quantum_basis_tpu_torch.ops import (apply, apply_kron, apply_repr,
+                                             cuda_build, krylov)
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
     cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC,
-                      krylov._SRC], verbose=True)
+                      krylov._SRC, apply_repr._SRC], verbose=True)
     bsr_mod.build_library()
     apply_kron.build_library()
     apply.build_library()
     krylov.build_library()
+    apply_repr.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # K9's main path: phases 4, 8 and 10, each with the counts set to 0
+    # just before it and read just after
+    launches_k9 = dict.fromkeys(apply_repr.KERNELS, 0)
+
+    def k9_window(fn):
+        apply_repr.reset_launches()
+        result = fn()
+        for k in launches_k9:
+            launches_k9[k] += apply_repr.launches[k]
+        return result
 
     dev = "cuda"
     rows = kernel_checks(bsr_mod, dev)
     with jax_bounds("fullspace_repr_max_blowup", "bsr_blowup_max",
                     "bsr_stored_max_bytes"):
-        launches, e0_chain20, tilted = slice_run(bsr_mod, dev)
+        launches, e0_chain20, tilted = k9_window(
+            lambda: slice_run(bsr_mod, dev))
     launches5, wide, launches_k2, launches_k6 = full_sector_run(
         bsr_mod, dev, e0_chain20)
     launches += launches5
@@ -4302,12 +4683,19 @@ def main() -> int:
         engines_run(dev, wide)
     print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
     with jax_bounds("fullspace_repr_max_blowup"):
-        gs_sector = momentum_run(bsr_mod, dev, wide, t_start)
+        gs_sector = k9_window(
+            lambda: momentum_run(bsr_mod, dev, wide, t_start))
     print(f"phases 1-6, 8: {time.perf_counter() - t_start:.1f} s", flush=True)
     resume_run(dev, wide[0])
     print(f"phases 1-6, 8, 9: {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    launches10, art = dynamics_run(bsr_mod, dev, tilted, wide, gs_sector)
+    launches10, art = k9_window(
+        lambda: dynamics_run(bsr_mod, dev, tilted, wide, gs_sector))
+    print("K9 launches in phases 4, 8 and 10:", json.dumps(launches_k9),
+          flush=True)
+    if not all(launches_k9.values()):
+        raise AssertionError(f"a K9 kernel was not launched on its main "
+                             f"path: {launches_k9}")
     launches += launches10
     # phase 12 holds the sharded route against phase 5's chain-24 sector
     chain_labels, chain_e0 = wide[0][1].sec_full[0].labels, wide[0][3]["E0_ell"]
@@ -4353,6 +4741,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k6 = krylov_run(dev)
     print(f"phases 1-13, 16-19: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    k9 = apply_repr_run(dev)
+    print(f"phases 1-13, 16-20: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
@@ -4434,6 +4826,38 @@ def main() -> int:
                               for case in ("hubbard4x4", "chain24")}
     record["kernels"][-1]["by_size"]["chain24_wide"] = \
         k6["chain24"]["compact_wide"]
+    # K9: launches in phases 4, 8 and 10; times at kagome-24 k=(0,2) (the
+    # explicit route's sector of phase 8), the scatter's at the diagonal
+    # wave from k=(0,0) into (0,2) (the S(q, w) injection's path)
+    k9_main = {"repr_rows": k9["kagome24_k02"],
+               "repr_images": k9["kagome24_k02"]["images"],
+               "repr_scatter": k9["kagome24_wave"]}
+    k9_other = {"repr_rows": {"chain24_k0": k9["chain24_k0"]},
+                "repr_images": {"chain24_k0": k9["chain24_k0"]["images"]},
+                "repr_scatter": {
+                    "kagome24_k02 H (atomics)": k9["kagome24_k02"]["scatter_h"],
+                    "chain24_k0 H (atomics)": k9["chain24_k0"]["scatter_h"]}}
+    record["kernels"] += [{
+        "name": name,
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/apply_repr.cu",
+        "replaces": replaces,
+        "launches": launches_k9[name],
+        "max_abs_err": k9["max_abs_err"][name],
+        "ms": k9_main[name]["ms"],
+        "plain_ms": k9_main[name]["plain_ms"],
+        "bound_ms": k9_main[name]["bound_ms"],
+        "bound_by": k9_main[name]["bound_by"],
+        "library_ms": k9_main[name]["library_ms"],
+        "device_ms": k9_main[name]["device_ms"],
+        "shapes": {case: {f: r.get(f) for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            for case, r in k9_other[name].items()},
+    } for name, replaces in (
+        ("repr_rows", "quantum_basis_tpu/ops/apply_repr.py:155"),
+        ("repr_scatter", "quantum_basis_tpu/ops/apply_repr.py:229"),
+        ("repr_images", "quantum_basis_tpu/ops/sparse.py:208"))]
+    record["kernels"][-3]["ell_ms"] = k9["kagome24_k02"]["ell_ms"]
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

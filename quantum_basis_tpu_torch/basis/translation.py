@@ -49,6 +49,10 @@ class TranslationSet:
             sp, Q = space.permutation_arrays(plans[g])
             SP[:, g] = sp
             Qs.append(Q)
+        # exact host copies, packed for the momentum-sector kernels
+        # (ops/apply_repr.py::translation_tables)
+        self.SP = SP                           # (S, G) int64
+        self.Q = np.stack(Qs)                  # (G, S, S) uint8
         self.SPf = torch.as_tensor(SP.astype(np.float64), device=self.device)
         # (S, G*S): Qcat[s, g*S + t] = Q_g[s, t]
         self.Qcat = (torch.as_tensor(

@@ -7,10 +7,10 @@ are stored fixed-width (ELL): ``cols (n, W) int64`` + ``vals (n, W)``
 is one gather ``x[cols]`` and a row reduction.
 
 The builds reuse the matrix-free image machinery (``_row_images`` over a
-full sector's packed tables, ``MatvecRepr.images`` for a momentum sector)
-in one device pass over row blocks; duplicate columns are merged per block
-on the device by :func:`compact_rows`, which folds runs in the same order as
-the JAX package's numpy ``_compact_rows_np``.
+full sector's packed tables, ``apply_repr.repr_images`` for a momentum
+sector) in one device pass over row blocks; duplicate columns are merged
+per block on the device by :func:`compact_rows`, which folds runs in the
+same order as the JAX package's numpy ``_compact_rows_np``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from quantum_basis_tpu_torch.ops.apply import _row_images
+from quantum_basis_tpu_torch.ops.apply_repr import repr_images
 
 _VAL_TOL = 1e-14  # drop |v| below this (reference sparse_precision)
 _INVALID = 1 << 62
@@ -129,16 +130,18 @@ def build_sparse_repr(matvec) -> EllMatrix:
 
     Same coefficients as the matrix-free row kernel:
     H[i, j] = sqrt(nu_j/nu_i) * conj(A) * sigma_{g*} * e^{-i k.R_{g*}}
-    (cf. generate_Ham_sparse_repr, src/model.cc:729-829).
+    (cf. generate_Ham_sparse_repr, src/model.cc:729-829): one
+    ``repr_images`` call a row block (``ops/apply_repr.py``; the kernel
+    on the card), its columns merged by :func:`compact_rows`.
     """
     rb = matvec.basis
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = matvec.args()
+    B = rb.block_rows
     cols_l, vals_l = [], []
     for b in range(rb.n_blocks):
-        parts = matvec.images(b)
-        B = rb.block_rows
-        cols = torch.cat([torch.where(valid & (coef != 0), j, -1).reshape(B, -1)
-                          for j, valid, coef in parts], dim=1)
-        vals = torch.cat([coef.reshape(B, -1) for _, _, coef in parts], dim=1)
+        rows = min(B, rb.n - b * B)
+        cols, vals = repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                 phase, b * B, rows)
         c, v = compact_rows(cols, vals)
         cols_l.append(c)
         vals_l.append(v)
