@@ -209,10 +209,12 @@ Phases (any failure raises, so the exit code is nonzero):
    each read by a model on the card at full width: chain-24 Sz=-4's
    DeviceBasis has the block rows of apply_block_budget and its solve on
    the table's route equals the ELL's (1e-10); chain-24 k=0's ReprBasis
-   has those of repr_block_budget (E0 = -10.670014516537, 1e-9); the mixed
-   solve of chain-24 Sz=0 on ContractOp (N = 2^24) takes the polish branch
-   of polish_n (same golden); chain-26 Sz=0 has the lookup mode of
-   direct_lookup_max, and 2^20 of its labels look up to their rows;
+   has those of repr_block_budget (E0 = -10.670014516537, 1e-9), and its
+   repr_rows reaches rows by label where repr_label_buffer_max holds 16
+   bytes a label; the mixed solve of chain-24 Sz=0 on ContractOp (N =
+   2^24) takes the polish branch of polish_n (same golden); chain-26 Sz=0
+   has the lookup mode of direct_lookup_max, and 2^20 of its labels look
+   up to their rows;
    Hubbard 4x2 with ProductModel's defaults takes the pipeline and ncv of
    product_mixed_above and product_ncv (golden, 1e-8); phase 7's Hubbard
    4x4 completion record (1.33 GB, under ckpt_max_bytes) is resumed by a
@@ -290,14 +292,20 @@ Phases (any failure raises, so the exit code is nonzero):
    versions: on kagome-24 Sz=0 at k = (0,0) and (0,2), chain-24 Sz=0 at k
    = 0 and 5 and the honeycomb spinless fermions 4x3 at half filling
    (2^24 labels, G = 12) at k = (0,0) and (1,0), repr_rows (MatvecRepr),
+   repr_rows on the general path (int64 per slot: ENTRY_TABLES_MAX = 0;
+   each sector's repr_rows after another's clears the device's one label
+   buffer),
    repr_images (every block of the ELL build; columns exactly) and
-   repr_scatter of H from the sector into itself (f64 atomics), to 1e-12
-   of max|y| or 4x the measured spread of two kernel runs where wider
-   (stated in the output); repr_scatter of the diagonal wave Sz(q)
-   (density for the fermions) from one momentum into the other through
-   mopr_x_vec_repr (no translation, plain stores). At kagome-24 k=(0,2)
-   and chain-24 k=0 times each kernel (CUDA events; torch.profiler's
-   device time) beside its plain version, its bound (bytes: each row's
+   repr_scatter of H from the sector into itself (f64 atomics, through a
+   launch record), to 1e-12 of max|y| or 4x the measured spread of two
+   kernel runs where wider (stated in the output); repr_scatter of the
+   diagonal wave Sz(q) (density for the fermions) from one momentum into
+   the other through mopr_x_vec_repr and through its launch record (no
+   translation, plain stores). At kagome-24 k=(0,2) and chain-24 k=0
+   times each kernel (CUDA events; torch.profiler's device time; the host
+   time of one call through the engine's launch record, for repr_rows,
+   the H scatter and the wave; the general path's repr_rows) beside its
+   plain version, its bound (bytes: each row's
    label, 1/sqrt(nu), Fodd, diagonal and x read once, y or the images
    written once, the tables, the 32-byte sectors of the position table,
    labels and sqrt(nu) that this run's images touch; over 3.35 TB/s) and
@@ -410,6 +418,20 @@ HOLSTEIN_BAND = (-2.4666111991688577, -2.3561659084180966,
                  -1.6732057133728666, -1.6014926929171571,
                  -1.5645359820584208, -1.5465537464350307,
                  -1.5411668934441385)
+
+
+def host_ms(fn, calls=200):
+    """Host time of one fn() call in ms: the host clock around ``calls``
+    calls that only enqueue (the device drained before, not waited for
+    between them; fewer launches than the queue holds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 def cuda_ms(fn, samples=25, per_sample=5):
@@ -1477,7 +1499,12 @@ def tilted_dynamics(bsr_mod, dev, tilted):
            "k_gs": list(map(int, k_min)), "E0": e0_min, "gs_solve_s": t_gs,
            "n_moments": KPM_MOMENTS, "launches": launches,
            "norm2_sum": sum(norms2), "peak_bytes":
-           torch.cuda.max_memory_allocated(), "per_q": rows}
+           torch.cuda.max_memory_allocated(),
+           "label_buffer_bytes": _label_buffer_bytes(),
+           "contfrac_s_sum": sum(r["contfrac_s"] for r in rows),
+           "per_q": rows}
+    print(f"tilted: {len(rows)} continued fractions ({CF_STEPS} steps each, "
+          f"MatvecRepr: repr_rows) {rec['contfrac_s_sum']:.4f} s", flush=True)
     print("dynamics", json.dumps(rec), flush=True)
     _check("tilted: sum_q norm_q^2 = N/4", rec["norm2_sum"],
            lat.n_sites / 4, 1e-10)
@@ -1582,7 +1609,9 @@ def kagome_sqw(dev, kagome_case, gs_sector, art, bounds):
     rec = {"model": tag, "card": card_line(), "k0": list(k0),
            "n_moments": KPM_MOMENTS, "bounds": list(bounds),
            "norm2_sum": sum(norms2), "peak_bytes":
-           torch.cuda.max_memory_allocated(), "per_q": rows, **extra}
+           torch.cuda.max_memory_allocated(),
+           "label_buffer_bytes": _label_buffer_bytes(), "per_q": rows,
+           **extra}
     print("dynamics", json.dumps(rec), flush=True)
     _check("kagome: sum_q norm_q^2 vs the flagship's",
            rec["norm2_sum"], art["sum_rule"]["norms2"], 1e-7)
@@ -2548,6 +2577,13 @@ def jax_bounds(*names):
     return config.pinned(**{n: config.ROUTING["cpu"][n] for n in names})
 
 
+def _label_buffer_bytes() -> int:
+    """The bytes the repr kernels' label buffers hold on every card."""
+    from quantum_basis_tpu_torch.ops.apply_repr import LabelBuffer
+
+    return LabelBuffer.held_bytes()
+
+
 def drivers_run(bsr_mod, dev, art):
     """Phase 13: the drivers of quantum_basis_tpu_torch.examples and
     .benchmarks on the card's own routing bounds. Returns the kernel's
@@ -2569,7 +2605,8 @@ def drivers_run(bsr_mod, dev, art):
         rows, extra = (out if isinstance(out, tuple) else (out, None))
         print("driver", json.dumps({
             "example": name, "s": dt, "sectors": rows,
-            "peak_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "label_buffer_bytes": _label_buffer_bytes()}), flush=True)
         if name == "chain_dynamics_sqw":
             # sum over q != 0 of |Sz(q)|gs>|^2 = L/4 in the singlet
             n2 = sum(n * n for n in extra["norms"])
@@ -2580,12 +2617,15 @@ def drivers_run(bsr_mod, dev, art):
     print(f"phase 13 examples: {time.perf_counter() - t13:.1f} s",
           flush=True)
 
+    torch.cuda.reset_peak_memory_stats()
     rec, dt = _timed(lambda: flagship_kagome24.main(
         device=dev, out=out_path("FLAGSHIP_kagome24_torch.json")))
     print("driver", json.dumps({"benchmark": "flagship_kagome24", "s": dt,
                                 **{k: rec[k] for k in (
                                     "dim_full", "E0_full", "full_engine",
-                                    "sectors", "checks", "timings_s")}}),
+                                    "sectors", "checks", "timings_s")},
+                                "peak_bytes": torch.cuda.max_memory_allocated(),
+                                "label_buffer_bytes": _label_buffer_bytes()}),
           flush=True)
     if rec["dim_full"] != DIM_24 or sum(x["dim"] for x in rec["sectors"]) \
             != DIM_24:
@@ -2595,6 +2635,7 @@ def drivers_run(bsr_mod, dev, art):
     _check("kagome-24 flagship: E0(full)", rec["E0_full"], E0_KAGOME24, 1e-8)
     torch.cuda.empty_cache()
 
+    torch.cuda.reset_peak_memory_stats()
     sqw, dt = _timed(lambda: flagship_kagome24_sqw.main(
         device=dev, reference=art,
         out=out_path("SQW_kagome24_torch.json")))
@@ -2602,6 +2643,8 @@ def drivers_run(bsr_mod, dev, art):
         "benchmark": "flagship_kagome24_sqw", "s": dt,
         "gs_engine": sqw["gs_engine"], "gs_s": sqw["gs_s"],
         "sum_rule": sqw["sum_rule"],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "label_buffer_bytes": _label_buffer_bytes(),
         "runs": [{k: r[k] for k in ("q", "engine", "s", "norm_err", "mu_err")}
                  for r in sqw["runs"]]}), flush=True)
     _check("kagome-24 S(q,w): sum_q norm^2", sqw["sum_rule"]["norms2"],
@@ -2897,12 +2940,13 @@ def wide_rows_case(dev, dt, nr=5, nb=30_000, W=6, seed=3):
 
 
 def kernel_device_ms(fn, tags, reps=5, windows=3):
-    """Device ms per launch of each kernel whose name holds one of ``tags``
-    in a torch.profiler window of ``reps`` calls of fn (the launch alone,
-    without the host work of its wrapper). The profiler's trace of the card
-    sometimes comes back without the launches' kernels; a tag that no window
-    of ``windows`` saw maps to None ("not measured"): the CUDA-event times
-    beside it stand."""
+    """Device ms a call of fn of the kernels whose names hold each of
+    ``tags`` (summed over the kernels a tag names, each per launch) in a
+    torch.profiler window of ``reps`` calls of fn (the launches alone,
+    without the host work of their wrapper). The profiler's trace of the
+    card sometimes comes back without the launches' kernels; a tag that no
+    window of ``windows`` saw maps to None ("not measured"): the CUDA-event
+    times beside it stand."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2914,12 +2958,14 @@ def kernel_device_ms(fn, tags, reps=5, windows=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        out = {tag: None for tag in tags}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CPU:
                 continue
             for tag in tags:
                 if tag in e.key:
-                    out[tag] = e.self_device_time_total / 1e3 / e.count
+                    out[tag] = (out[tag] or 0.0) \
+                        + e.self_device_time_total / 1e3 / e.count
         if all(v is not None for v in out.values()):
             return out
     print(f"torch.profiler saw no device time of {sorted(tags)} in "
@@ -4044,14 +4090,37 @@ def k9_check(tag, got, want, out, name, spread=0.0):
         raise AssertionError(f"20 {tag}: kernel vs plain {err:.3e} > {tol:.3e}")
 
 
+def k9_host_split(mv, x):
+    """Host ms of one MatvecRepr call and of its parts (each the mean of
+    200 calls that only enqueue): the whole call, the launch record's call,
+    x's checks, y's allocation, the stream handle, the C launch alone (the
+    struct's x and y written, then qbt_repr_rows)."""
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+
+    rec = mv.record()
+    y = torch.empty_like(x)
+    rec.p.x, rec.p.y = x.data_ptr(), y.data_ptr()
+    rec._launch()
+    dev = x.device.index
+    return {
+        "matvec_call": host_ms(lambda: mv(x)),
+        "record_call": host_ms(lambda: rec(x)),
+        "check_x": host_ms(lambda: ar._check_x(x, rec.device, rec.rows)),
+        "alloc_y": host_ms(lambda: torch.empty(
+            rec.n_out, dtype=torch.complex128, device=rec.device)),
+        "stream": host_ms(lambda: torch._C._cuda_getCurrentRawStream(dev)),
+        "launch_c": host_ms(lambda: rec._fn(
+            rec._pp, torch._C._cuda_getCurrentRawStream(dev)))}
+
+
 def k9_sector(tag, m, sec, out, time_it, dev):
     """repr_rows, repr_images and repr_scatter (H from the sector into
     itself) of one momentum sector against their plain versions; with
     ``time_it`` the record's times, bounds and library calls."""
     from quantum_basis_tpu_torch.ops import apply_repr as ar
     from quantum_basis_tpu_torch.ops.apply_repr import (
-        _repr_images_plain, _repr_rows_plain, _repr_scatter_plain,
-        phase_table, repr_images, repr_scatter)
+        ReprLaunch, _repr_images_plain, _repr_rows_plain, _repr_scatter_plain,
+        phase_table)
     from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
 
     s = m.sec_repr[sec]
@@ -4063,7 +4132,9 @@ def k9_sector(tag, m, sec, out, time_it, dev):
     rec = {"case": tag, "dim": n, "G": rt.G, "index_mode": ix.mode,
            "image_columns": tabs.n_cols, "bits": rt.bits,
            "fermionic": rt.qmask is not None,
-           "tables_bytes": tabs.nbytes + rt.nbytes}
+           "tables_bytes": tabs.nbytes + rt.nbytes,
+           "path": "entry" if mv.record().entry is not None else "general",
+           "G_bucket": mv.record().p.gb}
     g = torch.Generator(device=dev).manual_seed(20)
     x = torch.randn(n, dtype=torch.complex128, device=dev, generator=g)
     before = ar.launches["repr_rows"]
@@ -4072,11 +4143,22 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         raise AssertionError(f"20 {tag}: MatvecRepr made no one launch")
     yp = _repr_rows_plain(*args, x)
     k9_check(f"{tag} repr_rows", y, yp, out, "repr_rows")
+    # the general path (int64, per slot) on the same sector
+    emax, ar.ENTRY_TABLES_MAX = ar.ENTRY_TABLES_MAX, 0
+    try:
+        gen = ReprLaunch("repr_rows", *args, n)
+    finally:
+        ar.ENTRY_TABLES_MAX = emax
+    if gen.entry is not None:
+        raise AssertionError(f"20 {tag}: the general path was not taken")
+    k9_check(f"{tag} repr_rows (general path)", gen(x), yp, out,
+             "repr_rows")
     # the ELL build's calls: one a basis block
     B = rb.block_rows
+    imgs = mv.record("repr_images")
     for b in range(rb.n_blocks):
         r = min(B, n - b * B)
-        c, v = repr_images(*args[:7], phase, b * B, r)
+        c, v = imgs.images(b * B, r)
         c2, v2 = _repr_images_plain(*args[:7], phase, b * B, r)
         torch.cuda.synchronize()
         if not torch.equal(c, c2):
@@ -4086,8 +4168,9 @@ def k9_sector(tag, m, sec, out, time_it, dev):
     # H scattered from the sector into itself: the atomics' path
     ph = phase_table(rb.tset, rb.momentum, +1)
     sargs = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, ph)
-    z = repr_scatter(*sargs, x, n)
-    z2 = repr_scatter(*sargs, x, n)
+    srec = ReprLaunch("repr_scatter", *sargs, n, rrec=rb.row_records())
+    z = srec(x)
+    z2 = srec(x)
     torch.cuda.synchronize()
     spread = float((z - z2).abs().max())
     rec["scatter_spread"] = spread
@@ -4098,6 +4181,14 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         rec["ms"] = cuda_ms(lambda: mv(x), samples=9, per_sample=3)
         rec["device_ms"] = kernel_device_ms(
             lambda: mv(x), ("repr_rows_kernel",))["repr_rows_kernel"]
+        rec["host_ms"] = host_ms(lambda: mv(x))
+        rec["host_split_ms"] = k9_host_split(mv, x)
+        # the launch's two kernels: the walk and its pre-pass
+        rec["passes_device_ms"] = kernel_device_ms(
+            lambda: mv(x), ("repr_rows_kernel<", "repr_rows_kernel_pack"))
+        rec["general_ms"] = cuda_ms(lambda: gen(x), samples=9, per_sample=3)
+        rec["general_device_ms"] = kernel_device_ms(
+            lambda: gen(x), ("repr_rows_kernel",))["repr_rows_kernel"]
         rec["plain_ms"] = cuda_ms(lambda: _repr_rows_plain(*args, x),
                                   samples=3, per_sample=1)
         rec["bound_ms"], rec["bound_by"] = k9_bound(args, n, n, "repr_rows")
@@ -4114,10 +4205,10 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         del ell
         r = min(B, n)
         img = {"rows": r}
-        img["ms"] = cuda_ms(lambda: repr_images(*args[:7], phase, 0, r),
-                            samples=9, per_sample=3)
+        img["ms"] = cuda_ms(lambda: imgs.images(0, r), samples=9,
+                            per_sample=3)
         img["device_ms"] = kernel_device_ms(
-            lambda: repr_images(*args[:7], phase, 0, r),
+            lambda: imgs.images(0, r),
             ("repr_images_kernel",))["repr_images_kernel"]
         img["plain_ms"] = cuda_ms(
             lambda: _repr_images_plain(*args[:7], phase, 0, r), samples=3,
@@ -4129,19 +4220,19 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         img["library_ms"] = None
         rec["images"] = img
         sc = {"operator": "H, k -> k (atomics)"}
-        sc["ms"] = cuda_ms(lambda: repr_scatter(*sargs, x, n), samples=9,
-                           per_sample=3)
+        sc["ms"] = cuda_ms(lambda: srec(x), samples=9, per_sample=3)
         sc["device_ms"] = kernel_device_ms(
-            lambda: repr_scatter(*sargs, x, n),
-            ("repr_scatter_kernel",))["repr_scatter_kernel"]
+            lambda: srec(x), ("repr_scatter_kernel",))["repr_scatter_kernel"]
+        sc["host_ms"] = host_ms(lambda: srec(x))
         sc["plain_ms"] = cuda_ms(lambda: _repr_scatter_plain(*sargs, x, n),
                                  samples=3, per_sample=1)
         sc["bound_ms"], sc["bound_by"] = k9_bound(sargs, n, n,
                                                   "repr_scatter")
         sc["library_ms"], _ = k9_library(sargs, n, n, x, True)
         rec["scatter_h"] = sc
+    rec["label_buffer_bytes"] = ar.LabelBuffer.held_bytes()
     print("apply_repr", json.dumps(rec), flush=True)
-    del x, y, yp, z, z2, zp
+    del x, y, yp, z, z2, zp, gen, srec
     return rec
 
 
@@ -4152,7 +4243,7 @@ def k9_wave_scatter(tag, m, kind, out, time_it, dev):
     version."""
     from quantum_basis_tpu_torch.ops import apply_repr as ar
     from quantum_basis_tpu_torch.ops.apply_repr import (
-        _repr_scatter_plain, mopr_x_vec_repr, repr_scatter, scatter_args)
+        _repr_scatter_plain, mopr_x_vec_repr, scatter_args, scatter_launch)
 
     src, dst = m.sec_repr[0].dbasis, m.sec_repr[1].dbasis
     q = [a - b for a, b in zip(src.momentum, dst.momentum)]
@@ -4169,13 +4260,16 @@ def k9_wave_scatter(tag, m, kind, out, time_it, dev):
     yp = _repr_scatter_plain(*args, x, src.n)
     k9_check(f"{tag} repr_scatter (wave q={q}, stores)", y, yp, out,
              "repr_scatter")
-    rec = {"case": tag, "q": q, "src_dim": src.n, "dst_dim": dst.n}
+    srec = scatter_launch(op, src, dst)
+    k9_check(f"{tag} repr_scatter (wave q={q}, launch record)", srec(x), yp,
+             out, "repr_scatter")
+    rec = {"case": tag, "q": q, "src_dim": src.n, "dst_dim": dst.n,
+           "path": "entry" if srec.entry is not None else "general"}
     if time_it:
-        rec["ms"] = cuda_ms(lambda: repr_scatter(*args, x, src.n),
-                            samples=9, per_sample=3)
+        rec["ms"] = cuda_ms(lambda: srec(x), samples=9, per_sample=3)
         rec["device_ms"] = kernel_device_ms(
-            lambda: repr_scatter(*args, x, src.n),
-            ("repr_scatter_kernel",))["repr_scatter_kernel"]
+            lambda: srec(x), ("repr_scatter_kernel",))["repr_scatter_kernel"]
+        rec["host_ms"] = host_ms(lambda: srec(x))
         rec["mopr_x_vec_repr_ms"] = cuda_ms(
             lambda: mopr_x_vec_repr(op, src, dst, x), samples=5,
             per_sample=2)
@@ -4279,6 +4373,16 @@ def memory_run(dev, prod, ckpt_dir):
                              "the cuda repr_block_budget")
     _, rec["chain24_k0_s"] = _timed(lambda: m.locate_E0_lanczos("repr"))
     _check("chain-24 k=0 E0", m.eigenvals_repr[0], E0_CHAIN24, 1e-9)
+    # repr_label_buffer_max: chain-24 k=0's repr_rows by label (2^24
+    # labels, 256 MiB) where the table's bound holds them
+    by_label = 16 * m.space.label_space <= mem["repr_label_buffer_max"]
+    rec["chain24_k0_by_label"] = m.sec_repr[0].matvec.record().by_label
+    print(f"check chain-24 k=0 repr_rows by label "
+          f"{rec['chain24_k0_by_label']} (repr_label_buffer_max "
+          f"{mem['repr_label_buffer_max']})", flush=True)
+    if rec["chain24_k0_by_label"] != by_label:
+        raise AssertionError("chain-24 k=0: repr_rows' path does not follow "
+                             "the cuda repr_label_buffer_max")
 
     # polish_n: the mixed full-sector solve of chain-24 Sz=0 at N = 2^24 on
     # ContractOp (pinned), its warm f64 stage by the table
@@ -4850,14 +4954,25 @@ def main() -> int:
         "bound_by": k9_main[name]["bound_by"],
         "library_ms": k9_main[name]["library_ms"],
         "device_ms": k9_main[name]["device_ms"],
+        "host_ms": k9_main[name].get("host_ms"),
         "shapes": {case: {f: r.get(f) for f in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+            "library_ms")}
             for case, r in k9_other[name].items()},
     } for name, replaces in (
         ("repr_rows", "quantum_basis_tpu/ops/apply_repr.py:155"),
         ("repr_scatter", "quantum_basis_tpu/ops/apply_repr.py:229"),
         ("repr_images", "quantum_basis_tpu/ops/sparse.py:208"))]
     record["kernels"][-3]["ell_ms"] = k9["kagome24_k02"]["ell_ms"]
+    # repr_rows counts calls: on the entry path a call is two launches, the
+    # pre-pass and the walk (and a clear of the label buffer where another
+    # basis held it); device_ms sums both (its tag names both),
+    # passes_device_ms gives each
+    record["kernels"][-3]["launches_count"] = (
+        "calls; a call on the entry path launches repr_rows_kernel_pack "
+        "and repr_rows_kernel")
+    record["kernels"][-3]["passes_device_ms"] = \
+        k9["kagome24_k02"].get("passes_device_ms")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

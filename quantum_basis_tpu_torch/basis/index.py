@@ -30,7 +30,9 @@ class IndexTables(NamedTuple):
     ``sa`` the split) or the sorted labels (``bsearch``); ``labels`` are the
     sorted basis labels in every mode (for checked lookups). The position
     table holds int32 rows: a direct index takes fewer than 2 ** 31 of
-    them."""
+    them. With ``absent`` it holds n for every label not in the basis (a
+    row past the last: a kernel needs no check of the label there), else
+    0."""
 
     mode: str
     t0: torch.Tensor
@@ -39,13 +41,15 @@ class IndexTables(NamedTuple):
     label_space: int
     n: int
     labels: torch.Tensor
+    absent: bool = False
 
 
 def lookup_tables(ix: IndexTables, tgt: torch.Tensor) -> torch.Tensor:
     """Row indices (int64) of target labels (any shape) through ``ix``; a
     label not in the basis maps to an arbitrary in-range row."""
     if ix.mode == "direct":    # the int32 position table
-        return ix.t0[tgt.clamp(0, ix.label_space - 1)].long()
+        j = ix.t0[tgt.clamp(0, ix.label_space - 1)].long()
+        return j.clamp(max=max(ix.n - 1, 0)) if ix.absent else j
     if ix.mode == "lin":
         t = tgt.clamp(0, ix.label_space - 1)
         j = ix.t0[t % ix.sa] + ix.t1[t // ix.sa]
@@ -59,12 +63,13 @@ class BasisIndex:
 
     ``lookup(tgt)`` returns int64 row indices; labels not in the basis map to
     an arbitrary in-range row — ``lookup_checked`` also returns a validity
-    mask.
+    mask. ``absent_row``: a direct table holds n for the labels not in the
+    basis (``IndexTables.absent``; the momentum-sector kernels read it so).
     """
 
     def __init__(self, labels: np.ndarray, label_space: int,
                  mode: str | None = None, lin_split: int | None = None,
-                 device="cuda"):
+                 device="cuda", absent_row: bool = False):
         labels = np.asarray(labels, dtype=np.int64)
         if labels.size and np.any(labels[1:] <= labels[:-1]):
             raise ValueError("basis labels must be sorted strictly ascending")
@@ -99,10 +104,12 @@ class BasisIndex:
             if self.n >= 2 ** 31:
                 raise ValueError("a direct index holds int32 rows; take "
                                  "'lin' or 'bsearch' for 2 ** 31 or more")
-            pos = np.zeros(self.label_space, dtype=np.int32)
+            pos = np.full(self.label_space, self.n if absent_row else 0,
+                          dtype=np.int32)
             pos[labels] = np.arange(self.n, dtype=np.int32)
             self._pos = torch.as_tensor(pos, device=device)
         self.mode = mode
+        self.absent = absent_row and mode == "direct"
 
     @property
     def tables(self) -> IndexTables:
@@ -114,7 +121,7 @@ class BasisIndex:
         else:
             t0, t1, sa = self.labels, None, 0
         return IndexTables(self.mode, t0, t1, sa, self.label_space, self.n,
-                           self.labels)
+                           self.labels, self.absent)
 
     def lookup(self, tgt: torch.Tensor) -> torch.Tensor:
         """Row indices of target labels (any shape); invalid -> arbitrary."""

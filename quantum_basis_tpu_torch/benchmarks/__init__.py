@@ -5,8 +5,10 @@ ground state, full sector and all 8 momenta), ``flagship_kagome24_sqw`` (its
 S(q, w)), ``memory`` (whole solves at each setting of the memory sizes),
 ``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900),
 ``hubbard4x4_gaps`` (its spin and charge gaps), ``scaling`` (the sharded
-engines on 1, 2, 4, ... ranks) and ``comm_roofline`` (their communication
-against their compute). Each runs as
+engines on 1, 2, 4, ... ranks), ``comm_roofline`` (their communication
+against their compute), ``krylov_trace`` (a restart cycle's split) and
+``repr_turns`` (the momentum-sector kernels at two sectors, for turns with
+another tree). Each runs as
 
     python -m quantum_basis_tpu_torch.benchmarks.<name> [--device cpu]
 

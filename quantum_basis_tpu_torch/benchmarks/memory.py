@@ -16,6 +16,13 @@ runs set the "cuda" values of ``config.MEMORY``:
   ms per apply (7 samples, with the spread) on kagome-24 k=(0,0) and
   chain-24 k=0, and one continued fraction (``measure_repr_dynamic``, 40
   steps) of chain-24 on its target sector's ``MatvecRepr``;
+- ``repr_label``: ``repr_label_buffer_max``: ``MatvecRepr`` ms per apply
+  (7 samples) with its label buffer (the bound at 16 bytes a label) and
+  on the general path (the bound one byte lower) on kagome-24 k=(0,2),
+  chain-24 k=0 and chain-26 k=0 (2^24, 2^24 and 2^26 labels), the
+  applies checked equal (1e-12 of max|y|); then the eight momentum
+  sectors of kagome-24 Sz=0 kept alive together, each applied in turns:
+  the peak and the bytes the label buffer holds;
 - ``lookup``: ``direct_lookup_max``: the direct, Lin and binary-search
   indexes on chain-26 and chain-28 Sz=0 (label spaces 2^26, 2^28): index
   build (the direct mode's host table included), basis, ELL build,
@@ -37,7 +44,7 @@ runs set the "cuda" values of ``config.MEMORY``:
   the rule: a save costs at most ``CKPT_SHARE`` of the solver time between
   two restart saves (``solvers/restarted._SAVE_PERIOD``).
 
-Run:  python -m quantum_basis_tpu_torch.benchmarks.memory [--sections block,repr_block,lookup,polish,product,ckpt] [--quick] [--device cpu]
+Run:  python -m quantum_basis_tpu_torch.benchmarks.memory [--sections block,repr_block,repr_label,lookup,polish,product,ckpt] [--quick] [--device cpu]
 """
 
 from __future__ import annotations
@@ -91,6 +98,12 @@ BLOCK_CASES = {   # tag: (model, the idle share of an apply traced, quick)
 REPR_BLOCK_CASES = {   # tag: (model, momentum, quick)
     "kagome24_k00": (kagome24(12), [0, 0], False),
     "chain24_k0": (chain(24, 12), [0], False),
+    "chain16_k0": (chain(16, 8), [0], True),
+}
+REPR_LABEL_CASES = {   # tag: (model, momentum, quick)
+    "kagome24_k02": (kagome24(12), [0, 2], False),
+    "chain24_k0": (chain(24, 12), [0], False),
+    "chain26_k0": (chain(26, 13), [0], False),
     "chain16_k0": (chain(16, 8), [0], True),
 }
 CF_CASE = {False: (chain(24, 12), [0], [6]), True: (chain(16, 8), [0], [4])}
@@ -272,6 +285,67 @@ def repr_block_section(device, quick):
     return out
 
 
+def repr_label_section(device, quick):
+    from quantum_basis_tpu_torch.ops.apply_repr import LabelBuffer
+
+    out = {}
+    for tag, (make, k, q) in REPR_LABEL_CASES.items():
+        if quick != q:
+            continue
+        _free(device)
+        m, conserve, vals = make(device)
+        dim = m.enumerate_basis_repr(k, conserve, vals)
+        mv = m.sec_repr[0].matvec
+        x = _rand(dim, device, torch.complex128)
+        need = 16 * m.space.label_space
+        recs, ys = {}, {}
+        for point, bound in (("by_label", need), ("general", need - 1)):
+            _free(device)
+            with config.pinned(repr_label_buffer_max=bound):
+                mv._records.clear()
+                rec = mv.record()
+            ys[point] = mv(x)
+            ms = device_ms_samples(lambda: mv(x), device, samples=7,
+                                   per_sample=3)
+            recs[point] = {
+                "bound": bound, "by_label": rec.by_label,
+                "apply_ms": float(np.median(ms)), "apply_ms_samples": ms,
+                "label_buffer_bytes": LabelBuffer.held_bytes(),
+                "peak_bytes": _peak(device)}
+        err = float((ys["by_label"] - ys["general"]).abs().max())
+        scale = float(ys["general"].abs().max())
+        if not err <= 1e-12 * scale:
+            raise AssertionError(f"{tag}: by label vs general {err:.3e}")
+        out[tag] = {"dim": dim, "label_space": m.space.label_space,
+                    "max_abs_diff": err, **recs}
+        print("repr_label", tag, json.dumps(out[tag]), flush=True)
+        del m, mv, x, ys, rec
+    if not quick:       # every momentum of kagome-24 Sz=0 alive at once
+        _free(device)
+        m, conserve, vals = kagome24(12)(device)
+        ks = [[a, b] for a in range(2) for b in range(4)]
+        for sec, k in enumerate(ks):
+            m.enumerate_basis_repr(k, conserve, vals, sec=sec)
+        xs = [_rand(m.sec_repr[sec].dim, device, torch.complex128)
+              for sec in range(len(ks))]
+        base = _peak(device)
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for sec in range(len(ks)):
+                m.sec_repr[sec].matvec(xs[sec])
+        torch.cuda.synchronize()
+        out["kagome24_all_k"] = {
+            "sectors": len(ks), "dims": [m.sec_repr[s].dim
+                                         for s in range(len(ks))],
+            "applies_s": time.perf_counter() - t0,
+            "peak_before_applies": base, "peak_bytes": _peak(device),
+            "label_buffer_bytes": LabelBuffer.held_bytes()}
+        print("repr_label kagome24_all_k", json.dumps(
+            out["kagome24_all_k"]), flush=True)
+        del m, xs
+    return out
+
+
 def lookup_section(device, quick):
     out = {}
     for tag, (make, q) in LOOKUP_CASES.items():
@@ -446,7 +520,7 @@ def ckpt_section(device, quick):
 
 
 SECTIONS = {"block": block_section, "repr_block": repr_block_section,
-            "lookup": lookup_section, "polish": polish_section,
+            "repr_label": repr_label_section, "lookup": lookup_section, "polish": polish_section,
             "product": product_section, "ckpt": ckpt_section}
 
 

@@ -143,20 +143,25 @@ ROUTING = {
         # KPM (192 moments) on the explicit route (the ELL, or the BSR
         # where bsr_blowup_max admits it: the ELL at every measured fill)
         # against the sector's MatvecRepr, enumeration and ELL build
-        # included: the ELL wins at every measured dim, 800 (chain-16)
-        # 0.04 / 0.22, 8,640 (kagome t-J) 0.06 / 0.32, 9,252 (chain-20)
-        # 0.05 / 0.27, 338,356 (kagome-24) 0.55 / 4.70; the route this
-        # table takes (the ELL, after the fill statistics turn the BSR
-        # down), in one later run against MatvecRepr: 0.044 / 0.162,
-        # 0.058 / 0.251, 0.063 / 0.378, 0.605 / 4.911 (2.2 / 1.5 GB peak).
-        # The bound is the largest measured dim.
-        "bsr_auto_max_dim": 338_356,
+        # included. On the torch MatvecRepr the ELL won at every measured
+        # dim (800 / 8,640 / 9,252 / 338,356: 0.04-0.06 / 0.22-0.32 s, and
+        # 0.55 / 4.70 at kagome-24), whence 338,356 until the K9 kernels.
+        # On them (benchmarks/routing.py --sections kpm, two runs), the
+        # route the earlier bound took (the ELL after the fill statistics)
+        # against MatvecRepr: 810 (chain-16) 0.039, 0.040 / 0.030, 0.032;
+        # 8,730 (kagome t-J) 0.066, 0.058 / 0.045, 0.049; 9,252 (chain-20)
+        # 0.058, 0.053 / 0.036, 0.036; 338,356 (kagome-24) 0.216, 0.283 /
+        # 0.175, 0.167 (2.4 / 1.8 GB peak). MatvecRepr wins at every
+        # measured dim: the bound sits below the smallest.
+        "bsr_auto_max_dim": 0,
         # KPM on P_k H against the sector-dim engines (ELL / BSR /
         # MatvecRepr): 2^16 labels (chain-16) 0.29 against 0.04 / 0.07 /
         # 0.22, 3^12 (kagome t-J) 0.60 against 0.06 / 0.08 / 0.32, 2^20
         # (chain-20) 0.48 against 0.05 / 0.07 / 0.27, 2^24 (kagome-24) 13.9
-        # against 0.55 / 1.91 / 4.70; the bound sits below the smallest
-        # measured label space.
+        # against 0.55 / 1.91 / 4.70; again on the K9 kernels (two runs):
+        # 0.21, 0.15 / 2.2, 2.1 / 0.50, 0.48 / 13.9, 13.7 against at most
+        # 0.059 / 0.059 / 0.102 / 1.43 (MatvecRepr 0.030-0.175). The bound
+        # sits below the smallest measured label space.
         "kpm_fullspace_max_N": 1 << 15,
         # ProductModel's whole solve on its defaults (mixed, ncv 12), the
         # factors' and the coupling's build included, dense / ELL layout
@@ -200,6 +205,12 @@ ROUTING = {
 # - repr_block_budget: the same for each (rows, terms, images, group)
 #   intermediate of the momentum-sector apply (ops/apply_repr.py), at least
 #   256 rows.
+# - repr_label_buffer_max: the bytes of a device's label buffer
+#   (ops/apply_repr.py::LabelBuffer, 16 a label): a momentum basis whose
+#   label space fits takes the entry path of repr_rows, which gathers
+#   sqrt(nu_j) x_j by label; a larger one, the general path. 0 on the CPU:
+#   the JAX package has no label buffer (and CPU tensors run the plain
+#   versions).
 # - polish_n: above this full-space N the warm-started f64 stage of a mixed
 #   full-sector solve is the RQI polish (or the 2-vector Lanczos) instead of
 #   a thick restart (Model._solve_fullspace).
@@ -216,6 +227,7 @@ MEMORY = {
         "direct_lookup_max": 1 << 26,
         "apply_block_budget": 1 << 24,
         "repr_block_budget": 1 << 22,
+        "repr_label_buffer_max": 0,
         "polish_n": 1 << 22,
         "product_mixed_above": 1 << 22,
         "product_ncv": 6,
@@ -260,6 +272,14 @@ MEMORY = {
         # Chain-24's continued fraction (40 steps, target sector built)
         # 1.35 / 0.46 / 0.31 / 0.32 / 0.28 s.
         "repr_block_budget": 1 << 26,
+        # MatvecRepr per apply by label / on the general path (7 samples;
+        # memory --sections repr_label): kagome-24 k=(0,2) (2^24 labels,
+        # 256 MiB) 0.112 / 0.466 ms, chain-24 k=0 0.046 / 0.179, chain-26
+        # k=0 (2^26 labels, 1 GiB) 0.125 / 0.553 (1.44 GB peak). The buffer
+        # wins 4x at every measured label space; one a device, so the bound
+        # is the largest measured (every kagome-24 momentum alive at once:
+        # no byte added by their applies).
+        "repr_label_buffer_max": 1 << 30,
         # The mixed full-sector solve on ContractOp, its warm f64 stage as
         # a thick restart / the RQI polish: chain-20 Sz=0 (N = 2^20) 1.42 /
         # 0.56, chain-22 (2^22) 2.82 / 2.19, chain-24 (2^24) 2.67 / 1.16

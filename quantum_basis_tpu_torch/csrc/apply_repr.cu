@@ -16,27 +16,22 @@
 // For basis row i (a representative r = labels[i], the minimum of its
 // orbit, with norm nu_i) and every image column e = (group, term, image)
 // of the operator's packed tables (ops/apply.py::pack_rows), in order:
-//   1. the column's record and entry: joint column c = sum_a V_s(r) *
-//      cstr[e, a] over the slots s = cslot[e, a] the term acts on, entry
-//      ad[off + c] = (amplitude A, displacement d); A = 0 is padding; the
-//      Jordan-Wigner sign (-1) ** popcount(Fodd_i & wmask[e]) folds into A;
-//      the image label m = r + d;
-//   2. its G translated labels T_g(m) = sum_s V_s(m) SP[s, g]. The
-//      translation is linear in the slot values, so with the row's own
-//      T_g(r) computed once a row, T_g(m) = T_g(r) + sum_a (V_s(m) -
-//      V_s(r)) SP[s, g] over the term's slots: G * arity integer products
-//      an image (int64, exact; TranslationSet refuses label spaces above
-//      2^53). The minimum r_j and the FIRST g* that reaches it (ties to
-//      the lowest g, as torch.min(dim=) and jnp.argmin take them);
+//   1. the column's record and entry: joint column c of r's values on the
+//      term's slots, entry off[e] + c = (amplitude A, displacement d); A = 0
+//      is padding; the Jordan-Wigner sign (-1) ** popcount(Fodd_i &
+//      wmask[e]) folds into A; the image label m = r + d;
+//   2. its G translated labels T_g(m) = sum_s V_s(m) SP[s, g], their
+//      minimum r_j and the FIRST g* that reaches it (ties to the lowest g,
+//      as torch.min(dim=) and jnp.argmin take them);
 //   3. the fermionic sign sigma = (-1) ** (F^T Q_g* F) of the translation
-//      at g*: mod 2 it depends on the slots with an odd fermion count
-//      only, so with Fodd_m (Fodd_i with the term's slots re-read from m)
-//      and one 64-bit mask a (g, slot) holding the row of Q_g, the parity
-//      is the xor over the odd slots s of popcount(Fodd_m & Q[g*, s]);
+//      at g*: mod 2 it depends on the slots with an odd fermion count only,
+//      so with Fodd_m and one 64-bit mask a (g, slot) holding the row of
+//      Q_g, the parity is the xor over the odd slots s of popcount(Fodd_m &
+//      Q[g*, s]);
 //   4. r_j's row j in the destination's index (direct int32 position
-//      table, lin, or a binary search), the image dropped unless
-//      labels[j] == r_j (a representative of zero norm, or one outside the
-//      sector);
+//      table, lin, or a binary search), the image dropped unless the
+//      destination's label there is r_j (a representative of zero norm, or
+//      one outside the sector);
 //   5. the phase of g*: phase[g*] = (cos, sin) as the wrapper passes it.
 // Then
 //   repr_rows:    y_i = diag_i x_i + sum sqrt(nu_j) / sqrt(nu_i) sigma
@@ -44,7 +39,7 @@
 //   repr_scatter: y_j += x_i / sqrt(nu_i) sqrt(nu'_j) sigma A
 //                 e^{+i k'.R_g*}   (f64 atomics on the (re, im) halves, so
 //                 the order of summation changes from run to run, as
-//                 index_add_'s does on the card)
+//                 index_add_'s does on the card; the launch zeroes y first)
 //   repr_images:  row i's column e: (j, its coefficient in repr_rows), or
 //                 (-1, 0) where the image is padding or dropped.
 // A diagonal column (every displacement 0, flagged by the packing) maps r
@@ -58,23 +53,60 @@
 //
 // Bound: device-memory bytes. One apply reads each row's label, Fodd where
 // fermionic, 1/sqrt(nu_i), the diagonal and x once, writes y once, and
-// gathers, for each image kept, the index entry of r_j, labels[j] (the
-// check), sqrt(nu_j) and x_j; chip_smoke.py counts the 32-byte sectors
-// this run's images touch (k9_bound). What limits this first version
-// is the integer work a row: T_g(r) (S * G products), then G compares and
-// G * arity products an image.
+// gathers, for each image kept, the index entry of r_j, the destination's
+// label (the check) and sqrt(nu_j), and x_j; chip_smoke.py counts the
+// 32-byte sectors this run's images touch (k9_bound).
 //
-// Design, simple first: one thread a row, 128 rows a block, a grid of as
-// many blocks as are resident, each block walking row tiles. The tables
-// (the columns' records and entries, their slots and strides, the slots'
-// strides and dims, SP, the Q masks and the phases) are staged in shared
-// memory once a block up to ops/apply_repr.py::TABLES_SHARED_MAX bytes,
-// else read from device memory through the cache. A row's T_g(r) is held
-// in shared memory at [g][thread] (no bank conflicts) while 8 * G * 128
-// bytes fit TR_SHARED_MAX, above that in a device scratch the wrapper
-// allocates ([block][g][thread]); so any G the lattice has is taken. The
-// index mode and the tables' placement are uniform branches, not
-// instances: one instance a kernel.
+// Two paths, chosen by the wrapper (ops/apply_repr.py::entry_plan):
+//
+// The entry path (G <= 32, label space below 2^27-2^29, the staged tables
+// within ENTRY_TABLES_MAX). An entry off[e] + c fixes the term's slot values
+// before the image (c) and after it (d), so the change of every translated
+// label, Delta[entry][g] = sum_a (V_sa(m) - V_sa(r)) SP[sa, g], is a
+// constant of the entry, and so is the change of Fodd (an xor mask). The
+// wrapper packs them once per (operator, translation set): an entry row of
+// int32 words, (re, im) of A as four words, then Delta_g << SH for the G
+// bucket GB = 8, 16 or 32 (SH = 3, 4, 5; 0 past G), at a pitch of GB + 4
+// words (an odd number of 16-byte units: the rows a warp reads lie in
+// distinct banks). A row computes its keys K_g = T_g(r) << SH | g once, in
+// 32-bit registers (GB of them), over its nonzero slots; an image's key is
+// then K_g + row[g], and one unsigned min over g gives r_j (key >> SH) and
+// the first g* at it (key & (GB - 1)) at once: no slot of m decoded, no
+// multiply, two integer instructions a g. Keys past G hold 0xFFFFFFFF. The
+// image columns are walked in chunks of kChunk = 4: a chunk's minima first,
+// then all its index lookups, then each kept image's destination record,
+// so a thread keeps 4 independent random loads in flight; an image holds
+// its entry's index, not its amplitude (read again from shared memory),
+// which keeps a thread under 128 registers. What
+// bounds the walk on the card is the number of uncoalesced gathers an
+// image issues (each costs the L1 one pass a distinct line). repr_rows
+// reaches a row by its label: the wrapper passes its device's label buffer
+// (label space x 16 bytes, zero but at the labels of the basis that last
+// used it), a pre-pass (repr_rows_kernel_pack) writes sqrt(nu_j) x_j at
+// label j, and an image gathers that one 16-byte value at r_j, with no
+// lookup and no check (an absent label holds 0); a launch is the pre-pass
+// and the walk. Where the buffer would pass its bound the wrapper takes
+// the general path. (Summing the scatter by label the same way, with a
+// pass that reads the destination's labels back, was slower on the card
+// than its lookups.) The scatter and the images look r_j up in the index
+// (a momentum basis' direct table holds n for a label it does not hold)
+// and gather (label, sqrt(nu_j)) for the check. A block stages every
+// table it reads (records, entry rows, Fodd masks, SP rows, the slots'
+// (shift, mask) or (stride, dim), phases, Q masks) from one contiguous
+// blob the wrapper packs, with 16-byte loads. Instances: GB x fermionic,
+// times the index mode for the scatter and the images.
+//
+// The general path (everything else: G > 32, as a chain of 40 sites, or
+// labels past 2^27): int64 arithmetic. A row's T_g(r) (S * G products) is
+// held in shared memory at [g][thread] while 8 * G * 128 bytes fit
+// TR_SHARED_MAX, above that in a device scratch the wrapper allocates; an
+// image's T_g(m) = T_g(r) + sum over the term's slots of (V_s(m) - V_s(r))
+// SP[s, g]; the tables in shared memory up to TABLES_SHARED_MAX bytes, else
+// read through the cache. One instance a kernel; the index mode and the
+// tables' placement are uniform branches.
+//
+// One thread a row, 128 rows a block, a grid of as many blocks as are
+// resident, each block walking row tiles.
 
 #include <cuda_runtime.h>
 
@@ -84,12 +116,19 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;               // entry path: <= 128 registers
+// The general path at <= 80 registers: left to itself the compiler took 112
+// and the walk ran 24% slower than at 72 (0.56 against 0.45 ms at
+// kagome-24); at 6 blocks an SM, 0.47.
+constexpr int kMinBlocksGeneral = 6;
 constexpr int kMaxShared = 232448;          // a block's shared memory, sm_90
 
 // word 0 of a column record (ops/apply.py::pack_rows): the offset of its
-// entries (bits 0-27) and the diagonal flag (bit 30); words 2, 3: wmask
+// entries (bits 0-27), the diagonal flag (bit 30), arity > 2 (bit 31);
+// words 2, 3: wmask
 constexpr unsigned kOffset = (1u << 28) - 1;
 constexpr unsigned kDiag = 1u << 30;
+constexpr unsigned kGeneric = 1u << 31;
 
 enum { kDirect = 0, kLin = 1, kBsearch = 2 };
 enum { kRows = 0, kScatter = 1, kImages = 2 };
@@ -97,12 +136,12 @@ enum { kRows = 0, kScatter = 1, kImages = 2 };
 // Mirrored field by field by ops/apply_repr.py::_Params (ctypes); the
 // wrapper checks qbt_repr_params_size() against its own size.
 struct Params {
-    // the operator's image columns
+    // the operator's image columns (the general path)
     const int4* rec;                // (E,) column records
     const long long* ad;            // (M, W) amplitude bits and dlt
     const int* cslot;               // (E, A) slots the term acts on, -1 past
     const int* cstr;                // (E, A) their joint strides
-    // the slots and the translations
+    // the slots and the translations (the general path)
     const long long* sstride;       // (S,) label strides
     const long long* sdim;          // (S,) local dims
     const long long* oddmask;       // (S,) bit v: F[s, v] odd; null: bosons
@@ -125,14 +164,480 @@ struct Params {
     long long* cols;                // (rows, E) repr_images
     double* vals;                   // (rows, E, 2) repr_images
     long long* tr_scratch;          // null: T_g(r) in shared memory
-    long long M, row0, rows, sa, sb, label_space, n, scratch_blocks;
+    // the entry path
+    const int4* blob;               // its staged tables, blob_bytes
+    const int* gsel;                // (E, A) slot selectors (arity > 2)
+    const int* gstr;                // (E, A) joint strides (arity > 2)
+    const longlong2* rrec;          // (n,) destination (label, sqrt(nu)):
+                                    // the scatter and the images
+    double* xlab;                   // (>= label_space, 2): repr_rows'
+                                    // sqrt(nu_j) x_j at label j, else 0
+    long long M, row0, rows, sa, sb, label_space, n, scratch_blocks,
+        blob_bytes;
     int E, A, amp_c, S, G, bits, diag_only, mode, sa_shift, tabs_shared,
-        threads, pad;
+        threads, gb;
+    int absent;                     // a direct table holds n where absent
+    // byte offsets in the blob (-1: absent)
+    int o_erow, o_fx, o_sp, o_slot, o_phase, o_q;
 };
 
 __host__ __device__ inline long long align16(long long b) {
     return (b + 15) & ~15ll;
 }
+
+__device__ __forceinline__ long long clampll(long long v, long long lo,
+                                             long long hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ void add_to(double* y, long long j, double re,
+                                       double im) {
+    atomicAdd(y + 2 * j, re);
+    atomicAdd(y + 2 * j + 1, im);
+}
+
+// ---------------------------------------------------------------------------
+// The entry path
+// ---------------------------------------------------------------------------
+
+// Images a chunk: their lookups and gathers in flight together (more a
+// chunk holds more registers a thread).
+constexpr int kChunk = 4;
+
+// A G bucket's key shift: log2(GB).
+template <int GB>
+constexpr int kShift = GB == 8 ? 3 : GB == 16 ? 4 : 5;
+
+// A block's staged tables (shared memory).
+struct Staged {
+    const int4* rec;
+    const int* erow;                    // (M, GB + 4)
+    const unsigned long long* fx;       // (M,) or null
+    const int* sp;                      // (S, GB + 4)
+    const int2* slot;                   // (S,) (shift, mask) or (stride, dim)
+    const double2* phase;               // (G,)
+    const unsigned long long* q;        // (G, S) or null
+};
+
+__device__ Staged stage_blob(const Params& p, unsigned char* raw) {
+    int4* dst = reinterpret_cast<int4*>(raw);
+    for (long long k = threadIdx.x; k < p.blob_bytes / 16; k += kThreads)
+        dst[k] = __ldg(p.blob + k);
+    __syncthreads();
+    Staged t;
+    t.rec = reinterpret_cast<const int4*>(raw);
+    t.erow = reinterpret_cast<const int*>(raw + p.o_erow);
+    t.fx = p.o_fx >= 0
+               ? reinterpret_cast<const unsigned long long*>(raw + p.o_fx)
+               : nullptr;
+    t.sp = reinterpret_cast<const int*>(raw + p.o_sp);
+    t.slot = reinterpret_cast<const int2*>(raw + p.o_slot);
+    t.phase = reinterpret_cast<const double2*>(raw + p.o_phase);
+    t.q = p.o_q >= 0 ? reinterpret_cast<const unsigned long long*>(raw + p.o_q)
+                     : nullptr;
+    return t;
+}
+
+// V_s(l) of a label below 2^32: (shift, mask) with bit fields, else
+// (stride, dim).
+__device__ __forceinline__ unsigned vslot(bool bits, int2 sl, unsigned l) {
+    return bits ? (l >> sl.x) & static_cast<unsigned>(sl.y)
+                : (l / static_cast<unsigned>(sl.x)) % static_cast<unsigned>(sl.y);
+}
+
+// The joint column of column e (record rc) for a row with label l: from
+// the record's word 1 at arity <= 2 (the bit fields' shifts and masks, or
+// the slots and slot 1's joint stride), else a loop over its selectors.
+__device__ __forceinline__ int joint(const Params& p, const Staged& t, int e,
+                                     int4 rc, unsigned l) {
+    const unsigned w = static_cast<unsigned>(rc.y);
+    if (!(static_cast<unsigned>(rc.x) & kGeneric)) {
+        if (p.bits) {
+            const unsigned m0 = (w >> 16) & 255u;
+            return static_cast<int>(((l >> (w & 255u)) & m0)
+                                    + ((l >> ((w >> 8) & 255u)) & (w >> 24))
+                                          * (m0 + 1));
+        }
+        return static_cast<int>(vslot(false, t.slot[w & 255u], l)
+                                + vslot(false, t.slot[(w >> 8) & 255u], l)
+                                      * ((w >> 16) & 255u));
+    }
+    int c = 0;
+    for (int a = 0; a < p.A; ++a) {
+        const int sel = __ldg(p.gsel + e * p.A + a);
+        const unsigned v =
+            p.bits ? (l >> (sel & 63)) & static_cast<unsigned>(sel >> 8)
+                   : vslot(false, t.slot[sel], l);
+        c += static_cast<int>(v) * __ldg(p.gstr + e * p.A + a);
+    }
+    return c;
+}
+
+// (-1) ** parity of the translation whose Q rows are qg on a state with
+// odd-count slots fm.
+__device__ __forceinline__ unsigned parity(unsigned long long fm,
+                                           const unsigned long long* qg) {
+    int par = 0;
+    for (unsigned long long f2 = fm; f2 != 0; f2 &= f2 - 1)
+        par ^= __popcll(fm & qg[__ffsll(static_cast<long long>(f2)) - 1]);
+    return static_cast<unsigned>(par & 1);
+}
+
+// Rows j of the U labels t (those in ``live``) in the destination's index,
+// every lookup of the chunk in flight together (the binary searches in
+// lockstep).
+template <int U, int MODE>
+__device__ __forceinline__ void find_rows(const Params& p,
+                                          const unsigned (&t)[U],
+                                          unsigned live, int (&j)[U]) {
+    if constexpr (MODE == kDirect) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            j[u] = (live >> u & 1)
+                       ? __ldg(static_cast<const int*>(p.t0) + t[u])
+                       : 0;
+    } else if constexpr (MODE == kLin) {
+        const long long* ja = static_cast<const long long*>(p.t0);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            j[u] = 0;
+            if (!(live >> u & 1)) continue;
+            const long long v = t[u];
+            long long a, b;
+            if (p.sa_shift >= 0) {
+                b = v >> p.sa_shift;
+                a = v & (p.sa - 1);
+            } else {
+                b = v / p.sa;
+                a = v - b * p.sa;
+            }
+            j[u] = static_cast<int>(
+                clampll(__ldg(ja + a) + __ldg(p.t1 + b), 0, p.n - 1));
+        }
+    } else {                            // lower bound over the labels
+        const long long* sorted = static_cast<const long long*>(p.t0);
+        int base[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) base[u] = 0;
+        int len = static_cast<int>(p.n);
+        while (len > 1) {
+            const int half = len >> 1;
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                if ((live >> u & 1)
+                    && __ldg(sorted + base[u] + half)
+                           < static_cast<long long>(t[u]))
+                    base[u] += half;
+            len -= half;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            j[u] = 0;
+            if (live >> u & 1)
+                j[u] = min(base[u] + (__ldg(sorted + base[u])
+                                              < static_cast<long long>(t[u])
+                                          ? 1
+                                          : 0),
+                           static_cast<int>(p.n) - 1);
+        }
+    }
+}
+
+// One row (k of the launch, basis row i = row0 + k) on the entry path.
+template <int KIND, int MODE, int GB, bool FERM>
+__device__ __forceinline__ void entry_row(const Params& p, const Staged& t,
+                                          long long k) {
+    constexpr int SH = kShift<GB>, U = kChunk, PITCH = GB + 4;
+    const long long i = p.row0 + k;
+    const unsigned l = static_cast<unsigned>(__ldg(p.labels + i));
+    const unsigned long long fo =
+        FERM ? static_cast<unsigned long long>(__ldg(p.fodd + i)) : 0ull;
+    double wr = 0.0, wi = 0.0;          // scatter: x_i / sqrt(nu_i)
+    double own_r = 0.0, own_i = 0.0;    // the diagonal columns' sum
+    double accr = 0.0, acci = 0.0;      // rows: the images' sum
+    const double isn = __ldg(p.isn + i);
+    if constexpr (KIND == kScatter) {
+        const double2 xv = __ldg(reinterpret_cast<const double2*>(p.x) + i);
+        if (xv.x == 0.0 && xv.y == 0.0) return;         // adds nothing
+        wr = xv.x * isn;
+        wi = xv.y * isn;
+        if (p.diag != nullptr) own_r = __ldg(p.diag + i);
+    }
+    long long* cols = nullptr;
+    double2* vals = nullptr;
+    if constexpr (KIND == kImages) {
+        cols = p.cols + k * p.E;
+        vals = reinterpret_cast<double2*>(p.vals) + k * p.E;
+    }
+    // the row's keys K_g = T_g(r) << SH | g, over its nonzero slots
+    unsigned key[GB];
+    if (!p.diag_only) {
+#pragma unroll
+        for (int g = 0; g < GB; ++g) key[g] = 0u;
+        for (int s = 0; s < p.S; ++s) {
+            const unsigned v = vslot(p.bits != 0, t.slot[s], l);
+            if (v == 0) continue;
+            const int4* row = reinterpret_cast<const int4*>(t.sp + s * PITCH);
+#pragma unroll
+            for (int q = 0; q < GB / 4; ++q) {
+                const int4 w = row[q];
+                key[4 * q] += v * static_cast<unsigned>(w.x);
+                key[4 * q + 1] += v * static_cast<unsigned>(w.y);
+                key[4 * q + 2] += v * static_cast<unsigned>(w.z);
+                key[4 * q + 3] += v * static_cast<unsigned>(w.w);
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+            key[g] = g < p.G ? (key[g] << SH) | static_cast<unsigned>(g)
+                             : 0xFFFFFFFFu;
+    }
+    long long pj = -1;                  // scatter: the pending add's row
+    double pr = 0.0, pim = 0.0;
+    for (int e0 = 0; e0 < p.E; e0 += U) {
+        // per image: its key minimum, its entry (the amplitude is read
+        // again from shared memory, not held), its sign (Jordan-Wigner
+        // times sigma) as a bit of neg
+        unsigned tk[U], live = 0u, neg = 0u;
+        int ex[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            tk[u] = 0u;
+            ex[u] = 0;
+            const int e = e0 + u;
+            if (e >= p.E) continue;
+            const int4 rc = t.rec[e];
+            const unsigned w0 = static_cast<unsigned>(rc.x);
+            const int idx = static_cast<int>(w0 & kOffset) + joint(p, t, e, rc, l);
+            const int* er = t.erow + idx * PITCH;
+            const int4 a = *reinterpret_cast<const int4*>(er);
+            double re = __hiloint2double(a.y, a.x);
+            double im = __hiloint2double(a.w, a.z);
+            if (re == 0.0 && im == 0.0) {
+                if constexpr (KIND == kImages) {
+                    cols[e] = -1;
+                    vals[e] = make_double2(0.0, 0.0);
+                }
+                continue;
+            }
+            unsigned jw = 0u;
+            if constexpr (FERM) {
+                const unsigned long long wm =
+                    static_cast<unsigned long long>(static_cast<unsigned>(rc.z))
+                    | (static_cast<unsigned long long>(
+                           static_cast<unsigned>(rc.w)) << 32);
+                jw = static_cast<unsigned>(__popcll(fo & wm) & 1);
+                if (jw) {
+                    re = -re;
+                    im = -im;
+                }
+            }
+            if (w0 & kDiag) {
+                if constexpr (KIND == kImages) {
+                    cols[e] = i;
+                    vals[e] = make_double2(re, -im);
+                } else {
+                    own_r += re;
+                    own_i += im;
+                }
+                continue;
+            }
+            // the minimum of K_g + Delta_g over g: r_j and the first g*
+            const int4* dr = reinterpret_cast<const int4*>(er + 4);
+            unsigned m = 0xFFFFFFFFu;
+#pragma unroll
+            for (int q = 0; q < GB / 4; ++q) {
+                const int4 d = dr[q];
+                m = min(m, key[4 * q] + static_cast<unsigned>(d.x));
+                m = min(m, key[4 * q + 1] + static_cast<unsigned>(d.y));
+                m = min(m, key[4 * q + 2] + static_cast<unsigned>(d.z));
+                m = min(m, key[4 * q + 3] + static_cast<unsigned>(d.w));
+            }
+            tk[u] = m;
+            ex[u] = idx;
+            live |= 1u << u;
+            if constexpr (FERM) {
+                unsigned sg = jw;
+                if (t.q != nullptr)     // sigma of g* from Fodd_m
+                    sg ^= parity(fo ^ t.fx[idx], t.q + (m & (GB - 1)) * p.S);
+                neg |= sg << u;
+            }
+        }
+        if (live == 0u) continue;
+        unsigned rj[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) rj[u] = tk[u] >> SH;
+        if constexpr (KIND == kRows) {
+            // by label: sqrt(nu_j) x_j where the sector holds r_j, else 0;
+            // one gather an image, no lookup
+            double2 xv[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                xv[u] = (live >> u & 1)
+                            ? __ldg(reinterpret_cast<const double2*>(p.xlab)
+                                    + rj[u])
+                            : make_double2(0.0, 0.0);
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (!(live >> u & 1)) continue;
+                const double2 ph = t.phase[tk[u] & (GB - 1)];
+                const int4 a =
+                    *reinterpret_cast<const int4*>(t.erow + ex[u] * PITCH);
+                const double are = __hiloint2double(a.y, a.x);
+                const double aim = __hiloint2double(a.w, a.z);
+                const double w = (neg >> u & 1) ? -isn : isn;
+                const double cr = w * (are * ph.x + aim * ph.y);
+                const double ci = w * (are * ph.y - aim * ph.x);
+                accr += cr * xv[u].x - ci * xv[u].y;
+                acci += cr * xv[u].y + ci * xv[u].x;
+            }
+        } else {
+            int j[U];
+            find_rows<U, MODE>(p, rj, live, j);
+            // a direct table marks an absent label with row n: no check there
+            unsigned have = live;
+            if constexpr (MODE == kDirect) {
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+                    if (j[u] >= p.n) have &= ~(1u << u);
+            }
+            // the destinations' records (label, sqrt(nu_j))
+            long long lab[U];
+            double snu[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                lab[u] = -1;
+                snu[u] = 0.0;
+                if (!(have >> u & 1)) continue;
+                const longlong2 r = __ldg(p.rrec + j[u]);
+                lab[u] = r.x;
+                snu[u] = __longlong_as_double(r.y);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (!(live >> u & 1)) continue;
+                const bool in = lab[u] == static_cast<long long>(rj[u]);
+                if constexpr (KIND == kImages) {
+                    if (!in) {
+                        cols[e0 + u] = -1;
+                        vals[e0 + u] = make_double2(0.0, 0.0);
+                        continue;
+                    }
+                } else if (!in) {
+                    continue;
+                }
+                const double2 ph = t.phase[tk[u] & (GB - 1)];
+                const int4 a = *reinterpret_cast<const int4*>(t.erow + ex[u] * PITCH);
+                const double are = __hiloint2double(a.y, a.x);
+                const double aim = __hiloint2double(a.w, a.z);
+                const double sg = (neg >> u & 1) ? -1.0 : 1.0;
+                if constexpr (KIND == kScatter) {
+                    const double s = sg * snu[u];
+                    const double cr = s * (are * ph.x - aim * ph.y);
+                    const double ci = s * (are * ph.y + aim * ph.x);
+                    const double vr = cr * wr - ci * wi, vi = cr * wi + ci * wr;
+                    if (j[u] == pj) {
+                        pr += vr;
+                        pim += vi;
+                    } else {
+                        if (pj >= 0) add_to(p.y, pj, pr, pim);
+                        pj = j[u];
+                        pr = vr;
+                        pim = vi;
+                    }
+                } else {
+                    const double w = sg * snu[u] * isn;
+                    cols[e0 + u] = j[u];
+                    vals[e0 + u] = make_double2(
+                        w * (are * ph.x + aim * ph.y),
+                        w * (are * ph.y - aim * ph.x));
+                }
+            }
+        }
+    }
+    if constexpr (KIND == kRows) {
+        const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
+        const double d = p.diag != nullptr ? __ldg(p.diag + i) : 0.0;
+        // conj(own) x_i
+        const double yr = accr + (d + own_r) * xi.x + own_i * xi.y;
+        const double yi = acci + (d + own_r) * xi.y - own_i * xi.x;
+        reinterpret_cast<double2*>(p.y)[k] = make_double2(yr, yi);
+    } else if constexpr (KIND == kScatter) {
+        if (own_r != 0.0 || own_i != 0.0) {
+            // the row's own label: at row i where the destination holds it
+            // there (the sector into itself), else looked up
+            long long jo = -1;
+            longlong2 r0 = make_longlong2(-1, 0);
+            if (i < p.n) r0 = __ldg(p.rrec + i);
+            if (r0.x == static_cast<long long>(l)) {
+                jo = i;
+            } else {
+                unsigned tl[1] = {l};
+                int jj[1];
+                find_rows<1, MODE>(p, tl, 1u, jj);
+                if (jj[0] < p.n) {
+                    r0 = __ldg(p.rrec + jj[0]);
+                    if (r0.x == static_cast<long long>(l)) jo = jj[0];
+                }
+            }
+            if (jo >= 0) {
+                const double s = __longlong_as_double(r0.y);
+                const double cr = s * (own_r * wr - own_i * wi);
+                const double ci = s * (own_r * wi + own_i * wr);
+                if (p.diag_only) {
+                    // no other row adds to the row of this label
+                    reinterpret_cast<double2*>(p.y)[jo] = make_double2(cr, ci);
+                } else if (jo == pj) {
+                    pr += cr;
+                    pim += ci;
+                } else {
+                    add_to(p.y, jo, cr, ci);
+                }
+            }
+        }
+        if (pj >= 0) add_to(p.y, pj, pr, pim);
+    }
+}
+
+// repr_rows' pre-pass on the entry path: sqrt(nu_j) x_j into the label
+// buffer at label j (the others hold 0).
+__global__ void __launch_bounds__(256) repr_rows_kernel_pack(const Params p) {
+    for (long long j = blockIdx.x * 256ll + threadIdx.x; j < p.n;
+         j += 256ll * gridDim.x) {
+        const double s = __ldg(p.sqrt_nu + j);
+        const double2 v = __ldg(reinterpret_cast<const double2*>(p.x) + j);
+        reinterpret_cast<double2*>(p.xlab)[__ldg(p.index_labels + j)] =
+            make_double2(s * v.x, s * v.y);
+    }
+}
+
+// Zeroes the label buffer at n labels: those of the basis that used it
+// last, before another basis' pre-pass writes its own.
+__global__ void __launch_bounds__(256) repr_label_clear_kernel(
+    double2* xlab, const long long* labels, long long n) {
+    for (long long j = blockIdx.x * 256ll + threadIdx.x; j < n;
+         j += 256ll * gridDim.x)
+        xlab[__ldg(labels + j)] = make_double2(0.0, 0.0);
+}
+
+unsigned pass_grid(long long n) {
+    return static_cast<unsigned>(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024);
+}
+
+template <int KIND, int MODE, int GB, bool FERM>
+__device__ __forceinline__ void entry_kernel(const Params& p,
+                                             unsigned char* raw) {
+    const Staged t = stage_blob(p, raw);
+    const long long tiles = (p.rows + kThreads - 1) / kThreads;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const long long k = tile * kThreads + threadIdx.x;
+        if (k < p.rows) entry_row<KIND, MODE, GB, FERM>(p, t, k);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The general path
+// ---------------------------------------------------------------------------
 
 // Byte offsets of the regions of a block's dynamic shared memory: the
 // tables (where staged), then T_g(r) of the block's rows (where held).
@@ -215,11 +720,6 @@ __device__ Tabs stage_tables(const Params& p, unsigned char* raw,
     return t;
 }
 
-__device__ __forceinline__ long long clampll(long long v, long long lo,
-                                             long long hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
-
 // V_s(x): the value of slot s in label x (a bit field where every local
 // dim is a power of two).
 __device__ __forceinline__ long long slot_value(const Params& p,
@@ -235,9 +735,10 @@ __device__ __forceinline__ long long slot_value(const Params& p,
 __device__ __forceinline__ long long find(const Params& p, long long u,
                                           bool& in) {
     long long j;
-    if (p.mode == kDirect) {
-        j = __ldg(static_cast<const int*>(p.t0)
-                  + clampll(u, 0, p.label_space - 1));
+    if (p.mode == kDirect) {            // n where absent: in range below
+        j = min(static_cast<long long>(__ldg(static_cast<const int*>(p.t0)
+                                             + clampll(u, 0, p.label_space - 1))),
+                p.n - 1);
     } else if (p.mode == kLin) {
         const long long v = clampll(u, 0, p.label_space - 1);
         long long a, b;
@@ -368,12 +869,9 @@ __device__ __forceinline__ void walk_row(const Params& p, const Tabs& t,
                      >> slot_value(p, t, m, s)) & 1ull;
                 fm = (fm & ~(1ull << s)) | (b << s);
             }
-            const long long* qg = t.qmask + static_cast<long long>(gs) * p.S;
-            int par = 0;
-            for (unsigned long long f2 = fm; f2 != 0; f2 &= f2 - 1)
-                par ^= __popcll(fm & static_cast<unsigned long long>(
-                                         qg[__ffsll(static_cast<long long>(f2)) - 1]));
-            if (par & 1) sig = -1.0;
+            if (parity(fm, reinterpret_cast<const unsigned long long*>(
+                               t.qmask + static_cast<long long>(gs) * p.S)))
+                sig = -1.0;
         }
         bool in;
         const long long j = find(p, best, in);
@@ -404,12 +902,6 @@ struct RowsVisit {
         yi += cr * xv.y + ci * xv.x;
     }
 };
-
-__device__ __forceinline__ void add_to(double* y, long long j, double re,
-                                       double im) {
-    atomicAdd(y + 2 * j, re);
-    atomicAdd(y + 2 * j + 1, im);
-}
 
 // Source row i of y = A x, scattering x_i / sqrt(nu_i) (w): y_j +=
 // sqrt(nu'_j) sigma A phase w; the diagonal columns' A summed into own.
@@ -463,105 +955,99 @@ struct ImagesVisit {
     }
 };
 
-// A block's set-up: its tables and where its rows' T_g(r) live.
-__device__ __forceinline__ Tabs set_up(const Params& p, unsigned char* raw,
-                                       long long*& tr) {
+template <int KIND>
+__device__ __forceinline__ void general_kernel(const Params& p,
+                                               unsigned char* raw) {
     const Layout l = layout(p);
     const Tabs t = stage_tables(p, raw, l);
-    tr = (p.tr_scratch != nullptr
-              ? p.tr_scratch + static_cast<long long>(blockIdx.x) * p.G * kThreads
-              : reinterpret_cast<long long*>(raw + l.tr))
-         + threadIdx.x;
-    return t;
-}
-
-__global__ void __launch_bounds__(kThreads) repr_rows_kernel(const Params p) {
-    extern __shared__ int4 smem[];
-    long long* tr;
-    const Tabs t = set_up(p, reinterpret_cast<unsigned char*>(smem), tr);
+    long long* tr =
+        (p.tr_scratch != nullptr
+             ? p.tr_scratch + static_cast<long long>(blockIdx.x) * p.G * kThreads
+             : reinterpret_cast<long long*>(raw + l.tr))
+        + threadIdx.x;
     const long long tiles = (p.rows + kThreads - 1) / kThreads;
     for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const long long k = tile * kThreads + threadIdx.x;
         if (k >= p.rows) continue;
         const long long i = p.row0 + k;
-        const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
-        const double d = p.diag != nullptr ? __ldg(p.diag + i) : 0.0;
-        RowsVisit f{p, t, __ldg(p.isn + i), d * xi.x, d * xi.y, 0.0, 0.0};
-        walk_row(p, t, i, tr, f);
-        // the diagonal columns: conj(own) x_i
-        const double yr = f.yr + f.own_r * xi.x + f.own_i * xi.y;
-        const double yi = f.yi + f.own_r * xi.y - f.own_i * xi.x;
-        reinterpret_cast<double2*>(p.y)[k] = make_double2(yr, yi);
+        if constexpr (KIND == kRows) {
+            const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
+            const double d = p.diag != nullptr ? __ldg(p.diag + i) : 0.0;
+            RowsVisit f{p, t, __ldg(p.isn + i), d * xi.x, d * xi.y, 0.0, 0.0};
+            walk_row(p, t, i, tr, f);
+            // the diagonal columns: conj(own) x_i
+            const double yr = f.yr + f.own_r * xi.x + f.own_i * xi.y;
+            const double yi = f.yi + f.own_r * xi.y - f.own_i * xi.x;
+            reinterpret_cast<double2*>(p.y)[k] = make_double2(yr, yi);
+        } else if constexpr (KIND == kScatter) {
+            const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
+            if (xi.x == 0.0 && xi.y == 0.0) continue;      // adds nothing
+            const double isn = __ldg(p.isn + i);
+            ScatterVisit f{p, t, xi.x * isn, xi.y * isn,
+                           p.diag != nullptr ? __ldg(p.diag + i) : 0.0, 0.0};
+            walk_row(p, t, i, tr, f);
+            if (f.own_r == 0.0 && f.own_i == 0.0) continue;
+            // the row's own label in the destination
+            bool in;
+            const long long j = find(p, __ldg(p.labels + i), in);
+            if (!in) continue;
+            const double s = __ldg(p.sqrt_nu + j);
+            const double cr = s * (f.own_r * f.wr - f.own_i * f.wi);
+            const double ci = s * (f.own_r * f.wi + f.own_i * f.wr);
+            if (p.diag_only)    // no other row adds to the row of this label
+                reinterpret_cast<double2*>(p.y)[j] = make_double2(cr, ci);
+            else
+                add_to(p.y, j, cr, ci);
+        } else {
+            ImagesVisit f{p, t, __ldg(p.isn + i), i, p.cols + k * p.E,
+                          reinterpret_cast<double2*>(p.vals) + k * p.E};
+            walk_row(p, t, i, tr, f);
+        }
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// The kernels (GB = 0: the general path) and their launch
+// ---------------------------------------------------------------------------
+
+template <int KIND, int MODE, int GB, bool FERM>
+__device__ __forceinline__ void run(const Params& p) {
+    extern __shared__ int4 smem[];
+    unsigned char* raw = reinterpret_cast<unsigned char*>(smem);
+    if constexpr (GB == 0) general_kernel<KIND>(p, raw);
+    else entry_kernel<KIND, MODE, GB, FERM>(p, raw);
+}
+
+template <int MODE, int GB, bool FERM>
+__global__ void __launch_bounds__(kThreads,
+                                  GB == 0 ? kMinBlocksGeneral : kMinBlocks)
+repr_rows_kernel(const Params p) {
+    run<kRows, MODE, GB, FERM>(p);
+}
+
+template <int MODE, int GB, bool FERM>
+__global__ void __launch_bounds__(kThreads,
+                                  GB == 0 ? kMinBlocksGeneral : kMinBlocks)
 repr_scatter_kernel(const Params p) {
-    extern __shared__ int4 smem[];
-    long long* tr;
-    const Tabs t = set_up(p, reinterpret_cast<unsigned char*>(smem), tr);
-    const long long tiles = (p.rows + kThreads - 1) / kThreads;
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const long long k = tile * kThreads + threadIdx.x;
-        if (k >= p.rows) continue;
-        const long long i = p.row0 + k;
-        const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
-        if (xi.x == 0.0 && xi.y == 0.0) continue;      // adds nothing
-        const double isn = __ldg(p.isn + i);
-        ScatterVisit f{p, t, xi.x * isn, xi.y * isn,
-                       p.diag != nullptr ? __ldg(p.diag + i) : 0.0, 0.0};
-        walk_row(p, t, i, tr, f);
-        if (f.own_r == 0.0 && f.own_i == 0.0) continue;
-        // the row's own label in the destination
-        bool in;
-        const long long j = find(p, __ldg(p.labels + i), in);
-        if (!in) continue;
-        const double s = __ldg(p.sqrt_nu + j);
-        const double cr = s * (f.own_r * f.wr - f.own_i * f.wi);
-        const double ci = s * (f.own_r * f.wi + f.own_i * f.wr);
-        if (p.diag_only)    // no other row adds to the row of this label
-            reinterpret_cast<double2*>(p.y)[j] = make_double2(cr, ci);
-        else
-            add_to(p.y, j, cr, ci);
-    }
+    run<kScatter, MODE, GB, FERM>(p);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int MODE, int GB, bool FERM>
+__global__ void __launch_bounds__(kThreads,
+                                  GB == 0 ? kMinBlocksGeneral : kMinBlocks)
 repr_images_kernel(const Params p) {
-    extern __shared__ int4 smem[];
-    long long* tr;
-    const Tabs t = set_up(p, reinterpret_cast<unsigned char*>(smem), tr);
-    const long long tiles = (p.rows + kThreads - 1) / kThreads;
-    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const long long k = tile * kThreads + threadIdx.x;
-        if (k >= p.rows) continue;
-        const long long i = p.row0 + k;
-        ImagesVisit f{p, t, __ldg(p.isn + i), i, p.cols + k * p.E,
-                      reinterpret_cast<double2*>(p.vals) + k * p.E};
-        walk_row(p, t, i, tr, f);
-    }
+    run<kImages, MODE, GB, FERM>(p);
 }
 
-template <int KIND>
-int launch(Params p, cudaStream_t stream) {
-    if (p.threads != kThreads || p.rows <= 0 || p.n <= 0 || p.E < 0
-        || (p.E > 0 && p.A < 1) || p.S < 1 || p.S > 63 || p.G < 1
-        || p.mode < kDirect || p.mode > kBsearch
-        || (p.mode == kLin && p.sa < 1)
-        || (p.qmask != nullptr && p.oddmask == nullptr)
-        || (p.tr_scratch != nullptr && p.scratch_blocks < 1))
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (p.mode == kLin) {
-        p.sb = (p.label_space + p.sa - 1) / p.sa;
-        p.sa_shift = (p.sa & (p.sa - 1)) == 0 ? __builtin_ctzll(p.sa) : -1;
-    }
-    auto kern = KIND == kRows      ? repr_rows_kernel
-                : KIND == kScatter ? repr_scatter_kernel
-                                   : repr_images_kernel;
-    const long long smem = layout(p).total;
+template <int KIND, int MODE, int GB, bool FERM>
+int launch(const Params& p, cudaStream_t stream) {
+    auto kern = KIND == kRows      ? repr_rows_kernel<MODE, GB, FERM>
+                : KIND == kScatter ? repr_scatter_kernel<MODE, GB, FERM>
+                                   : repr_images_kernel<MODE, GB, FERM>;
+    const long long smem = GB == 0 ? layout(p).total : p.blob_bytes;
     if (smem > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
-    // the resident grid at this shared memory size, worked out at the
-    // first launch on a device and kept
+    // the resident grid of this instance at this shared memory size,
+    // worked out at its first launch on a device and kept
     thread_local int cached_dev = -1;
     thread_local long long cached_smem = -1, resident = 0;
     int dev = 0;
@@ -586,11 +1072,81 @@ int launch(Params p, cudaStream_t stream) {
     }
     const long long tiles = (p.rows + kThreads - 1) / kThreads;
     long long grid = tiles < resident ? tiles : resident;
-    if (p.tr_scratch != nullptr && grid > p.scratch_blocks)
+    if (GB == 0 && p.tr_scratch != nullptr && grid > p.scratch_blocks)
         grid = p.scratch_blocks;
     kern<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem),
            stream>>>(p);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, int MODE>
+int pick_bucket(const Params& p, cudaStream_t st) {
+    const bool ferm = p.fodd != nullptr;
+    switch (p.gb) {
+        case 8:
+            return ferm ? launch<KIND, MODE, 8, true>(p, st)
+                        : launch<KIND, MODE, 8, false>(p, st);
+        case 16:
+            return ferm ? launch<KIND, MODE, 16, true>(p, st)
+                        : launch<KIND, MODE, 16, false>(p, st);
+        default:
+            return ferm ? launch<KIND, MODE, 32, true>(p, st)
+                        : launch<KIND, MODE, 32, false>(p, st);
+    }
+}
+
+// One of the instances of each kernel: the general path, or the entry
+// path's (G bucket: 8, 16, 32) x (fermionic rows), and for the scatter and
+// the images x (index mode: direct, lin, bsearch): 7, 19 and 19.
+template <int KIND>
+int dispatch(Params p, cudaStream_t stream) {
+    if (p.threads != kThreads || p.rows <= 0 || p.n <= 0 || p.E < 0
+        || (p.E > 0 && p.A < 1) || p.S < 1 || p.S > 63 || p.G < 1
+        || p.mode < kDirect || p.mode > kBsearch
+        || (p.mode == kLin && p.sa < 1)
+        || (p.qmask != nullptr && p.oddmask == nullptr)
+        || (p.tr_scratch != nullptr && p.scratch_blocks < 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (p.gb == 0 && p.xlab != nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (p.gb != 0) {
+        const int sh = p.gb == 8 ? 3 : p.gb == 16 ? 4 : p.gb == 32 ? 5 : -1;
+        if (sh < 0 || p.G > p.gb || p.blob == nullptr
+            || p.blob_bytes % 16 != 0 || p.n >= (1ll << 31)
+            || (p.label_space << sh) > 0xFFFFFFFFll
+            || (p.A > 2 && (p.gsel == nullptr || p.gstr == nullptr))
+            || p.o_erow < 0 || p.o_sp < 0 || p.o_slot < 0 || p.o_phase < 0
+            || (p.o_q >= 0 && (p.fodd == nullptr || p.o_fx < 0))
+            || (p.mode == kDirect && !p.absent)
+            || (KIND == kRows) != (p.xlab != nullptr)
+            || (KIND != kRows && p.rrec == nullptr))
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (p.mode == kLin) {
+        p.sb = (p.label_space + p.sa - 1) / p.sa;
+        p.sa_shift = (p.sa & (p.sa - 1)) == 0 ? __builtin_ctzll(p.sa) : -1;
+    }
+    if (KIND == kScatter) {             // the adds start at 0
+        const cudaError_t err =
+            cudaMemsetAsync(p.y, 0, static_cast<size_t>(16 * p.n), stream);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (p.gb == 0) return launch<KIND, 0, 0, false>(p, stream);
+    if constexpr (KIND == kRows) {      // by label: no index mode
+        repr_rows_kernel_pack<<<pass_grid(p.n), 256, 0, stream>>>(p);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return pick_bucket<kRows, kDirect>(p, stream);
+    } else {
+        switch (p.mode) {
+            case kDirect:
+                return pick_bucket<KIND, kDirect>(p, stream);
+            case kLin:
+                return pick_bucket<KIND, kLin>(p, stream);
+            default:
+                return pick_bucket<KIND, kBsearch>(p, stream);
+        }
+    }
 }
 
 }  // namespace
@@ -598,20 +1154,32 @@ int launch(Params p, cudaStream_t stream) {
 // Plain C interface (loaded with ctypes; ops/apply_repr.py::build_library).
 // Each launch takes a pointer to a Params (void: a type of this file's
 // unnamed namespace in the signature would make the symbol local) and
-// returns a cudaError_t value, 0 on success.
+// returns a cudaError_t value, 0 on success. gb = 0 takes the general
+// path, 8, 16 or 32 the entry path at that G bucket.
 extern "C" long long qbt_repr_params_size() { return sizeof(Params); }
 
 extern "C" int qbt_repr_rows(const void* p, void* stream) {
-    return launch<kRows>(*static_cast<const Params*>(p),
-                         static_cast<cudaStream_t>(stream));
+    return dispatch<kRows>(*static_cast<const Params*>(p),
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int qbt_repr_scatter(const void* p, void* stream) {
-    return launch<kScatter>(*static_cast<const Params*>(p),
-                            static_cast<cudaStream_t>(stream));
+    return dispatch<kScatter>(*static_cast<const Params*>(p),
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int qbt_repr_images(const void* p, void* stream) {
-    return launch<kImages>(*static_cast<const Params*>(p),
-                           static_cast<cudaStream_t>(stream));
+    return dispatch<kImages>(*static_cast<const Params*>(p),
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Zeroes the label buffer xlab at the n labels: those of the basis whose
+// values it holds, before repr_rows runs on another basis.
+extern "C" int qbt_repr_label_clear(void* xlab, const void* labels,
+                                    long long n, void* stream) {
+    if (n <= 0) return 0;
+    repr_label_clear_kernel<<<pass_grid(n), 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<double2*>(xlab), static_cast<const long long*>(labels), n);
+    return static_cast<int>(cudaGetLastError());
 }

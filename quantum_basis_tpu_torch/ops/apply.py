@@ -495,6 +495,10 @@ def _check_cuda_args(tabs, ix, labels, V, fodd, diag, x, n_diag, n_rows):
     need("index labels", ix.labels, torch.int64, (ix.n,))
     if ix.mode == "lin" and (ix.t1 is None or ix.sa < 1):
         raise ValueError("a lin index needs Jb and its split")
+    if ix.absent:
+        raise ValueError("the row kernels take a position table whose "
+                         "every entry is a row (not one marking absent "
+                         "labels with n)")
     R = labels.numel()
     if R < n_rows:
         raise ValueError(f"{n_rows} rows read, the basis holds {R}")

@@ -17,25 +17,37 @@ Images whose representative has nu = 0, or lies outside the quantum-number
 sector, are dropped. :func:`mopr_x_vec_repr` is the forward-scatter direction
 y = A x between two momentum sectors.
 
-Three calls carry it, over the operator's packed columns
+Three kernels carry it, over the operator's packed columns
 (``ops/apply.py::pack_rows``) and the translations packed by
-:func:`translation_tables`: :func:`repr_rows` (``MatvecRepr``),
-:func:`repr_scatter` (``mopr_x_vec_repr``) and :func:`repr_images` (each
-row's columns and coefficients, for ``ops/sparse.py::build_sparse_repr``).
-On CUDA tensors they launch ``csrc/apply_repr.cu`` (built with nvcc for
-sm_90a at first use, loaded with ctypes), where no (rows, terms, images, G)
-intermediate reaches device memory; on CPU tensors they run their plain
-versions, which repeat the kernels' formulation with torch ops over row
-blocks: T_g(m) = T_g(r) + sum over the term's slots of (V_s(m) - V_s(r))
-SP[s, g] in int64, the first g that reaches the minimum, the fermionic
-sign as popcounts against one mask a (g, slot), and a diagonal column (every
-displacement 0) taken as the row itself with coefficient A.
+:func:`translation_tables`: ``repr_rows`` (``MatvecRepr``), ``repr_scatter``
+(``mopr_x_vec_repr``) and ``repr_images`` (each row's columns and
+coefficients, for ``ops/sparse.py::build_sparse_repr``). A
+:class:`ReprLaunch` is one kernel's launch record, built once per engine
+(``MatvecRepr.record``, :func:`scatter_launch`): every argument check, the
+translation tables and the ctypes struct; a call then checks x, allocates
+y and launches. On CUDA tensors it launches ``csrc/apply_repr.cu`` (built
+with nvcc for sm_90a at first use, loaded with ctypes); on CPU tensors it
+runs the plain versions, which repeat the kernels' formulation with torch
+ops over row blocks. Two formulations, as :func:`entry_plan` picks them
+for the kernels: the entry path (G <= 32, label spaces to 2^27-2^29),
+where an image's translated labels are the row's keys T_g(r) << SH | g
+plus its entry's constant change (:func:`entry_tables`) and one min over
+g gives r_j and g*; and the general path, T_g(m) = T_g(r) + sum over the
+term's slots of (V_s(m) - V_s(r)) SP[s, g] in int64. The fermionic sign is
+popcounts against one mask a (g, slot); a diagonal column (every
+displacement 0) is the row itself with coefficient A. On the entry path
+``repr_rows`` reaches a row by its label: sqrt(nu_j) x_j sits in the
+device's label buffer (:class:`LabelBuffer`, one a device, up to
+``config.MEMORY``'s ``repr_label_buffer_max`` bytes), which a pre-pass
+fills each launch; a basis whose label space passes that bound takes the
+general path.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,6 +64,7 @@ from quantum_basis_tpu_torch.basis.translation import (
 from quantum_basis_tpu_torch.ops import cuda_build
 from quantum_basis_tpu_torch.ops.apply import (
     _MODES,
+    _OFFSET,
     DeviceBasis,
     RowTables,
     _check_tables,
@@ -71,14 +84,20 @@ KERNELS = ("repr_rows", "repr_scatter", "repr_images")
 # are not counted): lets a run show that its applies went through them.
 launches = dict.fromkeys(KERNELS, 0)
 
-# A block of the kernels stages its tables (the columns' records, entries,
-# slots and strides, and the translations) in shared memory up to this many
-# bytes, else reads them from device memory; it holds its rows' G
+# The general path: a block stages its tables (the columns' records,
+# entries, slots and strides, and the translations) in shared memory up to
+# this many bytes, else reads them from device memory; it holds its rows' G
 # translated labels (8 G bytes a row, THREADS rows) in shared memory up to
 # TR_SHARED_MAX bytes, else in a device scratch of two blocks an SM.
 TABLES_SHARED_MAX = 48 * 1024
 TR_SHARED_MAX = 64 * 1024
+# The entry path stages its whole blob (records, entry rows, Fodd masks, SP
+# rows, slots, phases, Q masks) in shared memory; an operator whose blob
+# passes this many bytes takes the general path. A launch record reads the
+# three bounds when it is built.
+ENTRY_TABLES_MAX = 48 * 1024
 THREADS = 128           # rows a block (csrc/apply_repr.cu::kThreads)
+BUCKETS = (8, 16, 32)   # the entry path's G buckets (keys in registers)
 
 _lib = None
 
@@ -114,7 +133,9 @@ class ReprBasis(DeviceBasis):
         block_rows = 1 << int(math.floor(math.log2(
             max(256, config.memory("repr_block_budget", tset.device)
                 // per_row))))
-        index = BasisIndex(labels, space.label_space, device=tset.device)
+        # a direct table marks the labels it does not hold with row n
+        index = BasisIndex(labels, space.label_space, device=tset.device,
+                           absent_row=True)
         super().__init__(space, labels, index, block_rows, device=tset.device)
         nu_pad = np.concatenate([self.nus, np.ones(self.pad)])
         dev = self.device
@@ -124,6 +145,7 @@ class ReprBasis(DeviceBasis):
         # entry n is the padding slot for images that leave the sector
         self.sqrt_nu = torch.as_tensor(
             np.sqrt(np.concatenate([self.nus, [1.0]])), device=dev)
+        self._rrec = None
 
     def from_full(self, x_full: torch.Tensor) -> torch.Tensor:
         """Repr coefficients of a full-label-space sector-k vector.
@@ -144,6 +166,20 @@ class ReprBasis(DeviceBasis):
         block_rows; padding rows past n)."""
         return (self.labels_b.view(-1), self.fodd,
                 self.inv_sqrt_nu_b.view(-1))
+
+    def row_records(self) -> torch.Tensor:
+        """(n, 2) int64: each row's (label, bits of sqrt(nu)), the record
+        the scatter and the images gather for an image they land on (the
+        check and the weight in one 16-byte load); built once per basis."""
+        if self._rrec is None:
+            self._rrec = row_records(self.index.tables, self.sqrt_nu)
+        return self._rrec
+
+
+def row_records(ix: IndexTables, sqrt_nu: torch.Tensor) -> torch.Tensor:
+    """(ix.n, 2) int64 (label, bits of sqrt(nu)) of a destination's rows."""
+    return torch.stack([ix.labels, sqrt_nu[: ix.n].view(torch.int64)],
+                       1).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -235,6 +271,168 @@ def phase_table(tset: TranslationSet, momentum, sign: int = -1):
 
 
 # --------------------------------------------------------------------------
+# The entry path's tables
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class EntryTables:
+    """One operator's columns under one translation set, packed for the
+    entry path (``csrc/apply_repr.cu``), entry by entry (the packed ``ad``
+    layout: column e's joint column c is entry ``rec[e, 0] & _OFFSET`` +
+    c). ``erow`` (M, gb + 4) int32: the amplitude's (re, im) float64 bits
+    as four words, then (Delta_g << shift) mod 2^32 for g < G, 0 past it,
+    where Delta_g = T_g(m) - T_g(r) is the change of translated label g
+    that the entry's image makes (a constant of the entry: it fixes the
+    term's slot values before and after); ``fx`` (M,) int64 the entry's
+    change of the odd-count slots (Fodd_m = Fodd_r ^ fx), or None without
+    fermionic translations; ``sp32`` (S, gb + 4) int32 SP[s, g] (0 past G);
+    ``slot32`` (S, 2) int32 each slot's (shift, mask) where ``bits``, else
+    (stride, dim). Entries of amplitude 0 hold no change."""
+
+    erow: torch.Tensor
+    fx: torch.Tensor | None
+    sp32: torch.Tensor
+    slot32: torch.Tensor
+    G: int
+    gb: int
+
+    @property
+    def shift(self) -> int:
+        return self.gb.bit_length() - 1
+
+
+def _bucket(G: int) -> int:
+    return next(b for b in BUCKETS if G <= b)
+
+
+def _blob_layout(E, M, S, G, gb, fermionic):
+    """Byte offsets of the entry path's staged blob (``csrc/apply_repr.cu``
+    ``Params.o_*``; -1 where absent: ``fx`` and ``q`` without
+    ``fermionic`` translations) and its size, each region aligned to 16
+    bytes."""
+    def a16(b):
+        return (b + 15) & ~15
+    sizes = [("rec", 16 * E), ("erow", 4 * M * (gb + 4)),
+             ("fx", 8 * M if fermionic else -1), ("sp", 4 * S * (gb + 4)),
+             ("slot", 8 * S), ("phase", 16 * G),
+             ("q", 8 * G * S if fermionic else -1)]
+    off, o = {}, 0
+    for name, size in sizes:
+        if size < 0:
+            off[name] = -1
+            continue
+        off[name] = o
+        o += a16(size)
+    return off, o
+
+
+def entry_tables(rt: TransTables, tabs: RowTables) -> EntryTables:
+    """The :class:`EntryTables` of ``tabs`` under ``rt`` on tabs' device
+    (host numpy, once per RowTables and translation set; G <= 32)."""
+    cached = getattr(tabs, "_entry", None)
+    if cached is not None and cached[0] is rt:
+        return cached[1]
+    G, S = rt.G, rt.S
+    gb = _bucket(G)
+    sh = gb.bit_length() - 1
+    rec = tabs.rec.cpu().numpy().view(np.uint32)
+    ad = tabs.ad.cpu().numpy()
+    M = ad.shape[0]
+    re = np.ascontiguousarray(ad[:, 0]).view(np.float64)
+    im = (np.ascontiguousarray(ad[:, 1]).view(np.float64) if tabs.is_complex
+          else np.zeros(M))
+    dlt = ad[:, 2 if tabs.is_complex else 1]
+    slots = tabs.slots.cpu().numpy().astype(np.int64)
+    strides = tabs.strides.cpu().numpy().astype(np.int64)
+    sstride = rt.sstride.cpu().numpy()
+    sdim = rt.sdim.cpu().numpy()
+    SP = rt.sp.cpu().numpy()
+    odd = None if rt.qmask is None else rt.oddmask.cpu().numpy()
+    delta = np.zeros((M, G), np.int64)
+    fx = np.zeros(M, np.int64)
+    for e in range(tabs.n_cols):
+        on = strides[e] != 0
+        sl, js = slots[e][on], strides[e][on]
+        dims = sdim[sl]
+        c = np.arange(int(np.prod(dims)))
+        idx = int(rec[e, 0] & _OFFSET) + c
+        v = (c[:, None] // js) % dims                     # before the image
+        after = (v * sstride[sl]).sum(1) + dlt[idx]
+        nv = (after[:, None] // sstride[sl]) % dims       # after it
+        live = (re[idx] != 0) | (im[idx] != 0)
+        delta[idx] = np.where(live[:, None], nv - v, 0) @ SP[sl]
+        if odd is not None:
+            flip = ((odd[sl] >> v) ^ (odd[sl] >> nv)) & 1
+            fx[idx] = np.where(live, (flip << sl).sum(1), 0)
+    erow = np.zeros((M, gb + 4), np.int32)
+    erow[:, 0:2] = re.view(np.int32).reshape(M, 2)
+    erow[:, 2:4] = np.ascontiguousarray(im).view(np.int32).reshape(M, 2)
+    erow[:, 4:4 + G] = ((delta << sh) & 0xFFFFFFFF).astype(
+        np.uint32).view(np.int32)
+    sp32 = np.zeros((S, gb + 4), np.int32)
+    sp32[:, :G] = SP
+    if rt.bits:
+        slot32 = np.stack([np.log2(sstride).round().astype(np.int64),
+                           sdim - 1], 1)
+    else:
+        slot32 = np.stack([sstride, sdim], 1)
+    dev = tabs.rec.device
+
+    def t(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+    et = EntryTables(erow=t(erow, np.int32),
+                     fx=None if odd is None else t(fx, np.int64),
+                     sp32=t(sp32, np.int32), slot32=t(slot32, np.int32),
+                     G=G, gb=gb)
+    tabs._entry = (rt, et)
+    return et
+
+
+def entry_plan(rt: TransTables, tabs: RowTables,
+               ix: IndexTables) -> EntryTables | None:
+    """The entry path's tables where the kernels take it for this operator,
+    translation set and destination index (G <= 32; label space << shift
+    below 2^32, so every key T_g << shift | g lies below the padding's
+    0xFFFFFFFF; fewer than 2^31 rows; a direct table that marks absent
+    labels with row n; the staged blob within ENTRY_TABLES_MAX bytes),
+    else None: the general path."""
+    if rt.G > BUCKETS[-1] or ix.n >= 2 ** 31 or (ix.mode == "direct"
+                                                  and not ix.absent):
+        return None
+    gb = _bucket(rt.G)
+    if ix.label_space << (gb.bit_length() - 1) > 0xFFFFFFFF:
+        return None
+    _, size = _blob_layout(tabs.n_cols, tabs.ad.shape[0], rt.S, rt.G, gb,
+                           rt.qmask is not None)
+    if size > ENTRY_TABLES_MAX:
+        return None
+    return entry_tables(rt, tabs)
+
+
+def _blob(et: EntryTables, rt: TransTables, tabs: RowTables, phase):
+    """The entry path's staged tables as one int32 tensor on tabs' device,
+    and their byte offsets (:func:`_blob_layout`)."""
+    off, size = _blob_layout(tabs.n_cols, et.erow.shape[0], rt.S, rt.G,
+                             et.gb, et.fx is not None)
+    blob = torch.zeros(size // 4, dtype=torch.int32, device=et.erow.device)
+
+    def put(name, t):
+        if off[name] >= 0 and t.numel():
+            flat = t.contiguous().view(-1).view(torch.int32)
+            blob[off[name] // 4: off[name] // 4 + flat.numel()] = flat
+    put("rec", tabs.rec)
+    put("erow", et.erow)
+    if et.fx is not None:
+        put("fx", et.fx)
+        put("q", rt.qmask)
+    put("sp", et.sp32)
+    put("slot", et.slot32)
+    put("phase", phase)
+    return blob, off
+
+
+# --------------------------------------------------------------------------
 # The kernels' plain versions
 # --------------------------------------------------------------------------
 
@@ -245,12 +443,20 @@ def _block(rows: int, tabs: RowTables, rt: TransTables, device) -> int:
     return int(min(1 << int(math.floor(math.log2(b))), max(rows, 1)))
 
 
+def _sign_plain(rt: TransTables, fm, gs):
+    """sigma of translation gs on states with odd-count slots fm, float64."""
+    slots = torch.arange(rt.S, device=fm.device)
+    par = (_parity(fm[..., None] & rt.qmask[gs])
+           & ((fm[..., None] >> slots) & 1)).sum(-1) & 1
+    return 1.0 - 2.0 * par.double()
+
+
 def _orbit_min_plain(rt: TransTables, cs, V, fo, tgt):
-    """The kernels' translation of images ``tgt`` (rows, E) of rows with
-    slot values ``V`` (rows, S) and odd-count slots ``fo`` (rows,) or None,
-    ``cs`` (E, A) int64 the slots each column changes (-1 past its arity):
-    (the minimum over g of T_g(m), the first g that reaches it, the sign
-    sigma of that g as float64), each (rows, E)."""
+    """The general path's translation of images ``tgt`` (rows, E) of rows
+    with slot values ``V`` (rows, S) and odd-count slots ``fo`` (rows,) or
+    None, ``cs`` (E, A) int64 the slots each column changes (-1 past its
+    arity): (the minimum over g of T_g(m), the first g that reaches it,
+    the sign sigma of that g as float64), each (rows, E)."""
     on = cs >= 0
     s = cs.clamp(min=0)
     vm = (tgt[:, :, None] // rt.sstride[s]) % rt.sdim[s]          # (B, E, A)
@@ -269,31 +475,67 @@ def _orbit_min_plain(rt: TransTables, cs, V, fo, tgt):
             bit = torch.ones_like(sa) << sa
             odd = (rt.oddmask[sa] >> vm[:, :, a]) & 1
             fm = torch.where(on[:, a], (fm & ~bit) | (odd << sa), fm)
-        slots = torch.arange(rt.S, device=fm.device)
-        par = (_parity(fm[..., None] & rt.qmask[gs])
-               & ((fm[..., None] >> slots) & 1)).sum(-1) & 1
-        sig = 1.0 - 2.0 * par.double()
+        sig = _sign_plain(rt, fm, gs)
     return rmin, gs, sig
+
+
+def _entry_images_plain(et: EntryTables, rt: TransTables, tabs: RowTables,
+                        V, fo, translate: bool = True):
+    """The entry path's routine on rows with slot values ``V`` (rows, S)
+    and odd-count slots ``fo``, every image column, read from ``et`` as the
+    kernels read it: amp (rows, E) complex128 with its Jordan-Wigner sign;
+    with ``translate``, each image's minimum r_j, first g* and sigma, from
+    the keys (T_g(r) << shift | g) + erow's changes mod 2^32 and their
+    minimum."""
+    c = (V[:, tabs.slots.long()] * tabs.strides).sum(-1)          # (B, E)
+    idx = (tabs.rec[:, 0].long() & _OFFSET) + c
+    er = et.erow[idx]                                   # (B, E, gb + 4)
+    a = er[..., :4].contiguous().view(torch.float64)
+    amp = torch.complex(a[..., 0], a[..., 1])
+    if tabs.wmask is not None:
+        amp = amp * (1 - 2 * _parity(fo[:, None] & tabs.wmask)).double()
+    if not translate:
+        return amp
+    G, sh = et.G, et.shift
+    tr = (V[:, :, None] * et.sp32[:, :G].long()).sum(1)           # (B, G)
+    keys = (tr << sh) | torch.arange(G, device=V.device)
+    keys = (keys[:, None, :] + (er[..., 4:4 + G].long() & 0xFFFFFFFF)) \
+        & 0xFFFFFFFF                                              # (B, E, G)
+    kmin = keys.min(-1).values
+    rmin, gs = kmin >> sh, kmin & (et.gb - 1)
+    sig = torch.ones(kmin.shape, dtype=torch.float64, device=V.device)
+    if et.fx is not None:
+        sig = _sign_plain(rt, fo[:, None] ^ et.fx[idx], gs)
+    return amp, rmin, gs, sig
 
 
 def _translate_plain(rt: TransTables, tabs: RowTables, ix: IndexTables,
                      labels, fodd, i0: int, i1: int, translate: bool = True):
-    """The kernels' routine on the rows i0 .. i1 - 1, every image column:
-    amp (rows, E) with its Jordan-Wigner sign; ``own`` (rows, E), the
-    diagonal columns with a nonzero amplitude; with ``translate``,
-    ``valid`` (the other nonzero columns whose representative the index
-    holds), its row j, sigma (float64) and g*, each (rows, E)."""
+    """The kernels' routine on the rows i0 .. i1 - 1, every image column,
+    in the formulation :func:`entry_plan` picks for them: amp (rows, E)
+    with its Jordan-Wigner sign; ``own`` (rows, E), the diagonal columns
+    with a nonzero amplitude; with ``translate``, ``valid`` (the other
+    nonzero columns whose representative the index holds), its row j,
+    sigma (float64) and g*, each (rows, E)."""
     lab = labels[i0:i1]
     fo = None if fodd is None else fodd[i0:i1]
     V = (lab[:, None] // rt.sstride) % rt.sdim                   # (B, S)
-    amp, tgt = _row_images(tabs, lab, V, fo)                      # (B, E)
+    et = entry_plan(rt, tabs, ix)
+    if et is not None:
+        out = _entry_images_plain(et, rt, tabs, V, fo, translate)
+        amp = out[0] if translate else out
+    else:
+        amp, tgt = _row_images(tabs, lab, V, fo)                  # (B, E)
     diag = tabs.diagonal[None, :]
     live = amp != 0
     own = live & diag
     if not translate:
         return amp, own
-    rmin, gs, sig = _orbit_min_plain(rt, column_slots(tabs).long(), V, fo,
-                                     tgt)
+    if et is not None:
+        _, rmin, gs, sig = out
+    else:
+        rmin, gs, sig = _orbit_min_plain(rt, column_slots(tabs).long(), V,
+                                         fo, tgt)
     j = lookup_tables(ix, rmin)
     valid = live & ~diag & (ix.labels[j] == rmin)
     return amp, own, valid, j, sig, gs
@@ -305,7 +547,7 @@ def _complex_phase(phase):
 
 def _repr_rows_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase,
                      x):
-    """Plain PyTorch :func:`repr_rows`."""
+    """Plain PyTorch ``repr_rows``."""
     n = ix.n
     y = torch.empty(n, dtype=torch.complex128, device=x.device)
     ph = _complex_phase(phase)
@@ -326,7 +568,7 @@ def _repr_rows_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase,
 
 def _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
                         phase, x, n_src):
-    """Plain PyTorch :func:`repr_scatter`, ``index_add_`` over row blocks."""
+    """Plain PyTorch ``repr_scatter``, ``index_add_`` over row blocks."""
     y = torch.zeros(ix.n, dtype=torch.complex128, device=x.device)
     ph = _complex_phase(phase)
     B = _block(n_src, tabs, rt, x.device)
@@ -354,7 +596,7 @@ def _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
 
 def _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase,
                        row0, rows):
-    """Plain PyTorch :func:`repr_images`."""
+    """Plain PyTorch ``repr_images``."""
     if not tabs.n_cols:
         return (torch.zeros((rows, 0), dtype=torch.int64, device=isn.device),
                 torch.zeros((rows, 0), dtype=torch.complex128,
@@ -371,7 +613,7 @@ def _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase,
 
 
 # --------------------------------------------------------------------------
-# The kernels: building, argument checks, wrappers
+# The kernels: building, argument checks, launch records
 # --------------------------------------------------------------------------
 
 
@@ -381,13 +623,15 @@ class _Params(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "rec", "ad", "cslot", "cstr", "sstride", "sdim", "oddmask", "sp",
         "qmask", "phase", "labels", "fodd", "isn", "diag", "t0", "t1",
-        "index_labels", "sqrt_nu", "x", "y", "cols", "vals", "tr_scratch")]
+        "index_labels", "sqrt_nu", "x", "y", "cols", "vals", "tr_scratch",
+        "blob", "gsel", "gstr", "rrec", "xlab")]
         + [(f, ctypes.c_longlong) for f in (
             "M", "row0", "rows", "sa", "sb", "label_space", "n",
-            "scratch_blocks")]
+            "scratch_blocks", "blob_bytes")]
         + [(f, ctypes.c_int) for f in (
             "E", "A", "amp_c", "S", "G", "bits", "diag_only", "mode",
-            "sa_shift", "tabs_shared", "threads", "pad")])
+            "sa_shift", "tabs_shared", "threads", "gb", "absent", "o_erow",
+            "o_fx", "o_sp", "o_slot", "o_phase", "o_q")])
 
 
 def build_library(verbose: bool = False) -> ctypes.CDLL:
@@ -405,20 +649,21 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
             fn = getattr(lib, f"qbt_{name}")
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.qbt_repr_label_clear.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.qbt_repr_label_clear.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x,
-                rows):
-    """What the kernels take, checked before a launch: every tensor on
-    x's device, contiguous, of its type and shape."""
-    dev = x.device
-
+def _check_record(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase,
+                  dev, rows):
+    """What the kernels take but x, checked when a launch record is built:
+    every tensor on ``dev``, contiguous, of its type and shape; ``rows``
+    source rows read."""
     def need(name, t, dt, shape):
         _need(name, t, dt, shape, dev)
-    if x.dtype != torch.complex128 or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous complex128 vector")
     _check_tables(tabs, dev)
     E, A = tabs.slots.shape
     need("column slots", column_slots(tabs), torch.int32, (E, A))
@@ -460,119 +705,258 @@ def _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x,
         raise ValueError("fermions need the basis' fodd")
 
 
-def _launch(kind, rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x,
-            y, cols, vals, row0, rows):
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    E, A = tabs.slots.shape
-    shared = (tabs.nbytes + 8 * E * A + rt.nbytes) <= TABLES_SHARED_MAX
-    scratch, blocks = None, 0
-    if 8 * rt.G * THREADS > TR_SHARED_MAX:
-        blocks = 2 * torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-        scratch = torch.empty(blocks * rt.G * THREADS, dtype=torch.int64,
-                              device=x.device)
-    p = _Params(
-        rec=ptr(tabs.rec), ad=ptr(tabs.ad), cslot=ptr(column_slots(tabs)),
-        cstr=ptr(tabs.strides), sstride=ptr(rt.sstride), sdim=ptr(rt.sdim),
-        oddmask=ptr(rt.oddmask), sp=ptr(rt.sp), qmask=ptr(rt.qmask),
-        phase=ptr(phase), labels=ptr(labels), fodd=ptr(fodd), isn=ptr(isn),
-        diag=ptr(diag), t0=ptr(ix.t0), t1=ptr(ix.t1),
-        index_labels=ptr(ix.labels), sqrt_nu=ptr(sqrt_nu), x=ptr(x),
-        y=ptr(y), cols=ptr(cols), vals=ptr(vals), tr_scratch=ptr(scratch),
-        M=tabs.dlt.numel(), row0=row0, rows=rows, sa=ix.sa,
-        label_space=ix.label_space, n=ix.n, scratch_blocks=blocks, E=E, A=A,
-        amp_c=int(tabs.is_complex), S=rt.S, G=rt.G, bits=int(rt.bits),
-        diag_only=int(tabs.diag_only), mode=_MODES[ix.mode], sa_shift=-1,
-        tabs_shared=int(shared), threads=THREADS)
-    lib = build_library()
-    with torch.cuda.device(x.device):
-        err = getattr(lib, f"qbt_{kind}")(
-            ctypes.byref(p), torch.cuda.current_stream(x.device).cuda_stream)
+def _check_x(x, dev, rows):
+    """What the kernels take of x: a contiguous complex128 vector on
+    ``dev`` of at least ``rows`` entries."""
+    if x.dtype != torch.complex128 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous complex128 vector")
+    if x.device != dev:
+        raise ValueError(f"x is on {x.device}, the tables on {dev}")
+    if x.numel() < rows:
+        raise ValueError(f"x holds {x.numel()} rows, {rows} are read")
+
+
+class LabelBuffer:
+    """The entry path's label buffer of one CUDA device: (L, 2) float64,
+    zero but at the labels of the basis whose ``repr_rows`` launched last,
+    where it holds that launch's sqrt(nu_j) x_j (its pre-pass writes them).
+    One a device, shared by every basis and engine there, so a run holds
+    one however many sectors it keeps: it grows to the largest label space
+    a launch asks for (a record takes the entry path only where 16 bytes a
+    label fit ``repr_label_buffer_max``) and is freed when the basis that
+    used it last is (its labels, held weakly, are collected). Before a
+    launch on another basis, the previous basis' labels are zeroed; a
+    launch on another stream than the last waits for the last."""
+
+    _of: dict = {}
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.buf = None
+        self._owner = None      # a weak reference to the sorted labels of
+        #                         the basis whose values it holds
+        self.stream = None      # the raw handle of its last launch's stream
+        self._last = None       # that stream (a CUDA device's)
+
+    @property
+    def owner(self) -> torch.Tensor | None:
+        """The sorted labels of the basis whose values the buffer holds."""
+        return None if self._owner is None else self._owner()
+
+    def _release(self, ref) -> None:
+        if ref is self._owner:          # its basis is gone: free it
+            self.buf = self._owner = None
+
+    @classmethod
+    def of(cls, device) -> "LabelBuffer":
+        """The label buffer of ``device`` (made empty at the first ask;
+        ``cuda`` is the current CUDA device)."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        got = cls._of.get(dev)
+        if got is None:
+            got = cls._of[dev] = cls(dev)
+        return got
+
+    @classmethod
+    def held_bytes(cls) -> int:
+        """The bytes every device's label buffer holds now."""
+        return sum(0 if b.buf is None else b.buf.numel() * 8
+                   for b in cls._of.values())
+
+    def claim(self, labels: torch.Tensor, label_space: int, stream,
+              clear) -> torch.Tensor:
+        """The buffer for a launch over the basis whose sorted labels are
+        ``labels`` on the current stream, whose raw handle is ``stream``:
+        ordered after the last launch's stream; grown to ``label_space``
+        rows where smaller (the old one freed first: zeros throughout),
+        else the previous basis' labels zeroed by ``clear(buf, labels)``
+        where another basis held it."""
+        cuda = self.device.type == "cuda"
+        if self.buf is not None and stream != self.stream:
+            if cuda:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_stream(self._last)
+                self.buf.record_stream(cur)
+                self._last = cur
+            self.stream = stream
+        if self.buf is None or self.buf.shape[0] < label_space:
+            self.buf = self._owner = None
+            self.buf = torch.zeros((label_space, 2), dtype=torch.float64,
+                                   device=self.device)
+            self.stream = stream
+            self._last = torch.cuda.current_stream(self.device) if cuda \
+                else None
+        owner = self.owner
+        if owner is not labels:
+            if owner is not None:
+                clear(self.buf, owner)
+            self._owner = weakref.ref(labels, self._release)
+        return self.buf
+
+
+def _clear_labels(buf: torch.Tensor, labels: torch.Tensor, stream) -> None:
+    err = build_library().qbt_repr_label_clear(
+        buf.data_ptr(), labels.data_ptr(), labels.numel(), stream)
     if err != 0:
-        raise RuntimeError(f"{kind} kernel launch failed: cudaError {err}")
-    launches[kind] += 1
+        raise RuntimeError(f"label buffer clear failed: cudaError {err}")
 
 
-def repr_rows(rt: TransTables, tabs: RowTables, ix: IndexTables, labels,
-              fodd, isn, sqrt_nu, diag, phase, x) -> torch.Tensor:
-    """y = H x in a momentum sector (Hermitian row-gather direction), one
-    launch for the sector's ``ix.n`` rows.
+class ReprLaunch:
+    """One repr kernel's launch, built once per engine (``MatvecRepr``, a
+    ``mopr_x_vec_repr`` call, an ELL build): ``kind`` one of ``KERNELS``,
+    the arguments of ``repr_rows`` but x, ``rows`` the source rows a call
+    reads (``ix.n`` gathering, n_src scattering, the rows an images call
+    may ask for), ``rrec`` the destination's :func:`row_records` (the
+    scatter's and the images'; built here where None).
+    Building it makes every check of the arguments,
+    picks the path (:func:`entry_plan`, the placement bounds as they are
+    now; ``repr_rows`` takes the entry path only where its label buffer,
+    16 bytes a label of ``ix``, fits ``repr_label_buffer_max``) and packs
+    the ctypes struct with all but x and y. A call then checks x (type,
+    device, contiguity, length), allocates y, writes the two pointers (and
+    the device's :class:`LabelBuffer`, ``repr_rows`` on the entry path) and
+    launches on the current stream. On CPU tensors a call runs the plain
+    version. The record holds the basis' tensors: keep it with the engine
+    that owns them."""
 
-    ``labels`` (R,) int64, ``fodd`` (R,) int64 or None and ``isn`` (R,)
-    float64 (1/sqrt(nu_i)) are the basis' flat per-row arrays
-    (``ReprBasis.rows``), ``ix`` its index, ``sqrt_nu`` its sqrt(nu_j);
-    ``diag`` (R,) float64 or None the real diagonal; ``phase`` (G, 2) the
-    (re, im) of e^{-i k.R} (:func:`phase_table`); ``x`` complex128. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).
-    """
-    if _device_of(x) == "cpu":
-        return _repr_rows_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                diag, phase, x)
-    n = ix.n
-    _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x, n)
-    if x.numel() < n:
-        raise ValueError(f"x holds {x.numel()} rows, the apply reads {n}")
-    y = torch.empty(n, dtype=torch.complex128, device=x.device)
-    if n:
-        _launch("repr_rows", rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
-                phase, x, y, None, None, 0, n)
-    return y
+    def __init__(self, kind, rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                 diag, phase, rows, rrec=None):
+        if kind not in KERNELS:
+            raise ValueError(f"unknown repr kernel {kind!r}")
+        dev = labels.device
+        _device_of(labels)
+        _check_record(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase,
+                      dev, rows)
+        self.kind, self.device, self.rows, self.n_out = kind, dev, rows, ix.n
+        self.args = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase)
+        self.entry = entry_plan(rt, tabs, ix)
+        if kind == "repr_rows" and 16 * ix.label_space > config.memory(
+                "repr_label_buffer_max", dev):
+            self.entry = None
+        self.by_label = kind == "repr_rows" and self.entry is not None
+        if kind != "repr_rows":
+            if rrec is None:
+                rrec = row_records(ix, sqrt_nu)
+            _need("row records", rrec, torch.int64, (ix.n, 2), dev)
+        else:
+            rrec = None
+        E, A = tabs.slots.shape
 
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        # tensors the struct points into, kept alive with it
+        self._keep = [] if rrec is None else [rrec]
+        scratch, blocks = None, 0
+        blob, off = None, dict.fromkeys(
+            ("erow", "fx", "sp", "slot", "phase", "q"), -1)
+        if self.entry is not None:
+            blob, off = _blob(self.entry, rt, tabs, phase)
+            self._keep.append(blob)
+        elif 8 * rt.G * THREADS > TR_SHARED_MAX and dev.type == "cuda":
+            blocks = 2 * torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            scratch = torch.empty(blocks * rt.G * THREADS,
+                                  dtype=torch.int64, device=dev)
+            self._keep.append(scratch)
+        shared = (tabs.nbytes + 8 * E * A + rt.nbytes) <= TABLES_SHARED_MAX
+        self.p = _Params(
+            rec=ptr(tabs.rec), ad=ptr(tabs.ad), cslot=ptr(column_slots(tabs)),
+            cstr=ptr(tabs.strides), sstride=ptr(rt.sstride),
+            sdim=ptr(rt.sdim), oddmask=ptr(rt.oddmask), sp=ptr(rt.sp),
+            qmask=ptr(rt.qmask), phase=ptr(phase), labels=ptr(labels),
+            fodd=ptr(fodd), isn=ptr(isn), diag=ptr(diag), t0=ptr(ix.t0),
+            t1=ptr(ix.t1), index_labels=ptr(ix.labels),
+            sqrt_nu=ptr(sqrt_nu), tr_scratch=ptr(scratch), blob=ptr(blob),
+            gsel=ptr(tabs.gsel),
+            gstr=ptr(tabs.strides) if tabs.gsel is not None else None,
+            rrec=ptr(rrec), M=tabs.ad.shape[0], row0=0, rows=rows,
+            sa=ix.sa, label_space=ix.label_space, n=ix.n,
+            scratch_blocks=blocks,
+            blob_bytes=0 if blob is None else 4 * blob.numel(), E=E, A=A,
+            amp_c=int(tabs.is_complex), S=rt.S, G=rt.G, bits=int(rt.bits),
+            diag_only=int(tabs.diag_only), mode=_MODES[ix.mode], sa_shift=-1,
+            tabs_shared=int(shared), threads=THREADS,
+            gb=0 if self.entry is None else self.entry.gb,
+            absent=int(ix.absent),
+            o_erow=off["erow"], o_fx=off["fx"], o_sp=off["sp"],
+            o_slot=off["slot"], o_phase=off["phase"], o_q=off["q"])
+        self._pp = ctypes.byref(self.p)
+        self._fn = None
 
-def repr_scatter(rt: TransTables, tabs: RowTables, ix: IndexTables, labels,
-                 fodd, isn, sqrt_nu, diag, phase, x,
-                 n_src: int) -> torch.Tensor:
-    """y = A x from a momentum sector into another (forward scatter), over
-    the source rows ``0 .. n_src - 1``: ``labels``, ``fodd``, ``isn``,
-    ``diag`` and ``x`` are the source's, ``ix`` and ``sqrt_nu`` the
-    destination's (y has ``ix.n`` rows), ``phase`` the (re, im) of
-    e^{+i k'.R} of the destination's momentum k'. Images whose
-    representative the destination does not hold are dropped. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or raise),
-    whose float64 atomic adds sum in an order that changes from run to run
-    (every column diagonal: plain stores).
-    """
-    if _device_of(x) == "cpu":
-        return _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                   diag, phase, x, n_src)
-    _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x,
-                n_src)
-    if x.numel() < n_src:
-        raise ValueError(f"x holds {x.numel()} rows, {n_src} are read")
-    y = torch.zeros(ix.n, dtype=torch.complex128, device=x.device)
-    if n_src and ix.n:
-        _launch("repr_scatter", rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                diag, phase, x, y, None, None, 0, n_src)
-    return y
+    def _launch(self):
+        if self._fn is None:
+            self._fn = getattr(build_library(), f"qbt_{self.kind}")
+            self._dev = self.device.index
+        # the current stream's handle as an int (what
+        # torch.cuda.current_stream(dev).cuda_stream gives, without making
+        # a Stream object a call)
+        if torch._C._cuda_getDevice() == self._dev:
+            err = self._enqueue()
+        else:
+            with torch.cuda.device(self.device):
+                err = self._enqueue()
+        if err != 0:
+            raise RuntimeError(f"{self.kind} kernel launch failed: "
+                               f"cudaError {err}")
+        launches[self.kind] += 1
 
+    def _enqueue(self) -> int:
+        stream = torch._C._cuda_getCurrentRawStream(self._dev)
+        if self.by_label:
+            ix = self.args[2]
+            self.p.xlab = LabelBuffer.of(self.device).claim(
+                ix.labels, ix.label_space, stream,
+                lambda buf, old: _clear_labels(buf, old, stream)).data_ptr()
+        return self._fn(self._pp, stream)
 
-def repr_images(rt: TransTables, tabs: RowTables, ix: IndexTables, labels,
-                fodd, isn, sqrt_nu, phase, row0: int, rows: int):
-    """Rows ``row0 .. row0 + rows - 1`` of H in a momentum sector, one
-    entry an image column: (cols (rows, E) int64, vals (rows, E)
-    complex128), the column j and H[i, j] of every image the sector holds
-    (a diagonal column: i and conj(A)), (-1, 0) for the others. Arguments
-    as in :func:`repr_rows`. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise).
-    """
-    if _device_of(isn) == "cpu":
-        return _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                  phase, row0, rows)
-    if not 0 <= row0 <= row0 + rows <= ix.n:
-        raise ValueError(f"rows {row0} .. {row0 + rows} outside the "
-                         f"sector's {ix.n}")
-    dummy = torch.zeros(1, dtype=torch.complex128, device=isn.device)
-    _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, None, phase, dummy,
-                row0 + rows)
-    E = tabs.n_cols
-    cols = torch.empty((rows, E), dtype=torch.int64, device=isn.device)
-    vals = torch.empty((rows, E), dtype=torch.complex128, device=isn.device)
-    if rows and E:
-        _launch("repr_images", rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                None, phase, dummy, None, cols, vals, row0, rows)
-    return cols, vals
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """y = H x (``repr_rows``, ``ix.n`` rows) or y = A x
+        (``repr_scatter``, from the first ``rows`` source rows into the
+        destination's ``ix.n``); on a CUDA device the scatter's float64
+        atomic adds sum in an order that changes from run to run (every
+        column diagonal: plain stores)."""
+        if self.kind == "repr_images":
+            raise TypeError("a repr_images record is called by images()")
+        if self.device.type == "cpu" and _device_of(x) == "cpu":
+            if self.kind == "repr_rows":
+                return _repr_rows_plain(*self.args, x)
+            return _repr_scatter_plain(*self.args, x, self.rows)
+        _check_x(x, self.device, self.rows)
+        y = torch.empty(self.n_out, dtype=torch.complex128, device=x.device)
+        if self.rows == 0 or self.n_out == 0:
+            return y.zero_()
+        p = self.p
+        p.x = x.data_ptr()
+        p.y = y.data_ptr()
+        self._launch()
+        return y
+
+    def images(self, row0: int, rows: int):
+        """Rows ``row0 .. row0 + rows - 1`` of H in the sector, one entry
+        an image column: (cols (rows, E) int64, vals (rows, E) complex128),
+        the column j and H[i, j] of every image the sector holds (a
+        diagonal column: i and conj(A)), (-1, 0) for the others."""
+        if self.kind != "repr_images":
+            raise TypeError(f"a {self.kind} record is called with x")
+        if not 0 <= row0 <= row0 + rows <= self.rows:
+            raise ValueError(f"rows {row0} .. {row0 + rows} outside the "
+                             f"sector's {self.rows}")
+        rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = self.args
+        if self.device.type == "cpu":
+            return _repr_images_plain(rt, tabs, ix, labels, fodd, isn,
+                                      sqrt_nu, phase, row0, rows)
+        E = tabs.n_cols
+        cols = torch.empty((rows, E), dtype=torch.int64, device=self.device)
+        vals = torch.empty((rows, E), dtype=torch.complex128,
+                           device=self.device)
+        if rows and E:
+            p = self.p
+            p.row0, p.rows = row0, rows
+            p.cols, p.vals = cols.data_ptr(), vals.data_ptr()
+            self._launch()
+        return cols, vals
 
 
 # --------------------------------------------------------------------------
@@ -582,7 +966,8 @@ def repr_images(rt: TransTables, tabs: RowTables, ix: IndexTables, labels,
 
 class MatvecRepr:
     """y = H x in a momentum sector; complex128, matrix-free, one
-    :func:`repr_rows` call an apply."""
+    ``repr_rows`` launch an apply through a :class:`ReprLaunch` built at
+    the first apply (again if the basis' index was replaced)."""
 
     def __init__(self, compiled: CompiledOperator, rbasis: ReprBasis):
         self.compiled = compiled
@@ -600,6 +985,7 @@ class MatvecRepr:
             self.diag_b = compile_diagonal(compiled.diag_terms,
                                            compiled.space)(rbasis.V_b)
         self.phase = phase_table(rbasis.tset, rbasis.momentum)
+        self._records = {}
 
     def args(self):
         """repr_rows' arguments but x (also those of repr_images)."""
@@ -608,9 +994,25 @@ class MatvecRepr:
         return (self.trans, self.tables, rb.index.tables, labels, fodd, isn,
                 rb.sqrt_nu, self.diag_b.view(-1), self.phase)
 
+    def record(self, kind: str = "repr_rows") -> ReprLaunch:
+        """The launch record of ``repr_rows`` (or ``repr_images``: the ELL
+        build's) over this sector, built once per basis index."""
+        index = self.basis.index
+        got = self._records.get(kind)
+        if got is None or got[0] is not index:
+            args = list(self.args())
+            if kind == "repr_images":
+                args[7] = None
+            got = (index, ReprLaunch(
+                kind, *args, self.n, rrec=None if kind == "repr_rows"
+                else self.basis.row_records()))
+            self._records[kind] = got
+        return got[1]
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.complex128).contiguous()
-        return repr_rows(*self.args(), x)
+        if x.dtype != torch.complex128 or not x.is_contiguous():
+            x = x.to(torch.complex128).contiguous()
+        return self.record()(x)
 
 
 def mopr_x_vec_repr(compiled: CompiledOperator, src: ReprBasis,
@@ -627,11 +1029,12 @@ def mopr_x_vec_repr(compiled: CompiledOperator, src: ReprBasis,
 
     Images whose representative is not in the destination basis are dropped
     (zero norm or out of sector), matching the reference's lookup-miss
-    behavior. One :func:`repr_scatter` call; on a CUDA device its atomic
-    sums are not in a fixed order: two runs may differ in the last bits.
+    behavior. One ``repr_scatter`` launch (:func:`scatter_launch`); on a
+    CUDA device its atomic sums are not in a fixed order: two runs may
+    differ in the last bits.
     """
     x = x.to(device=src.device, dtype=torch.complex128).contiguous()
-    return repr_scatter(*scatter_args(compiled, src, dst), x, src.n)
+    return scatter_launch(compiled, src, dst)(x)
 
 
 def scatter_args(compiled: CompiledOperator, src: ReprBasis,
@@ -645,3 +1048,12 @@ def scatter_args(compiled: CompiledOperator, src: ReprBasis,
     return (translation_tables(src.tset), pack_rows(compiled, src.device),
             dst.index.tables, labels, fodd, isn, dst.sqrt_nu, diag,
             phase_table(src.tset, dst.momentum, +1))
+
+
+def scatter_launch(compiled: CompiledOperator, src: ReprBasis,
+                   dst: ReprBasis) -> ReprLaunch:
+    """The launch record of y = A x from ``src`` into ``dst``
+    (:func:`scatter_args`, the source's n rows, the destination's row
+    records): call it with x as many times as the two bases live."""
+    return ReprLaunch("repr_scatter", *scatter_args(compiled, src, dst),
+                      src.n, rrec=dst.row_records())

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from quantum_basis_tpu_torch.ops.apply import _row_images
-from quantum_basis_tpu_torch.ops.apply_repr import repr_images
 
 _VAL_TOL = 1e-14  # drop |v| below this (reference sparse_precision)
 _INVALID = 1 << 62
@@ -131,17 +130,17 @@ def build_sparse_repr(matvec) -> EllMatrix:
     Same coefficients as the matrix-free row kernel:
     H[i, j] = sqrt(nu_j/nu_i) * conj(A) * sigma_{g*} * e^{-i k.R_{g*}}
     (cf. generate_Ham_sparse_repr, src/model.cc:729-829): one
-    ``repr_images`` call a row block (``ops/apply_repr.py``; the kernel
-    on the card), its columns merged by :func:`compact_rows`.
+    ``repr_images`` launch a row block through the matvec's launch
+    record (``ops/apply_repr.py``; the kernel on the card), its columns
+    merged by :func:`compact_rows`.
     """
     rb = matvec.basis
-    rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = matvec.args()
+    images = matvec.record("repr_images")
     B = rb.block_rows
     cols_l, vals_l = [], []
     for b in range(rb.n_blocks):
         rows = min(B, rb.n - b * B)
-        cols, vals = repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                 phase, b * B, rows)
+        cols, vals = images.images(b * B, rows)
         c, v = compact_rows(cols, vals)
         cols_l.append(c)
         vals_l.append(v)

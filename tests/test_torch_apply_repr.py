@@ -25,7 +25,18 @@ absolute, labels and signs exactly:
   ties included;
 - (e) the dispatch: CPU tensors run the plain versions and count no
   launch, a ``meta`` tensor raises, and the argument checks of a CUDA
-  launch refuse what the kernels do not take.
+  launch refuse what the kernels do not take;
+- (f) the entry path's per-entry tables (each entry's change of every
+  translated label, its Fodd change) against the JAX TranslationSet's
+  translation of every image, and the keyed minimum's orbit minimum,
+  first g and sign;
+- (g) both formulations the kernels take (the entry path, the general
+  path) against the JAX MatvecRepr, build_sparse_repr and
+  mopr_x_vec_repr, and an operator with no image column;
+- (h) the entry path's bounds, the absent-row direct index, a launch
+  record built from CPU tensors without a launch (its fields, blob,
+  moved checks and refusals) and the label buffer's rules (one a device,
+  grown, the previous basis' labels cleared).
 
 One ``cuda``-marked test holds the three kernels against their plain
 versions on the card; it skips here. The JAX package is imported inside
@@ -44,11 +55,11 @@ import torch_zoo as tz
 from quantum_basis_tpu_torch import interop
 from quantum_basis_tpu_torch.basis.index import BasisIndex
 from quantum_basis_tpu_torch.basis.lin_table import digit_split
+from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.ops import apply_repr as ar
 from quantum_basis_tpu_torch.ops.apply import pack_rows
 from quantum_basis_tpu_torch.ops.apply_repr import (
     MatvecRepr,
-    _check_args,
     _orbit_min_plain,
     _repr_images_plain,
     _repr_rows_plain,
@@ -56,9 +67,6 @@ from quantum_basis_tpu_torch.ops.apply_repr import (
     column_slots,
     mopr_x_vec_repr,
     phase_table,
-    repr_images,
-    repr_rows,
-    repr_scatter,
     scatter_args,
     translation_tables,
 )
@@ -67,13 +75,15 @@ from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
 MODES = ["direct", "lin", "bsearch"]
 
 
-def _three_spin(pkg):
-    if pkg == "torch":
-        return tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr,
-                                        tz.Mopr, 12, device="cpu")
-    import quantum_basis_tpu as qj
+def _with(make, L):
+    def build(pkg):
+        if pkg == "torch":
+            return make(tz.Lattice, tz.Model, tz.Opr, tz.Mopr, L,
+                        device="cpu")
+        import quantum_basis_tpu as qj
 
-    return tz.three_spin_chain_with(qj.Lattice, qj.Model, qj.Opr, qj.Mopr, 12)
+        return make(qj.Lattice, qj.Model, qj.Opr, qj.Mopr, L)
+    return build
 
 
 CASES = {
@@ -86,14 +96,19 @@ CASES = {
                           [4.0, 0.0], [0, 1]),
     "honeycomb_3x2_k10": (lambda z: z.spinless_fermion_honeycomb(3, 2),
                           ["N"], [4.0], [1, 0]),
-    "three_spin12_k3": (None, ["Sz"], [0.0], [3]),
+    "three_spin12_k3": (_with(tz.three_spin_chain_with, 12), ["Sz"], [0.0],
+                        [3]),
+    # complex amplitudes (a Dzyaloshinskii-Moriya term)
+    "dm_chain10_k2": (_with(tz.dm_chain_with, 10), ["Sz"], [0.0], [2]),
 }
+# the cases built through the package's classes (not a model zoo)
+_WITH = ("three_spin12_k3", "dm_chain10_k2")
 
 
 def _model(name, pkg):
     build = CASES[name][0]
-    if build is None:
-        return _three_spin(pkg)
+    if name in _WITH:
+        return build(pkg)
     if pkg == "torch":
         return build(tz)
     import models_zoo as jz
@@ -247,8 +262,8 @@ def test_build_sparse_repr_on_images_matches_jax(name):
     Ht = _dense(s.dim, ell.cols.numpy(), ell.vals.numpy(), ell.diag.numpy())
     _close(Ht, Hj)
     rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = s.matvec.args()
-    c, v = repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase, 0,
-                       s.dim)
+    img = s.matvec.record("repr_images")
+    c, v = img.images(0, s.dim)
     c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
                                 phase, 0, s.dim)
     torch.testing.assert_close(c, c2, rtol=0, atol=0)
@@ -256,15 +271,14 @@ def test_build_sparse_repr_on_images_matches_jax(name):
     assert c.shape == (s.dim, tabs.n_cols)
     # one row block at a time gives the same rows
     h = s.dim // 2
-    c3, v3 = repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase, h,
-                         s.dim - h)
+    c3, v3 = img.images(h, s.dim - h)
     torch.testing.assert_close(c3, c[h:], rtol=0, atol=0)
     torch.testing.assert_close(v3, v[h:], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", ["chain12_k1", "spin1_chain8_k2",
                                   "kagome_tj_1x2_k01", "honeycomb_3x2_k10",
-                                  "three_spin12_k3"])
+                                  "three_spin12_k3", "dm_chain10_k2"])
 def test_incremental_translation_and_mask_parity_exact(name):
     """(d) The kernels' translation of every image of random labels (rows
     of the whole label space, not only the sector's, plus states whose
@@ -310,6 +324,348 @@ def test_incremental_translation_and_mask_parity_exact(name):
         assert bool((sig[live] < 0).any())            # signs were taken
 
 
+def _random_rows(space, seed=5):
+    """Random labels of the whole label space plus periodic states whose
+    orbits tie, their slot values and odd-count slots (or None)."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, space.label_space, size=400)
+    V = np.zeros((4, space.n_slots), np.int64)
+    V[1, ::2] = 1
+    V[2] = np.arange(space.n_slots) % 2
+    V[3, ::3] = 1
+    V = np.minimum(V, space.dims - 1)
+    lab = torch.as_tensor(np.concatenate([lab, space.encode(V)]))
+    Vr = space.decode(lab).long()
+    fodd = None
+    if space.fermionic:
+        F = torch.as_tensor(space.fermion_count_table)[
+            torch.arange(space.n_slots), Vr]
+        fodd = ((F.long() & 1) << torch.arange(space.n_slots)).sum(-1)
+    return lab, Vr, fodd
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_entry_tables_match_jax_translation(name):
+    """(f) The entry path's per-entry tables against the JAX package's
+    translation of every image of random labels: each live image's change
+    of every translated label (erow's words, shifted back) equals the JAX
+    TranslationSet's T_g(m) - T_g(r), and its Fodd change the parity of m's
+    fermion counts; the keyed minimum gives the JAX orbit minimum, the
+    first g* at it (ties taken) and its sign exactly."""
+    import jax.numpy as jnp
+
+    from quantum_basis_tpu_torch.ops.apply import _OFFSET, _row_images
+
+    mt, _ = _model(name, "torch")
+    mj, _ = _model(name, "jax")
+    space, tj = mt.space, mj.tset
+    rt = translation_tables(mt.tset)
+    tabs = pack_rows(mt.compiled_Ham, "cpu")
+    et = ar.entry_tables(rt, tabs)
+    G = rt.G
+    assert et.gb == min(b for b in ar.BUCKETS if b >= G)
+    assert et.erow.shape == (tabs.ad.shape[0], et.gb + 4)
+    assert (et.fx is not None) == space.fermionic
+    lab, Vr, fodd = _random_rows(space)
+    amp, tgt = _row_images(tabs, lab, Vr, fodd)
+    live = (amp != 0) & ~tabs.diagonal[None, :]
+
+    def jax_translate(V):
+        F = (space.fermion_count_table[np.arange(space.n_slots), V]
+             if space.fermionic else np.zeros_like(V))
+        tl, sg = tj.transform_all(jnp.asarray(V), jnp.asarray(F))
+        return np.asarray(tl), np.asarray(sg), F
+    Vm = space.decode(tgt).numpy()
+    tl_m, sg_m, F_m = jax_translate(Vm)
+    tl_r = jax_translate(Vr.numpy())[0]
+    # the tables, entry by entry
+    c = (Vr[:, tabs.slots.long()] * tabs.strides).sum(-1)
+    idx = (tabs.rec[:, 0].long() & _OFFSET) + c
+    words = et.erow[idx][..., 4:4 + G].long()
+    delta = torch.where(words >= 0, words, words + (1 << 32))
+    delta = torch.where(delta >= 1 << 31, delta - (1 << 32), delta)
+    want = tl_m - tl_r[:, None, :]
+    got = (delta.numpy() >> et.shift)
+    L = live.numpy()
+    assert np.array_equal(got[L], want[L])
+    if space.fermionic:
+        fm = ((F_m & 1) << np.arange(space.n_slots)).sum(-1)
+        assert np.array_equal((fodd[:, None] ^ et.fx[idx]).numpy()[L], fm[L])
+    # the keyed minimum against the JAX orbit minimum and first g*
+    amp2, rmin, gs, sig = ar._entry_images_plain(et, rt, tabs, Vr, fodd)
+    assert torch.equal(amp2[live], amp[live].to(torch.complex128))
+    want_min = tl_m.min(-1)
+    first = np.argmin(tl_m, axis=-1)
+    assert np.array_equal(rmin.numpy()[L], want_min[L])
+    assert np.array_equal(gs.numpy()[L], first[L])
+    assert np.array_equal(sig.numpy()[L],
+                          np.take_along_axis(sg_m, first[..., None],
+                                             -1)[..., 0][L])
+    ties = (tl_m == want_min[..., None]).sum(-1) > 1
+    assert bool((ties & L).any())                      # ties were taken
+    if space.fermionic:
+        assert bool((sig.numpy()[L] < 0).any())         # signs were taken
+
+
+@pytest.mark.parametrize("path", ["entry", "general"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_paths_match_jax(name, path, monkeypatch):
+    """(g) H x through each formulation the kernels take, the entry path
+    (the per-entry tables) and the general one (ENTRY_TABLES_MAX = 0: the
+    per-slot int64 translation), equals the JAX MatvecRepr to 1e-12, and
+    the ELL built from repr_images' rows the JAX build_sparse_repr."""
+    if path == "general":
+        monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", 0)
+    _, _, x, want, Hj = _jax_case(name)
+    mt, s = _port_case(name)
+    args = s.matvec.args()
+    plan = ar.entry_plan(*args[:3])
+    assert (plan is None) == (path == "general")
+    _close(_repr_rows_plain(*args, torch.as_tensor(x)), want)
+    ell = build_sparse_repr(s.matvec)
+    _close(_dense(s.dim, ell.cols.numpy(), ell.vals.numpy(),
+                  ell.diag.numpy()), Hj)
+
+
+@pytest.mark.parametrize("kind", ["sz_q", "sminus_q", "fermion_density_wave"])
+def test_repr_scatter_general_path_matches_jax(kind, monkeypatch):
+    """(g) A x through the general path's formulation (ENTRY_TABLES_MAX =
+    0) equals the JAX mopr_x_vec_repr to 1e-12, as the entry path does
+    (test (b))."""
+    monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", 0)
+    mt, src, dst, op, x, want = _scatter_case(kind)
+    args = scatter_args(op, src.dbasis, dst.dbasis)
+    assert ar.entry_plan(*args[:3]) is None
+    _close(_repr_scatter_plain(*args, torch.as_tensor(x), src.dim), want)
+    _close(mopr_x_vec_repr(op, src.dbasis, dst.dbasis, torch.as_tensor(x)),
+           want)
+
+
+def test_entry_plan_limits(monkeypatch):
+    """(h) The entry path's bounds: G above the last bucket, keys past 2^32
+    (label space << shift), 2^31 rows and the staged blob past
+    ENTRY_TABLES_MAX send the operator to the general path."""
+    mt, s = _port_case("chain12_k1")
+    rt, tabs, ix = s.matvec.args()[:3]
+    et = ar.entry_plan(rt, tabs, ix)
+    assert et is not None and et.gb == 16 and et.shift == 4
+    assert ar.entry_plan(rt, tabs,
+                         ix._replace(label_space=(1 << 28) - 1)) is et
+    assert ar.entry_plan(rt, tabs, ix._replace(label_space=1 << 28)) is None
+    assert ar.entry_plan(rt, tabs, ix._replace(n=1 << 31)) is None
+    wide = ar.TransTables(sp=torch.zeros((rt.S, 33), dtype=torch.int64),
+                          sstride=rt.sstride, sdim=rt.sdim, oddmask=None,
+                          qmask=None, bits=True)
+    assert ar.entry_plan(wide, tabs, ix) is None
+    _, size = ar._blob_layout(tabs.n_cols, tabs.ad.shape[0], rt.S, rt.G, 16,
+                              False)
+    monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", size)
+    assert ar.entry_plan(rt, tabs, ix) is et
+    monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", size - 1)
+    assert ar.entry_plan(rt, tabs, ix) is None
+
+
+def test_all_diagonal_operator_in_fermionic_space():
+    """(b) An operator with no image column at all (a real diagonal, folded
+    out of the term tables) in a fermionic space: the total density N
+    scattered from the honeycomb sector into itself is N x = 4 x, through
+    the launch record's entry path (empty entry tables) and the general
+    path."""
+    mt, s = _port_case("honeycomb_3x2_k10")
+    ops = _model("honeycomb_3x2_k10", "torch")[1]
+    op = mt.compile_op(ops["N"])
+    tabs = pack_rows(op, "cpu")
+    assert tabs.n_cols == 0 and tabs.ad.shape[0] == 0
+    x = torch.as_tensor(_jax_case("honeycomb_3x2_k10")[2])
+    rec = ar.scatter_launch(op, s.dbasis, s.dbasis)
+    assert rec.entry is not None and rec.entry.fx.numel() == 0
+    _close(rec(x), 4.0 * x.numpy())
+    _close(mopr_x_vec_repr(op, s.dbasis, s.dbasis, x), 4.0 * x.numpy())
+
+
+def test_absent_row_direct_index():
+    """(h) A momentum basis' direct table marks the labels it does not hold
+    with row n (IndexTables.absent): lookups stay in range and checked;
+    the entry path takes only such a direct table (a plain one, the general
+    path); the row kernels (K2) refuse it."""
+    from quantum_basis_tpu_torch.basis.index import lookup_tables
+    from quantum_basis_tpu_torch.ops.apply import _check_cuda_args
+
+    mt, s = _port_case("chain12_k1")
+    rb = s.dbasis
+    ix = rb.index.tables
+    assert ix.mode == "direct" and ix.absent
+    n, labels = ix.n, ix.labels
+    absent = torch.ones(ix.label_space, dtype=torch.bool)
+    absent[labels] = False
+    assert bool((ix.t0[absent] == n).all())
+    assert torch.equal(ix.t0[labels].long(), torch.arange(n))
+    tgt = torch.arange(ix.label_space)
+    j = lookup_tables(ix, tgt)
+    assert int(j.min()) >= 0 and int(j.max()) == n - 1
+    assert torch.equal(rb.index.lookup_checked(tgt)[1], ~absent)
+    rt, tabs = s.matvec.args()[:2]
+    assert ar.entry_plan(rt, tabs, ix) is not None
+    plain = BasisIndex(rb.labels_np, mt.space.label_space, device="cpu")
+    assert not plain.tables.absent and int(plain.tables.t0[absent].max()) == 0
+    assert ar.entry_plan(rt, tabs, plain.tables) is None
+    assert BasisIndex(rb.labels_np, mt.space.label_space, mode="bsearch",
+                      device="cpu", absent_row=True).tables.absent is False
+    full = pack_rows(mt.compiled_Ham, "cpu")
+    V = mt.space.decode(labels).to(torch.int8)
+    x = torch.zeros(n, dtype=torch.float64)
+    _check_cuda_args(full, plain.tables, labels, V, None, None, x, 0, n)
+    with pytest.raises(ValueError, match="absent"):
+        _check_cuda_args(full, ix, labels, V, None, None, x, 0, n)
+
+
+@pytest.mark.parametrize("name", ["honeycomb_3x2_k10", "three_spin12_k3"])
+def test_launch_record_built_on_cpu(name, monkeypatch):
+    """(h) A launch record built from CPU tensors, without a launch: its
+    fields (the path, the G bucket, the blob's regions and contents, the
+    destination's row records), the checks moved to it (made once, when it
+    is built), what a call still checks of x, and the plain version it
+    runs on CPU tensors."""
+    mt, s = _port_case(name)
+    mv = s.matvec
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = mv.args()
+    n = s.dim
+    x = torch.as_tensor(_jax_case(name)[2])
+    ar.reset_launches()
+    # the card's bound: the CPU table holds 0 (no label buffer)
+    monkeypatch.setitem(config.MEMORY["cpu"], "repr_label_buffer_max",
+                        config.MEMORY["cuda"]["repr_label_buffer_max"])
+    rec = mv.record()
+    assert mv.record() is rec                       # built once
+    assert rec.kind == "repr_rows" and rec.rows == n and rec.n_out == n
+    p = rec.p
+    et = rec.entry
+    assert et is not None and p.gb == et.gb and p.G == rt.G
+    # by label: the buffer is the device's, written at each launch
+    assert rec.by_label and p.xlab is None and p.rrec is None
+    assert (p.rows, p.n, p.E, p.S, p.threads) == (n, ix.n, tabs.n_cols,
+                                                 rt.S, ar.THREADS)
+    assert p.mode == 0 and p.x is None and p.y is None
+    off, size = ar._blob_layout(tabs.n_cols, tabs.ad.shape[0], rt.S, rt.G,
+                                et.gb, rt.qmask is not None)
+    assert p.blob_bytes == size
+    assert (p.o_erow, p.o_fx, p.o_sp, p.o_slot, p.o_phase, p.o_q) == tuple(
+        off[k] for k in ("erow", "fx", "sp", "slot", "phase", "q"))
+    blob = next(t for t in rec._keep if t.data_ptr() == p.blob)
+    assert blob.dtype == torch.int32 and 4 * blob.numel() == size
+
+    def region(name, words, dt=torch.int32):
+        return blob[off[name] // 4: off[name] // 4 + words].view(dt)
+    E, M = tabs.n_cols, tabs.ad.shape[0]
+    assert torch.equal(region("rec", 4 * E).view(E, 4), tabs.rec)
+    assert torch.equal(region("erow", M * (et.gb + 4)), et.erow.view(-1))
+    assert torch.equal(region("sp", rt.S * (et.gb + 4)), et.sp32.view(-1))
+    assert torch.equal(region("phase", 4 * rt.G, torch.float64),
+                       phase.view(-1))
+    if rt.qmask is not None:
+        assert p.o_fx >= 0 and p.o_q >= 0
+        assert torch.equal(region("fx", 2 * M, torch.int64), et.fx)
+        assert torch.equal(region("q", 2 * rt.G * rt.S, torch.int64),
+                           rt.qmask.view(-1))
+    rrec = s.dbasis.row_records()
+    assert torch.equal(rrec[:, 0], ix.labels)
+    assert torch.equal(rrec[:, 1].view(torch.float64), sqrt_nu[:n])
+    # a CPU call runs the plain version and launches nothing
+    torch.testing.assert_close(rec(x), _repr_rows_plain(*mv.args(), x),
+                               rtol=0, atol=0)
+    img = mv.record("repr_images")
+    assert img.p.rrec == rrec.data_ptr() and not img.by_label
+    assert img.p.xlab is None
+    c, v = img.images(0, n)
+    c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                phase, 0, n)
+    assert torch.equal(c, c2) and torch.equal(v, v2)
+    sc = ar.scatter_launch(mt.compiled_Ham, s.dbasis, s.dbasis)
+    torch.testing.assert_close(sc(x), rec(x), rtol=0, atol=1e-12)
+    assert ar.launches == dict.fromkeys(ar.KERNELS, 0)
+    # what a call checks of x, and what a record refuses to be called with
+    for bad in (x.real.clone(), torch.zeros(2 * n, dtype=torch.complex128)
+                [::2], x[: n - 1].clone()):
+        with pytest.raises(ValueError):
+            ar._check_x(bad, rec.device, rec.rows)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rec(x.to("meta"))
+    with pytest.raises(TypeError):
+        img(x)
+    with pytest.raises(TypeError):
+        rec.images(0, n)
+    with pytest.raises(ValueError, match="outside"):
+        img.images(1, n)
+    with pytest.raises(ValueError, match="unknown repr kernel"):
+        ar.ReprLaunch("repr_gather", *mv.args(), n)
+    # the checks moved to the record: made when it is built
+    bad = {"labels int32": (3, labels.int()), "fodd missing": (4, None),
+           "isn float32": (5, isn.float()), "sqrt_nu short": (6, sqrt_nu[:1]),
+           "diag float32": (7, diag.float()),
+           "phase complex": (8, torch.complex(phase[:, 0], phase[:, 1]))}
+    for what, (k, t) in bad.items():
+        a = list(mv.args())
+        a[k] = t
+        if what == "fodd missing" and rt.qmask is None \
+                and tabs.wmask is None:
+            continue
+        with pytest.raises(ValueError):
+            ar.ReprLaunch("repr_rows", *a, n)
+            raise AssertionError(f"{what} passed the checks")
+    with pytest.raises(ValueError, match="row records"):
+        ar.ReprLaunch("repr_images", *mv.args(), n, rrec=rrec[1:])
+    # past the label buffer's bound repr_rows takes the general path
+    monkeypatch.setitem(config.MEMORY["cpu"], "repr_label_buffer_max",
+                        16 * ix.label_space - 1)
+    small = ar.ReprLaunch("repr_rows", *mv.args(), n)
+    assert small.entry is None and not small.by_label and small.p.gb == 0
+    assert ar.ReprLaunch("repr_images", *mv.args(), n).entry is not None
+    # the general path: no blob, no G bucket; a new index, a new record
+    monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", 0)
+    gen = ar.ReprLaunch("repr_rows", *mv.args(), n)
+    assert gen.entry is None and gen.p.gb == 0 and gen.p.blob is None
+    torch.testing.assert_close(gen(x), rec(x), rtol=0, atol=1e-12)
+    s.dbasis.index = BasisIndex(s.dbasis.labels_np, mt.space.label_space,
+                                mode="bsearch", device="cpu")
+    rec2 = mv.record()
+    assert rec2 is not rec and rec2.p.mode == 2 and rec2.entry is None
+    torch.testing.assert_close(rec2(x), rec(x), rtol=0, atol=1e-12)
+
+
+def test_label_buffer_is_one_a_device():
+    """(h) The label buffer, held to its rules with CPU tensors: one a
+    device; grown (zeros) to the largest label space asked; the previous
+    basis' labels handed to the clear when another basis claims it, and
+    nothing cleared while one basis keeps it; freed with the basis that
+    used it last."""
+    lb = ar.LabelBuffer(torch.device("cpu"))
+    cleared = []
+
+    def clear(buf, labels):
+        cleared.append(labels)
+        buf[labels] = 0.0
+    a, b = torch.tensor([1, 5, 9]), torch.tensor([2, 5])
+    buf = lb.claim(a, 12, 0, clear)
+    assert buf.shape == (12, 2) and not bool(buf.any()) and lb.owner is a
+    buf[a] = 7.0                                    # a's pre-pass
+    assert lb.claim(a, 12, 0, clear) is buf and cleared == []
+    assert lb.claim(b, 10, 0, clear) is buf         # no smaller buffer
+    assert len(cleared) == 1 and cleared[0] is a and lb.owner is b
+    assert not bool(buf.any())
+    buf[b] = 3.0
+    big = lb.claim(a, 20, 0, clear)                 # grown: zeros
+    assert big.shape == (20, 2) and not bool(big.any()) and len(cleared) == 1
+    assert lb.owner is a and lb.buf is big
+    buf = lb.claim(b, 20, 0, clear)                 # a's labels cleared
+    assert buf is big and cleared[-1] is a and lb.owner is b
+    del a, cleared[:]                               # a gone: b holds it
+    assert lb.buf is big
+    del b, buf, big                                 # b gone: freed
+    assert lb.buf is None and lb.owner is None
+    dev = torch.device("cuda", 0)
+    assert ar.LabelBuffer.of(dev) is ar.LabelBuffer.of("cuda:0")
+
+
 def test_dispatch_cpu_counts_nothing_meta_raises():
     """(e) CPU tensors run the plain versions and count no launch; a meta
     tensor raises."""
@@ -317,25 +673,33 @@ def test_dispatch_cpu_counts_nothing_meta_raises():
     mv = s.matvec
     x = torch.as_tensor(_jax_case("chain12_k1")[2])
     ar.reset_launches()
-    y = repr_rows(*mv.args(), x)
+    y = mv(x)
     args = mv.args()
     rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = args
-    z = repr_scatter(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
-                     phase_table(s.dbasis.tset, s.dbasis.momentum, +1), x,
-                     s.dim)
+    sc = ar.scatter_launch(mt.compiled_Ham, s.dbasis, s.dbasis)
+    z = sc(x)
     # H is Hermitian: its scatter from k into k is the same matrix
     torch.testing.assert_close(z, y, rtol=0, atol=1e-12)
-    repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase, 0, s.dim)
+    mv.record("repr_images").images(0, s.dim)
     assert ar.launches == dict.fromkeys(ar.KERNELS, 0)
     xm = x.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        repr_rows(*args, xm)
+        mv.record()(xm)
     with pytest.raises(ValueError, match="unsupported device"):
-        repr_scatter(*args, xm, s.dim)
+        sc(xm)
     with pytest.raises(ValueError, match="unsupported device"):
-        repr_images(rt, tabs, ix, labels, fodd, isn.to("meta"), sqrt_nu,
-                    phase, 0, s.dim)
+        ar.ReprLaunch("repr_images", rt, tabs, ix, labels.to("meta"), fodd,
+                      isn, sqrt_nu, None, phase, s.dim)
     assert ar.launches == dict.fromkeys(ar.KERNELS, 0)
+
+
+def _check_args(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase, x,
+                rows):
+    """Every check before a launch: x's (each call's), then the launch
+    record's (made when it is built)."""
+    ar._check_x(x, x.device, rows)
+    ar.ReprLaunch("repr_rows", rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                  diag, phase, rows)
 
 
 def test_cuda_arg_checks_refuse_what_the_kernels_do_not_take():
@@ -381,24 +745,37 @@ def test_cuda_arg_checks_refuse_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_cuda(monkeypatch):
     """repr_rows, repr_scatter and repr_images on the card against their
-    plain versions (1e-12 of max|y|; the images' columns exactly): a
-    spin-1/2 chain at k = 1 (bit fields), the spin-1 chain (mixed radix),
-    kagome t-J and the honeycomb fermions (signs), the three-site chain
-    (arity 3), each in every index mode the representatives admit, with
-    the tables in shared memory and in device memory, the rows' translated
-    labels in shared memory and, with TR_SHARED_MAX = 0, in the device
-    scratch; a spin-1/2 chain of 40 sites in a narrow Sz sector (2^40
-    labels: a binary-search index, G = 40); Sz(q) and S^-(q) scattered."""
+    plain versions (1e-12 of max|y|; the images' columns exactly), through
+    the engines' launch records and records built apart: a spin-1/2 chain
+    at k = 1 (bit fields, G bucket 16), the spin-1 chain (mixed radix,
+    bucket 8), kagome t-J and the honeycomb fermions (signs, bucket 8), the
+    three-site chain (arity 3), the DM chain (complex amplitudes) and a
+    chain of 20 sites (bucket 32), each in every index mode the
+    representatives admit, on the entry path and on the general path
+    (ENTRY_TABLES_MAX = 0) with its tables in shared memory and in device
+    memory and the rows' translated labels in shared memory and, with
+    TR_SHARED_MAX = 0, in the device scratch; a spin-1/2 chain of 40 sites
+    in a narrow Sz sector (2^40 labels: the general path's int64, a
+    binary-search index, G = 40); the H scatter of chain-20 repeated 20
+    times, its spread within 1e-13 of max|y|. repr_rows reaches rows by
+    label (the device's label buffer) on the entry path; two sectors'
+    engines in turns, and one on another stream, share that one buffer
+    (the previous sector's labels cleared at each change)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     dev = "cuda"
 
-    def close(got, want):
+    def close(got, want, spread=0.0):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        assert err <= 1e-12 * max(float(want.abs().max()), 1e-300), err
+        scale = max(float(want.abs().max()), 1e-300)
+        assert err <= max(1e-12 * scale, 4 * spread), err
 
-    def check(mv, src=None):
+    def check(mv, entry):
+        rec = mv.record()
+        assert (rec.entry is not None) == entry, rec.p.gb
+        # the engine reaches rows by label on the entry path
+        assert rec.by_label == entry
         rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = mv.args()
         n = mv.n
         g = torch.Generator().manual_seed(3)
@@ -406,21 +783,41 @@ def test_kernels_match_plain_on_cuda(monkeypatch):
                           torch.randn(n, generator=g, dtype=torch.float64)
                           ).to(dev)
         before = dict(ar.launches)
-        close(mv(x), _repr_rows_plain(*mv.args(), x))
+        yp = _repr_rows_plain(*mv.args(), x)
+        close(mv(x), yp)
+        assert (rec.p.xlab is not None) == entry
+        if entry:
+            spaces.append(ix.label_space)
+        close(ar.ReprLaunch("repr_rows", *mv.args(), n)(x), yp)
         ph = phase_table(mv.basis.tset, mv.basis.momentum, +1)
-        close(repr_scatter(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
-                           ph, x, n),
-              _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                  diag, ph, x, n))
-        c, v = repr_images(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase,
-                           0, n)
+        sargs = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, ph)
+        zp = _repr_scatter_plain(*sargs, x, n)
+        sc = ar.ReprLaunch("repr_scatter", *sargs, n,
+                           rrec=mv.basis.row_records())
+        close(sc(x), zp)
+        close(sc(x), zp)
+        img = ar.ReprLaunch("repr_images", rt, tabs, ix, labels, fodd, isn,
+                            sqrt_nu, None, phase, n)
+        c, v = img.images(0, n)
         c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn,
                                     sqrt_nu, phase, 0, n)
         torch.cuda.synchronize()
         assert torch.equal(c, c2)
         close(v, v2)
-        assert all(ar.launches[k] == before[k] + 1 for k in ar.KERNELS)
+        h = n // 2
+        c3, v3 = mv.record("repr_images").images(h, n - h)
+        torch.cuda.synchronize()
+        assert torch.equal(c3, c2[h:])
+        close(v3, v2[h:])
+        want = {"repr_rows": 2, "repr_scatter": 2, "repr_images": 2}
+        assert rec.p.gb == (rec.entry.gb if entry else 0)
+        assert all(ar.launches[k] == before[k] + want[k] for k in ar.KERNELS)
 
+    settings = (  # (entry path, ENTRY_TABLES_MAX, TABLES_SHARED_MAX,
+                  # TR_SHARED_MAX)
+        (True, ar.ENTRY_TABLES_MAX, ar.TABLES_SHARED_MAX, ar.TR_SHARED_MAX),
+        (False, 0, ar.TABLES_SHARED_MAX, ar.TR_SHARED_MAX),
+        (False, 0, 0, 0))
     cases = [(tz.heisenberg_chain(12, device=dev), ["Sz"], [0.0], [1]),
              (tz.heisenberg_chain(8, spin="1", device=dev), ["Sz"], [0.0],
               [2]),
@@ -429,7 +826,10 @@ def test_kernels_match_plain_on_cuda(monkeypatch):
              (tz.spinless_fermion_honeycomb(3, 2, device=dev), ["N"], [4.0],
               [1, 0]),
              (tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr, tz.Mopr,
-                                       12, device=dev), ["Sz"], [0.0], [3])]
+                                       12, device=dev), ["Sz"], [0.0], [3]),
+             (tz.dm_chain(10, device=dev), ["Sz"], [0.0], [2]),
+             (tz.heisenberg_chain(20, device=dev), ["Sz"], [0.0], [3])]
+    buckets, spaces = set(), []
     for (m, ops), names, vals, k in cases:
         m.enumerate_basis_repr(k, [ops[c] for c in names], vals)
         rb = m.sec_repr[0].dbasis
@@ -439,17 +839,54 @@ def test_kernels_match_plain_on_cuda(monkeypatch):
                                       mode=mode,
                                       lin_split=digit_split(m.space),
                                       device=dev)
-            mv = MatvecRepr(m.compiled_Ham, rb)
-            for tmax, rmax in ((ar.TABLES_SHARED_MAX, ar.TR_SHARED_MAX),
-                               (0, 0)):
+            for entry, emax, tmax, rmax in settings:
+                monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", emax)
                 monkeypatch.setattr(ar, "TABLES_SHARED_MAX", tmax)
                 monkeypatch.setattr(ar, "TR_SHARED_MAX", rmax)
-                check(mv)
+                mv = MatvecRepr(m.compiled_Ham, rb)
+                check(mv, entry)
+                if entry:
+                    buckets.add(mv.record().p.gb)
             monkeypatch.undo()
+    assert buckets == set(ar.BUCKETS)
+    # two sectors of one space in turns, and one on another stream: one
+    # label buffer, the other sector's labels cleared at each change
+    m, ops = tz.heisenberg_chain(16, device=dev)
+    for sec, k in enumerate(([1], [2])):
+        m.enumerate_basis_repr(k, [ops["Sz"]], [0.0], sec=sec)
+    mvs = [m.sec_repr[sec].matvec for sec in (0, 1)]
+    xs = [torch.randn(mv.n, dtype=torch.complex128, device=dev)
+          for mv in mvs]
+    want = [_repr_rows_plain(*mv.args(), x) for mv, x in zip(mvs, xs)]
+    for sec in (0, 1, 0, 1, 1, 0):
+        assert mvs[sec].record().by_label
+        close(mvs[sec](xs[sec]), want[sec])
+    assert ar.LabelBuffer.of(dev).owner is mvs[0].basis.index.labels
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y1 = mvs[1](xs[1])
+    close(y1, want[1])
+    close(mvs[0](xs[0]), want[0])
+    # one buffer, of the largest label space taken by label (chain-20's)
+    assert ar.LabelBuffer.held_bytes() == 16 * max(spaces)
+    # the atomics' spread: the H scatter of chain-20 repeated
+    mv = MatvecRepr(m.compiled_Ham, rb)
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, _ = mv.args()
+    ph = phase_table(rb.tset, rb.momentum, +1)
+    sc = ar.ReprLaunch("repr_scatter", rt, tabs, ix, labels, fodd, isn,
+                       sqrt_nu, diag, ph, mv.n, rrec=rb.row_records())
+    x = torch.randn(mv.n, dtype=torch.complex128, device=dev)
+    runs = torch.stack([sc(x) for _ in range(20)])
+    torch.cuda.synchronize()
+    spread = float((runs - runs[0]).abs().max())
+    zp = _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
+                             ph, x, mv.n)
+    assert spread <= 1e-13 * float(zp.abs().max()), spread
+    close(runs[-1], zp, spread)
     m, ops = tz.heisenberg_chain(40, device=dev)
     m.enumerate_basis_repr([3], [ops["Sz"]], [17.0])
     rb = m.sec_repr[0].dbasis
     assert rb.index.mode == "bsearch" and rb.tset.G == 40
-    check(m.sec_repr[0].matvec)
+    check(m.sec_repr[0].matvec, False)
     monkeypatch.setattr(ar, "TR_SHARED_MAX", 0)
-    check(m.sec_repr[0].matvec)
+    check(MatvecRepr(m.compiled_Ham, rb), False)

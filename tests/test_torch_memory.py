@@ -29,8 +29,8 @@ from quantum_basis_tpu_torch.utils.ckpt import CkptStore
 from quantum_basis_tpu_torch.utils.rng import vec_randomize
 
 NAMES = ("ckpt_max_bytes", "direct_lookup_max", "apply_block_budget",
-         "repr_block_budget", "polish_n", "product_mixed_above",
-         "product_ncv")
+         "repr_block_budget", "repr_label_buffer_max", "polish_n",
+         "product_mixed_above", "product_ncv")
 E0_HUBBARD_4X2 = -14.076058659
 
 
@@ -47,6 +47,8 @@ def _jax_value(name):
         "direct_lookup_max": jax_config.direct_lookup_max,
         "apply_block_budget": jax_apply._BLOCK_BUDGET,
         "repr_block_budget": jax_apply_repr._BLOCK_BUDGET,
+        # the JAX package gathers no vector by label: no label buffer
+        "repr_label_buffer_max": 0,
         "polish_n": jax_model._POLISH_N,
         # a literal in ProductModel.locate_E0_lanczos,
         # quantum_basis_tpu/models/product.py:167
@@ -121,6 +123,23 @@ def test_repr_block_rows_follow_the_table(monkeypatch, budget):
     per_row = max(m.compiled_Ham.nnz_per_row, 1) * rb.tset.G
     want = 1 << int(math.log2(max(256, budget // per_row)))
     assert rb.block_rows == min(want, rb.n)
+
+
+@pytest.mark.parametrize("room, by_label", [(0, True), (-1, False)])
+def test_repr_label_buffer_follows_the_table(monkeypatch, room, by_label):
+    """repr_rows' launch record takes the entry path by label where the
+    label buffer (16 bytes a label) fits the table's bound, else the
+    general path; the scatter's record never reaches rows by label."""
+    m, c = tz.heisenberg_chain(14)
+    m.enumerate_basis_repr([0], [c["Sz"]], [0.0])
+    mv = m.sec_repr[0].matvec
+    _other_extreme(monkeypatch, "repr_label_buffer_max",
+                   16 * m.space.label_space + room)
+    rec = mv.record()
+    assert rec.by_label == by_label
+    assert (rec.entry is not None) == by_label
+    assert not apply_repr_mod.scatter_launch(
+        m.compiled_Ham, mv.basis, mv.basis).by_label
 
 
 @pytest.mark.parametrize("bound, mode", [(1 << 14, "direct"),
