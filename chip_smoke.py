@@ -6,7 +6,8 @@ Phases (any failure raises, so the exit code is nonzero):
 1. a CUDA device must be present; prints the card, its power limit and the
    torch/CUDA versions;
 2. builds the kernels (csrc/bsr_spmv.cu, csrc/kron_ell.cu,
-   csrc/apply_rows.cu) with nvcc, one process each, all at once;
+   csrc/apply_rows.cu, csrc/krylov.cu, csrc/apply_repr.cu,
+   csrc/ell_build.cu) with nvcc, one process each, all at once;
 3. holds the kernel against its plain PyTorch version on the card, on a
    momentum sector of the 20-site tilted cluster (f32: the shape of the
    kernel's main path, phase 4b), on the
@@ -198,7 +199,8 @@ Phases (any failure raises, so the exit code is nonzero):
    phases 4, 5, 10 and 13, kron_ell's in phase 7's 4x4 solve, two per apply,
    apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
    measure_full_static, the K6 kernels' in phase 5's chain-24 solve and
-   phase 7's 4x4 solve, the K9 kernels' in phases 4, 8 and 10, each count
+   phase 7's 4x4 solve, the K9 kernels' in phases 4, 8 and 10, ell_rows'
+   in phase 5's ELL builds, each count
    set to 0 just before its path and read just after; the worst
    error against the plain version, the
    kernel's, plain version's and library call's ms and the bound at the
@@ -295,7 +297,8 @@ Phases (any failure raises, so the exit code is nonzero):
    repr_rows on the general path (int64 per slot: ENTRY_TABLES_MAX = 0;
    each sector's repr_rows after another's clears the device's one label
    buffer),
-   repr_images (every block of the ELL build; columns exactly) and
+   repr_images (the ELL build's finished rows, against the plain build:
+   columns and W exactly, values to 1e-14 of max|v|) and
    repr_scatter of H from the sector into itself (f64 atomics, through a
    launch record), to 1e-12 of max|y| or 4x the measured spread of two
    kernel runs where wider (stated in the output); repr_scatter of the
@@ -313,6 +316,22 @@ Phases (any failure raises, so the exit code is nonzero):
    nowhere in the package), with the sector's ELL apply beside it. Phases
    4, 8 and 10 count the three kernels' launches on the main path and
    assert each one launched.
+21. (after 20, before 15; ``--ell-build`` runs it alone) the explicit ELL
+   builds at full width through both kernels, each against its plain
+   version on the card (columns and W exactly, values to 1e-14 of max|v|)
+   and the built ELL's H x against MatvecRepr's / MatvecFull's (1e-12 of
+   max|y|): repr_images (csrc/apply_repr.cu) on kagome-24 Sz=0 k=(0,2),
+   chain-24 Sz=0 k=0 and the honeycomb spinless fermions 4x3 at k=(0,0);
+   ell_rows (csrc/ell_build.cu) on chain-24 and kagome-24 Sz=0 (dim
+   2,704,156), chain-26 Sz=0 (10,400,600) and t-J-12 N=8 Sz=0. Each
+   build's seconds (plain, kernel, kernel, plain), peak bytes (the
+   kernel's asserted no higher than the plain build's), launches (two a
+   build), CUDA-event and device ms, and bound (each row's label and the
+   tables read once, the 32-byte sectors of the position table and of the
+   destination records at the entries' columns, the ELL written once; over
+   3.35 TB/s). Phase 5 counts ell_rows' launches on its main path (the
+   full sectors' ELL builds) and asserts it launched; phases 8 and 13
+   print the momentum ELL builds' seconds beside their solves.
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -341,7 +360,7 @@ driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 sector resumed from its completion record with no apply and the same gaps;
 ``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17;
 ``--apply-rows`` phase 18; ``--krylov`` phase 19; ``--apply-repr`` phase
-20; ``--ranks N``
+20; ``--ell-build`` phase 21; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -1249,6 +1268,9 @@ def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
     finally:
         del model._fullspace_repr_op
     rec["E0"] = model.sec_repr[1].evals[0]
+    # the build's share of the momentum solve (the build, then the solve)
+    rec["ell_build_share"] = rec["ell_build_s"] / (rec["ell_build_s"]
+                                                   + rec["solve_s"])
     rec["matvecs_ell"] = ell.n_applies - n0
     rec["bsr32_routed"] = s.bsr32 is not None
     rec["bsr_blocks"] = s.bsr32.nb if s.bsr32 is not None else None
@@ -2584,6 +2606,43 @@ def _label_buffer_bytes() -> int:
     return LabelBuffer.held_bytes()
 
 
+class _BuildClock:
+    """While entered, times every momentum ELL build that a Model makes
+    (``build_sparse_repr`` as models/model.py calls it) by CUDA events on
+    the current stream, so that the clock adds no drain of the device to
+    the run it sits in: ``n`` builds, ``s`` their seconds (read once the
+    run has drained the device)."""
+
+    def __enter__(self):
+        from quantum_basis_tpu_torch.models import model as mm
+
+        self.mm, self.real, self.marks = mm, mm.build_sparse_repr, []
+
+        def timed(mv):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ell = self.real(mv)
+            stop.record()
+            self.marks.append((start, stop))
+            return ell
+        mm.build_sparse_repr = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mm.build_sparse_repr = self.real
+
+    @property
+    def n(self):
+        return len(self.marks)
+
+    @property
+    def s(self):
+        for _, stop in self.marks:
+            stop.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.marks) / 1e3
+
+
 def drivers_run(bsr_mod, dev, art):
     """Phase 13: the drivers of quantum_basis_tpu_torch.examples and
     .benchmarks on the card's own routing bounds. Returns the kernel's
@@ -2601,10 +2660,12 @@ def drivers_run(bsr_mod, dev, art):
         kw = ({"out": out_path("sqw_chain")}
               if name == "chain_dynamics_sqw" else {})
         torch.cuda.reset_peak_memory_stats()
-        out, dt = _timed(lambda: mod.main(device=dev, **kw))
+        with _BuildClock() as bc:
+            out, dt = _timed(lambda: mod.main(device=dev, **kw))
         rows, extra = (out if isinstance(out, tuple) else (out, None))
         print("driver", json.dumps({
-            "example": name, "s": dt, "sectors": rows,
+            "example": name, "s": dt, "ell_builds": bc.n,
+            "ell_build_s": bc.s, "sectors": rows,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "label_buffer_bytes": _label_buffer_bytes()}), flush=True)
         if name == "chain_dynamics_sqw":
@@ -2618,9 +2679,11 @@ def drivers_run(bsr_mod, dev, art):
           flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    rec, dt = _timed(lambda: flagship_kagome24.main(
-        device=dev, out=out_path("FLAGSHIP_kagome24_torch.json")))
+    with _BuildClock() as bc:
+        rec, dt = _timed(lambda: flagship_kagome24.main(
+            device=dev, out=out_path("FLAGSHIP_kagome24_torch.json")))
     print("driver", json.dumps({"benchmark": "flagship_kagome24", "s": dt,
+                                "ell_builds": bc.n, "ell_build_s": bc.s,
                                 **{k: rec[k] for k in (
                                     "dim_full", "E0_full", "full_engine",
                                     "sectors", "checks", "timings_s")},
@@ -2636,11 +2699,13 @@ def drivers_run(bsr_mod, dev, art):
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    sqw, dt = _timed(lambda: flagship_kagome24_sqw.main(
-        device=dev, reference=art,
-        out=out_path("SQW_kagome24_torch.json")))
+    with _BuildClock() as bc:
+        sqw, dt = _timed(lambda: flagship_kagome24_sqw.main(
+            device=dev, reference=art,
+            out=out_path("SQW_kagome24_torch.json")))
     print("driver", json.dumps({
-        "benchmark": "flagship_kagome24_sqw", "s": dt,
+        "benchmark": "flagship_kagome24_sqw", "s": dt, "ell_builds": bc.n,
+        "ell_build_s": bc.s,
         "gs_engine": sqw["gs_engine"], "gs_s": sqw["gs_s"],
         "sum_rule": sqw["sum_rule"],
         "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -2939,11 +3004,12 @@ def wide_rows_case(dev, dt, nr=5, nb=30_000, W=6, seed=3):
             1.1, t(rng.standard_normal((nr, nb))))
 
 
-def kernel_device_ms(fn, tags, reps=5, windows=3):
+def kernel_device_ms(fn, tags, reps=5, windows=3, per_call=False):
     """Device ms a call of fn of the kernels whose names hold each of
-    ``tags`` (summed over the kernels a tag names, each per launch) in a
-    torch.profiler window of ``reps`` calls of fn (the launches alone,
-    without the host work of their wrapper). The profiler's trace of the
+    ``tags`` (summed over the kernels a tag names, each per launch; with
+    ``per_call`` every launch of a call summed) in a torch.profiler window
+    of ``reps`` calls of fn (the launches alone, without the host work of
+    their wrapper). The profiler's trace of the
     card sometimes comes back without the launches' kernels; a tag that no
     window of ``windows`` saw maps to None ("not measured"): the CUDA-event
     times beside it stand."""
@@ -2965,7 +3031,8 @@ def kernel_device_ms(fn, tags, reps=5, windows=3):
             for tag in tags:
                 if tag in e.key:
                     out[tag] = (out[tag] or 0.0) \
-                        + e.self_device_time_total / 1e3 / e.count
+                        + e.self_device_time_total / 1e3 / (
+                            reps if per_call else e.count)
         if all(v is not None for v in out.values()):
             return out
     print(f"torch.profiler saw no device time of {sorted(tags)} in "
@@ -4023,12 +4090,11 @@ def k9_coo(args, n_src, scatter, block=1 << 15):
     return torch.cat(R), torch.cat(C), torch.cat(V), torch.cat(L)
 
 
-def k9_bound(args, n_src, n_dst, kind, E=0):
-    """Least time of one repr kernel call on this card in ms, and which
-    bound it is. Bytes: each source row's label, 1/sqrt(nu), Fodd (where
-    fermionic), diagonal (where there is one) and x (gather and scatter)
-    read once; y written once (16 bytes a destination row), or the images'
-    (column, value) pairs (24 bytes an image column a row); the tables;
+def k9_bound(args, n_src, n_dst, kind):
+    """Least time of one repr_rows or repr_scatter call on this card in ms,
+    and which bound it is. Bytes: each source row's label, 1/sqrt(nu), Fodd
+    (where fermionic), diagonal (where there is one) and x read once; y
+    written once (16 bytes a destination row); the tables;
     and the 32-byte sectors that this run's looked-up images touch in the
     destination's direct position table, its labels (the check) and
     sqrt(nu); over the memory rate. Operations: 8 a kept image (the
@@ -4046,13 +4112,10 @@ def k9_bound(args, n_src, n_dst, kind, E=0):
     tgt = (rows if kind == "repr_scatter" else cols)[looked]
     pos[ix.labels[tgt] // per] = True
     lab[tgt // 4] = True
-    images = kind == "repr_images"
-    per_row = 16 + (8 if fodd is not None else 0) \
-        + (8 if diag is not None and not images else 0) \
-        + (0 if images else 16)
-    nbytes = (per_row * n_src + (24 * E * n_src if images else 16 * n_dst)
-              + tabs.nbytes + rt.nbytes + 32 * int(pos.sum())
-              + 2 * 32 * int(lab.sum()))
+    per_row = 32 + (8 if fodd is not None else 0) \
+        + (8 if diag is not None else 0)
+    nbytes = (per_row * n_src + 16 * n_dst + tabs.nbytes + rt.nbytes
+              + 32 * int(pos.sum()) + 2 * 32 * int(lab.sum()))
     flops = 8 * tgt.numel() + 8 * n_src
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
@@ -4119,7 +4182,7 @@ def k9_sector(tag, m, sec, out, time_it, dev):
     ``time_it`` the record's times, bounds and library calls."""
     from quantum_basis_tpu_torch.ops import apply_repr as ar
     from quantum_basis_tpu_torch.ops.apply_repr import (
-        ReprLaunch, _repr_images_plain, _repr_rows_plain, _repr_scatter_plain,
+        ReprLaunch, _repr_ell_plain, _repr_rows_plain, _repr_scatter_plain,
         phase_table)
     from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
 
@@ -4153,18 +4216,10 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         raise AssertionError(f"20 {tag}: the general path was not taken")
     k9_check(f"{tag} repr_rows (general path)", gen(x), yp, out,
              "repr_rows")
-    # the ELL build's calls: one a basis block
-    B = rb.block_rows
-    imgs = mv.record("repr_images")
-    for b in range(rb.n_blocks):
-        r = min(B, n - b * B)
-        c, v = imgs.images(b * B, r)
-        c2, v2 = _repr_images_plain(*args[:7], phase, b * B, r)
-        torch.cuda.synchronize()
-        if not torch.equal(c, c2):
-            raise AssertionError(f"20 {tag} repr_images: columns differ")
-        k9_check(f"{tag} repr_images block {b}", v, v2, out, "repr_images")
-        del c, v, c2, v2
+    # the ELL build's finished rows, against the plain build
+    ell_check(f"20 {tag} repr_images", mv.record("repr_images").images(0, n),
+              _repr_ell_plain(*args[:7], phase, 0, n, rb.block_rows), out,
+              "repr_images")
     # H scattered from the sector into itself: the atomics' path
     ph = phase_table(rb.tset, rb.momentum, +1)
     sargs = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, ph)
@@ -4203,22 +4258,6 @@ def k9_sector(tag, m, sec, out, time_it, dev):
         rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=9, per_sample=3)
         rec["ell_width"] = ell.width
         del ell
-        r = min(B, n)
-        img = {"rows": r}
-        img["ms"] = cuda_ms(lambda: imgs.images(0, r), samples=9,
-                            per_sample=3)
-        img["device_ms"] = kernel_device_ms(
-            lambda: imgs.images(0, r),
-            ("repr_images_kernel",))["repr_images_kernel"]
-        img["plain_ms"] = cuda_ms(
-            lambda: _repr_images_plain(*args[:7], phase, 0, r), samples=3,
-            per_sample=1)
-        part = (rt, tabs, ix, labels, fodd, isn, sqrt_nu, None, phase)
-        img["bound_ms"], img["bound_by"] = k9_bound(part, r, r,
-                                                    "repr_images",
-                                                    tabs.n_cols)
-        img["library_ms"] = None
-        rec["images"] = img
         sc = {"operator": "H, k -> k (atomics)"}
         sc["ms"] = cuda_ms(lambda: srec(x), samples=9, per_sample=3)
         sc["device_ms"] = kernel_device_ms(
@@ -4319,6 +4358,200 @@ def apply_repr_run(dev):
         del m
         torch.cuda.empty_cache()
     print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 21: the explicit ELL builds (repr_images, ell_rows)
+# --------------------------------------------------------------------------
+
+# (tag, model, the value of its conserved quantity, momentum): the momentum
+# sectors of phase 21 (K9's models), then its full sectors
+ELL_REPR = (("kagome24_k02", "kagome", 0.0, (0, 2)),
+            ("chain24_k0", "chain", 0.0, (0,)),
+            ("honeycomb4x3_k00", "honeycomb", 12.0, (0, 0)))
+ELL_FULL = ("chain24_Sz0", "kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")
+
+
+def ell_check(tag, got, want, out, name):
+    """A kernel build's (cols, vals) against its plain version's: columns
+    and W exactly, values to 1e-14 of max|v|; the worst absolute error kept
+    in out["max_abs_err"][name]."""
+    (c, v), (c2, v2) = got, want
+    torch.cuda.synchronize()
+    if c.shape != c2.shape or not torch.equal(c, c2):
+        raise AssertionError(f"{tag}: columns differ (W {c.shape[1]} vs "
+                             f"{c2.shape[1]})")
+    err = float((v - v2).abs().max()) if v.numel() else 0.0
+    scale = float(v2.abs().max()) if v.numel() else 0.0
+    out["max_abs_err"][name] = max(out["max_abs_err"][name], err)
+    print(f"check {tag}: W {c.shape[1]}, columns equal, values {err:.3e} "
+          f"(max|v| {scale:.3e}, tol 1e-14 max|v|)", flush=True)
+    if not err <= 1e-14 * scale:
+        raise AssertionError(f"{tag}: values differ by {err:.3e}")
+
+
+def ell_bound(ell, ix, per_row, tables, records):
+    """Least time of one ELL build on this card in ms, and which bound it
+    is. Bytes: each row's label (and Fodd, 1/sqrt(nu) where the kernel
+    reads them: ``per_row`` bytes a row) and the tables read once; the
+    32-byte sectors of the direct position table at the labels of the
+    finished entries' columns (the lookups that this run's data needs,
+    merged ones once); with ``records`` (the momentum build) the sectors
+    of the destination's 16-byte (label, sqrt(nu)) records there; the
+    finished (n, W) columns and values written once; over 3.35 TB/s.
+    Operations: one add an entry, over the float64 peak."""
+    if ix.mode != "direct":
+        raise ValueError("the bound counts the direct index's sectors")
+    j = ell.cols[ell.vals != 0]
+    per = 32 // ix.t0.element_size()
+    pos = torch.zeros(-(-ix.label_space // per), dtype=torch.bool,
+                      device=j.device)
+    pos[ix.labels[j] // per] = True
+    nbytes = (per_row * ell.n + tables + 32 * int(pos.sum())
+              + ell.cols.numel() * 8
+              + ell.vals.numel() * ell.vals.element_size())
+    if records:
+        rec = torch.zeros(-(-ix.n // 2), dtype=torch.bool, device=j.device)
+        rec[j // 2] = True
+        nbytes += 32 * int(rec.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = j.numel() / PEAK_FLOPS[torch.float64] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _peak_timed(fn):
+    """(result, seconds, peak bytes above what was held before) of fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, t = _timed(fn)
+    return out, t, torch.cuda.max_memory_allocated() - base
+
+
+def ell_case(tag, kind, n, E, kernel, plain, mv, x, counter, tag_kernel,
+             bound, out, name):
+    """One sector's two builds, in turns plain, kernel, kernel, plain: the
+    whole build's seconds and peak bytes each, the kernel's against the
+    plain version's (ell_check), the ELL's H x against the matrix-free
+    engine's (1e-12 of max|y|), the kernel's launches a build, its CUDA
+    events ms and device ms a build (both passes), its bound."""
+    from quantum_basis_tpu_torch.ops.sparse import EllMatrix
+
+    rec = {"case": tag, "kind": kind, "dim": n, "image_columns": E,
+           "card": card_line()}
+    (pc, pv), t_p1, rec["plain_peak_bytes"] = _peak_timed(plain)
+    before = counter()
+    ell, t_k1, rec["kernel_peak_bytes"] = _peak_timed(kernel)
+    rec["launches_per_build"] = counter() - before
+    if rec["launches_per_build"] != (2 if ell.width else 1):
+        raise AssertionError(f"21 {tag}: {rec['launches_per_build']} "
+                             f"launches for one build")
+    ell_check(f"21 {tag}", (ell.cols, ell.vals), (pc, pv), out, name)
+    rec["W"] = ell.width
+    del pc, pv
+    y = mv(x)
+    _hx_check(f"21 {tag}: the built ELL vs the matrix-free engine", ell(x),
+              y, 1e-12)
+    rec["ell_bytes"] = (ell.cols.numel() * ell.cols.element_size()
+                        + ell.vals.numel() * ell.vals.element_size())
+    rec["bound_ms"], rec["bound_by"] = bound(ell)
+    del ell
+    _, t_k2 = _timed(kernel)
+    res, t_p2 = _timed(plain)
+    del res
+    rec["plain_s"], rec["kernel_s"] = [t_p1, t_p2], [t_k1, t_k2]
+    rec["ms"] = cuda_ms(kernel, samples=5, per_sample=1)
+    rec["device_ms"] = kernel_device_ms(kernel, (tag_kernel,),
+                                        per_call=True)[tag_kernel]
+    rec["plain_ms"] = 1e3 * min(t_p1, t_p2)
+    rec["library_ms"] = None
+    print("ell_build", json.dumps(rec), flush=True)
+    if rec["kernel_peak_bytes"] > rec["plain_peak_bytes"]:
+        raise AssertionError(f"21 {tag}: the kernel build's peak "
+                             f"{rec['kernel_peak_bytes']} B over the plain "
+                             f"build's {rec['plain_peak_bytes']}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ell_repr_case(tag, kind, val, k, out, dev):
+    """Phase 21, a momentum sector: build_sparse_repr (repr_images) against
+    the plain build (_repr_images_plain and compact_rows a block)."""
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+    from quantum_basis_tpu_torch.ops.apply_repr import _repr_ell_plain
+    from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
+
+    m, op = _k9_model(kind, dev)
+    m.enumerate_basis_repr(list(k), [op], [val])
+    mv = m.sec_repr[0].matvec
+    rb = mv.basis
+    args = mv.args()
+    rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = args
+    x = torch.randn(mv.n, dtype=torch.complex128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(21))
+    per_row = 16 + (8 if fodd is not None else 0)
+    return ell_case(
+        tag, "momentum", mv.n, tabs.n_cols, lambda: build_sparse_repr(mv),
+        lambda: _repr_ell_plain(*args[:7], phase, 0, mv.n, rb.block_rows),
+        mv, x, lambda: ar.launches["repr_images"], "repr_images_kernel",
+        lambda ell: ell_bound(ell, ix, per_row, tabs.nbytes + rt.nbytes,
+                              True), out, "repr_images")
+
+
+def ell_full_case(tag, out, dev):
+    """Phase 21, a full sector: build_sparse_full (ell_rows) against the
+    plain build (_row_images, the lookup and compact_rows a block)."""
+    from quantum_basis_tpu_torch.ops import ell_build
+    from quantum_basis_tpu_torch.ops.apply import MatvecFull
+    from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
+    from torch_zoo import heisenberg_chain, kagome_heisenberg, tj_chain
+
+    if tag == "kagome24_Sz0":
+        m, ops = kagome_heisenberg(2, 4, device=dev)
+    elif tag == "tJ12_N8_Sz0":
+        m, ops = tj_chain(12, device=dev)
+    else:
+        m, ops = heisenberg_chain(26 if tag == "chain26_Sz0" else 24,
+                                  device=dev)
+    if tag == "tJ12_N8_Sz0":
+        m.enumerate_basis_full([ops["Sz"], ops["N"]], [0.0, 8.0])
+    else:
+        m.enumerate_basis_full([ops["Sz"]], [0.0])
+    sec = m.sec_full[0]
+    mv = sec.matvec if isinstance(sec.matvec, MatvecFull) else MatvecFull(
+        m.compiled_Ham, sec.dbasis)
+    db, tabs = mv.basis, mv.tables
+    args = (tabs, db.index.tables, db.labels_b.view(-1),
+            db.V_b.view(-1, db.space.n_slots), db.fodd, db.n)
+    x = torch.as_tensor(np.random.default_rng(21).standard_normal(db.n),
+                        device=dev)
+    per_row = 8 + (8 if db.fodd is not None else 0)
+    return ell_case(
+        tag, "full", db.n, tabs.n_cols, lambda: build_sparse_full(mv),
+        lambda: ell_build._ell_rows_plain(*args, db.block_rows), mv, x,
+        lambda: ell_build.launch_count, "ell_rows_kernel",
+        lambda ell: ell_bound(ell, db.index.tables, per_row, tabs.nbytes,
+                              False), out, "ell_rows")
+
+
+def ell_build_run(dev):
+    """Phase 21: the ELL builds through both kernels at full width, each
+    against its plain version on the card (columns and W exactly, values
+    to 1e-14 of max|v|, the ELL's H x against MatvecRepr's / MatvecFull's
+    to 1e-12 of max|y|) and timed beside it: the momentum sectors
+    kagome-24 Sz=0 k=(0,2), chain-24 Sz=0 k=0 and the honeycomb spinless
+    fermions 4x3 at k=(0,0) (repr_images), the full sectors chain-24 and
+    kagome-24 Sz=0 (dim 2,704,156), chain-26 Sz=0 (10,400,600) and t-J-12
+    N=8 Sz=0 (fermions; ell_rows). Returns the records by tag and the worst
+    errors."""
+    t21 = time.perf_counter()
+    out = {"max_abs_err": {"repr_images": 0.0, "ell_rows": 0.0}}
+    for tag, kind, val, k in ELL_REPR:
+        out[tag] = ell_repr_case(tag, kind, val, k, out, dev)
+    for tag in ELL_FULL:
+        out[tag] = ell_full_case(tag, out, dev)
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
     return out
 
 
@@ -4666,9 +4899,10 @@ def profile_windows(dev):
 
 
 def main() -> int:
-    """Phases 1-13, 16-19 and 15 on one card; or one mode: ``--profile``,
+    """Phases 1-13, 16-21 and 15 on one card; or one mode: ``--profile``,
     ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--apply-rows``
-    (phase 18), ``--krylov`` (phase 19), ``--gaps``,
+    (phase 18), ``--krylov`` (phase 19), ``--apply-repr`` (phase 20),
+    ``--ell-build`` (phase 21), ``--gaps``,
     ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
@@ -4729,6 +4963,14 @@ def main() -> int:
         apply_repr.build_library(verbose=True)
         apply_repr_run("cuda")
         return 0
+    if "--ell-build" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import (apply, apply_repr,
+                                                 cuda_build, ell_build)
+
+        cuda_build.build([apply._SRC, apply_repr._SRC, ell_build._SRC],
+                         verbose=True)
+        ell_build_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -4749,18 +4991,20 @@ def main() -> int:
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
     from quantum_basis_tpu_torch.ops import (apply, apply_kron, apply_repr,
-                                             cuda_build, krylov)
+                                             cuda_build, ell_build, krylov)
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
     cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC,
-                      krylov._SRC, apply_repr._SRC], verbose=True)
+                      krylov._SRC, apply_repr._SRC, ell_build._SRC],
+                     verbose=True)
     bsr_mod.build_library()
     apply_kron.build_library()
     apply.build_library()
     krylov.build_library()
     apply_repr.build_library()
+    ell_build.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     # K9's main path: phases 4, 8 and 10, each with the counts set to 0
@@ -4780,8 +5024,14 @@ def main() -> int:
                     "bsr_stored_max_bytes"):
         launches, e0_chain20, tilted = k9_window(
             lambda: slice_run(bsr_mod, dev))
+    # ell_rows' main path: phase 5's full-sector ELL builds
+    ell_build.launch_count = 0
     launches5, wide, launches_k2, launches_k6 = full_sector_run(
         bsr_mod, dev, e0_chain20)
+    launches_ell = ell_build.launch_count
+    print(f"ell_rows launches in phase 5: {launches_ell}", flush=True)
+    if not launches_ell:
+        raise AssertionError("ell_rows was not launched on its main path")
     launches += launches5
     with jax_bounds("fullspace_max_blowup", "fullspace_mixed_max_blowup"):
         engines_run(dev, wide)
@@ -4849,6 +5099,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k9 = apply_repr_run(dev)
     print(f"phases 1-13, 16-20: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    ell21 = ell_build_run(dev)
+    print(f"phases 1-13, 16-21: {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
@@ -4932,12 +5186,16 @@ def main() -> int:
         k6["chain24"]["compact_wide"]
     # K9: launches in phases 4, 8 and 10; times at kagome-24 k=(0,2) (the
     # explicit route's sector of phase 8), the scatter's at the diagonal
-    # wave from k=(0,0) into (0,2) (the S(q, w) injection's path)
+    # wave from k=(0,0) into (0,2) (the S(q, w) injection's path), the
+    # images' (a whole build: both passes) in phase 21
+    k9["max_abs_err"]["repr_images"] = max(
+        k9["max_abs_err"]["repr_images"], ell21["max_abs_err"]["repr_images"])
     k9_main = {"repr_rows": k9["kagome24_k02"],
-               "repr_images": k9["kagome24_k02"]["images"],
+               "repr_images": ell21["kagome24_k02"],
                "repr_scatter": k9["kagome24_wave"]}
     k9_other = {"repr_rows": {"chain24_k0": k9["chain24_k0"]},
-                "repr_images": {"chain24_k0": k9["chain24_k0"]["images"]},
+                "repr_images": {t: ell21[t] for t in ("chain24_k0",
+                                                      "honeycomb4x3_k00")},
                 "repr_scatter": {
                     "kagome24_k02 H (atomics)": k9["kagome24_k02"]["scatter_h"],
                     "chain24_k0 H (atomics)": k9["chain24_k0"]["scatter_h"]}}
@@ -4973,6 +5231,24 @@ def main() -> int:
         "and repr_rows_kernel")
     record["kernels"][-3]["passes_device_ms"] = \
         k9["kagome24_k02"].get("passes_device_ms")
+    record["kernels"][-1]["launches_count"] = (
+        "launches: a build is two, the count pass and the rows")
+    # the full-sector ELL build: launches in phase 5, times in phase 21
+    record["kernels"].append({
+        "name": "ell_rows",
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/ell_build.cu",
+        "replaces": "quantum_basis_tpu/ops/sparse.py:156",
+        "launches": launches_ell,
+        "max_abs_err": ell21["max_abs_err"]["ell_rows"],
+        **{f: ell21["chain24_Sz0"][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")},
+        "launches_count": "launches: a build is two, the count pass and "
+                          "the rows",
+        "shapes": {t: {f: ell21[t][f] for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            for t in ("kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

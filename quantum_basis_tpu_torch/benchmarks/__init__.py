@@ -7,8 +7,8 @@ S(q, w)), ``memory`` (whole solves at each setting of the memory sizes),
 ``hubbard4x4_gaps`` (its spin and charge gaps), ``scaling`` (the sharded
 engines on 1, 2, 4, ... ranks), ``comm_roofline`` (their communication
 against their compute), ``krylov_trace`` (a restart cycle's split) and
-``repr_turns`` (the momentum-sector kernels at two sectors, for turns with
-another tree). Each runs as
+``turns`` (the momentum-sector kernels or the ELL builds at full width, for
+turns with another tree). Each runs as
 
     python -m quantum_basis_tpu_torch.benchmarks.<name> [--device cpu]
 

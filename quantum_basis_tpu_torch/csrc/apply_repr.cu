@@ -40,8 +40,9 @@
 //                 e^{+i k'.R_g*}   (f64 atomics on the (re, im) halves, so
 //                 the order of summation changes from run to run, as
 //                 index_add_'s does on the card; the launch zeroes y first)
-//   repr_images:  row i's column e: (j, its coefficient in repr_rows), or
-//                 (-1, 0) where the image is padding or dropped.
+//   repr_images:  row i of the explicit (ELL) matrix: each image's (j, its
+//                 coefficient in repr_rows), merged and compacted by the
+//                 row stage of csrc/ell_rows.cuh (a warp a row, below).
 // A diagonal column (every displacement 0, flagged by the packing) maps r
 // to itself: the first g with T_g(r) = r is in r's stabilizer, where
 // sigma_g e^{i k.R_g} = 1 for any sector in which r has a nonzero norm,
@@ -105,13 +106,33 @@
 // read through the cache. One instance a kernel; the index mode and the
 // tables' placement are uniform branches.
 //
-// One thread a row, 128 rows a block, a grid of as many blocks as are
-// resident, each block walking row tiles.
+// repr_rows and repr_scatter: one thread a row, 128 rows a block, a grid of
+// as many blocks as are resident, each block walking row tiles.
+//
+// repr_images (redesigned for the ELL build: the rows come out finished):
+// one warp a row, a lane an image column (e = lane, lane + 32, ...). On the
+// entry path the warp's lanes compute the row's G keys first (lane g, over
+// the nonzero slots) into the warp's shared memory, and an image reads them
+// back as broadcasts; on the general path they compute T_g(r) so. Each
+// image (steps 1-5, its lookup and destination record a lane) goes into the
+// warp's scratch, and ell_rows::finish sorts, merges and stores the row
+// (coalesced: a row's entries are two contiguous segments; no (rows, E)
+// block reaches device memory). A block has 4 warps, fewer where a warp's
+// keys and scratch (about 24 bytes an image column) are too wide for 4 to
+// fit beside the staged tables, and where not one fits (the general path
+// only: the entry tables never hold that many columns) the warps' regions
+// live in a device buffer the wrapper allocates (ell_rows::plan,
+// qbt_repr_images_scratch): a row of any E builds. A build is two launches:
+// a count pass that stores only each warp's widest row (one atomicMax a
+// warp), from which the wrapper takes the sector's width W (its one host
+// sync), and the pass that writes the (rows, W) rows.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+
+#include "ell_rows.cuh"
 
 namespace {
 
@@ -161,8 +182,8 @@ struct Params {
     // vectors and outputs (complex128 as (re, im) pairs)
     const double* x;
     double* y;
-    long long* cols;                // (rows, E) repr_images
-    double* vals;                   // (rows, E, 2) repr_images
+    long long* cols;                // (rows, W) repr_images
+    double* vals;                   // (rows, W, 2) repr_images
     long long* tr_scratch;          // null: T_g(r) in shared memory
     // the entry path
     const int4* blob;               // its staged tables, blob_bytes
@@ -172,13 +193,22 @@ struct Params {
                                     // the scatter and the images
     double* xlab;                   // (>= label_space, 2): repr_rows'
                                     // sqrt(nu_j) x_j at label j, else 0
+    int* width;                     // repr_images' count pass: its widest
+                                    // row (atomicMax)
+    unsigned char* row_scratch;     // repr_images: the warps' regions where
+                                    // not in shared memory, or null
     long long M, row0, rows, sa, sb, label_space, n, scratch_blocks,
         blob_bytes;
+    long long row_blocks;           // the blocks row_scratch holds
+    long long row_shared;           // repr_images: a block's shared memory
+                                    // it takes
     int E, A, amp_c, S, G, bits, diag_only, mode, sa_shift, tabs_shared,
         threads, gb;
     int absent;                     // a direct table holds n where absent
     // byte offsets in the blob (-1: absent)
     int o_erow, o_fx, o_sp, o_slot, o_phase, o_q;
+    int W, write;                   // repr_images: the rows' width; 0: the
+                                    // count pass
 };
 
 __host__ __device__ inline long long align16(long long b) {
@@ -221,7 +251,7 @@ struct Staged {
 
 __device__ Staged stage_blob(const Params& p, unsigned char* raw) {
     int4* dst = reinterpret_cast<int4*>(raw);
-    for (long long k = threadIdx.x; k < p.blob_bytes / 16; k += kThreads)
+    for (long long k = threadIdx.x; k < p.blob_bytes / 16; k += blockDim.x)
         dst[k] = __ldg(p.blob + k);
     __syncthreads();
     Staged t;
@@ -363,12 +393,6 @@ __device__ __forceinline__ void entry_row(const Params& p, const Staged& t,
         wi = xv.y * isn;
         if (p.diag != nullptr) own_r = __ldg(p.diag + i);
     }
-    long long* cols = nullptr;
-    double2* vals = nullptr;
-    if constexpr (KIND == kImages) {
-        cols = p.cols + k * p.E;
-        vals = reinterpret_cast<double2*>(p.vals) + k * p.E;
-    }
     // the row's keys K_g = T_g(r) << SH | g, over its nonzero slots
     unsigned key[GB];
     if (!p.diag_only) {
@@ -413,13 +437,7 @@ __device__ __forceinline__ void entry_row(const Params& p, const Staged& t,
             const int4 a = *reinterpret_cast<const int4*>(er);
             double re = __hiloint2double(a.y, a.x);
             double im = __hiloint2double(a.w, a.z);
-            if (re == 0.0 && im == 0.0) {
-                if constexpr (KIND == kImages) {
-                    cols[e] = -1;
-                    vals[e] = make_double2(0.0, 0.0);
-                }
-                continue;
-            }
+            if (re == 0.0 && im == 0.0) continue;
             unsigned jw = 0u;
             if constexpr (FERM) {
                 const unsigned long long wm =
@@ -433,13 +451,8 @@ __device__ __forceinline__ void entry_row(const Params& p, const Staged& t,
                 }
             }
             if (w0 & kDiag) {
-                if constexpr (KIND == kImages) {
-                    cols[e] = i;
-                    vals[e] = make_double2(re, -im);
-                } else {
-                    own_r += re;
-                    own_i += im;
-                }
+                own_r += re;
+                own_i += im;
                 continue;
             }
             // the minimum of K_g + Delta_g over g: r_j and the first g*
@@ -516,41 +529,24 @@ __device__ __forceinline__ void entry_row(const Params& p, const Staged& t,
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 if (!(live >> u & 1)) continue;
-                const bool in = lab[u] == static_cast<long long>(rj[u]);
-                if constexpr (KIND == kImages) {
-                    if (!in) {
-                        cols[e0 + u] = -1;
-                        vals[e0 + u] = make_double2(0.0, 0.0);
-                        continue;
-                    }
-                } else if (!in) {
-                    continue;
-                }
+                if (lab[u] != static_cast<long long>(rj[u])) continue;
                 const double2 ph = t.phase[tk[u] & (GB - 1)];
                 const int4 a = *reinterpret_cast<const int4*>(t.erow + ex[u] * PITCH);
                 const double are = __hiloint2double(a.y, a.x);
                 const double aim = __hiloint2double(a.w, a.z);
                 const double sg = (neg >> u & 1) ? -1.0 : 1.0;
-                if constexpr (KIND == kScatter) {
-                    const double s = sg * snu[u];
-                    const double cr = s * (are * ph.x - aim * ph.y);
-                    const double ci = s * (are * ph.y + aim * ph.x);
-                    const double vr = cr * wr - ci * wi, vi = cr * wi + ci * wr;
-                    if (j[u] == pj) {
-                        pr += vr;
-                        pim += vi;
-                    } else {
-                        if (pj >= 0) add_to(p.y, pj, pr, pim);
-                        pj = j[u];
-                        pr = vr;
-                        pim = vi;
-                    }
+                const double s = sg * snu[u];
+                const double cr = s * (are * ph.x - aim * ph.y);
+                const double ci = s * (are * ph.y + aim * ph.x);
+                const double vr = cr * wr - ci * wi, vi = cr * wi + ci * wr;
+                if (j[u] == pj) {
+                    pr += vr;
+                    pim += vi;
                 } else {
-                    const double w = sg * snu[u] * isn;
-                    cols[e0 + u] = j[u];
-                    vals[e0 + u] = make_double2(
-                        w * (are * ph.x + aim * ph.y),
-                        w * (are * ph.y - aim * ph.x));
+                    if (pj >= 0) add_to(p.y, pj, pr, pim);
+                    pj = j[u];
+                    pr = vr;
+                    pim = vi;
                 }
             }
         }
@@ -694,7 +690,8 @@ __device__ const T* stage(const T* src, long long count, unsigned char* raw,
                           long long off, bool shared) {
     if (!shared || src == nullptr) return src;
     T* dst = reinterpret_cast<T*>(raw + off);
-    for (long long k = threadIdx.x; k < count; k += kThreads) dst[k] = src[k];
+    for (long long k = threadIdx.x; k < count; k += blockDim.x)
+        dst[k] = src[k];
     return dst;
 }
 
@@ -766,10 +763,124 @@ __device__ __forceinline__ long long find(const Params& p, long long u,
     return j;
 }
 
-// The walk of one row's image columns (steps 1-5 above). Calls, per
-// column, f.dead(e) (padding), f.own(e, re, im) (a diagonal column:
-// amplitude with its Jordan-Wigner sign) or f.image(e, in, j, sigma, re,
-// im, g*). ``tr`` points at the row's T_g(r), g at stride kThreads.
+// T_g(r) of a row with label r into tr[g * stride] for the G group
+// elements from g0 on at a step of gs (a thread alone: 0, 1; the lanes of a
+// warp: lane, 32).
+__device__ __forceinline__ void translate_row(const Params& p, const Tabs& t,
+                                              long long r, long long* tr,
+                                              int stride, int g0, int gs) {
+    for (int g = g0; g < p.G; g += gs) tr[static_cast<long long>(g) * stride] = 0;
+    for (int s = 0; s < p.S; ++s) {
+        const long long v = slot_value(p, t, r, s);
+        if (v == 0) continue;
+        const long long* row = t.sp + static_cast<long long>(s) * p.G;
+        for (int g = g0; g < p.G; g += gs)
+            tr[static_cast<long long>(g) * stride] += v * row[g];
+    }
+}
+
+// Image column e of a row with label r and odd-count slots fo (steps 1-5
+// above), given the row's T_g(r) at tr[g * stride]. Calls f.dead(e)
+// (padding), f.own(e, re, im) (a diagonal column: amplitude with its
+// Jordan-Wigner sign) or f.image(e, in, j, sigma, re, im, g*).
+template <class F>
+__device__ __forceinline__ void walk_column(const Params& p, const Tabs& t,
+                                            long long r,
+                                            unsigned long long fo,
+                                            const long long* tr, int stride,
+                                            int e, F& f) {
+    const int W = p.amp_c ? 4 : 2;
+    const int4 rc = t.rec[e];
+    const unsigned w0 = static_cast<unsigned>(rc.x);
+    const int* cs = t.cslot + static_cast<long long>(e) * p.A;
+    const int* cj = t.cstr + static_cast<long long>(e) * p.A;
+    long long c = 0;
+    int na = 0;
+    for (; na < p.A; ++na) {
+        const int s = cs[na];
+        if (s < 0) break;
+        c += slot_value(p, t, r, s) * cj[na];
+    }
+    const long long* q =
+        t.ad + static_cast<long long>(W) * ((w0 & kOffset) + c);
+    double re = __longlong_as_double(q[0]);
+    double im = p.amp_c ? __longlong_as_double(q[1]) : 0.0;
+    if (re == 0.0 && im == 0.0) {
+        f.dead(e);
+        return;
+    }
+    const unsigned long long wm =
+        static_cast<unsigned long long>(static_cast<unsigned>(rc.z))
+        | (static_cast<unsigned long long>(static_cast<unsigned>(rc.w))
+           << 32);
+    if (__popcll(fo & wm) & 1) {
+        re = -re;
+        im = -im;
+    }
+    if (w0 & kDiag) {
+        f.own(e, re, im);
+        return;
+    }
+    const long long m = r + q[p.amp_c ? 2 : 1];
+    // the minimum over g of T_g(m) and the first g that reaches it
+    long long best = LLONG_MAX;
+    int gs = 0;
+    if (na <= 2) {
+        int s0 = 0, s1 = 0;
+        long long d0 = 0, d1 = 0;
+        if (na > 0) {
+            s0 = cs[0];
+            d0 = slot_value(p, t, m, s0) - slot_value(p, t, r, s0);
+        }
+        if (na > 1) {
+            s1 = cs[1];
+            d1 = slot_value(p, t, m, s1) - slot_value(p, t, r, s1);
+        }
+        const long long* sp0 = t.sp + static_cast<long long>(s0) * p.G;
+        const long long* sp1 = t.sp + static_cast<long long>(s1) * p.G;
+        for (int g = 0; g < p.G; ++g) {
+            const long long v = tr[static_cast<long long>(g) * stride]
+                                + d0 * sp0[g] + d1 * sp1[g];
+            if (v < best) {
+                best = v;
+                gs = g;
+            }
+        }
+    } else {                            // arity > 2: the slots in a loop
+        for (int g = 0; g < p.G; ++g) {
+            long long v = tr[static_cast<long long>(g) * stride];
+            for (int a = 0; a < na; ++a) {
+                const int s = cs[a];
+                v += (slot_value(p, t, m, s) - slot_value(p, t, r, s))
+                     * t.sp[static_cast<long long>(s) * p.G + g];
+            }
+            if (v < best) {
+                best = v;
+                gs = g;
+            }
+        }
+    }
+    double sig = 1.0;
+    if (p.qmask != nullptr) {           // sigma of g* from Fodd_m
+        unsigned long long fm = fo;
+        for (int a = 0; a < na; ++a) {
+            const int s = cs[a];
+            const unsigned long long b =
+                (static_cast<unsigned long long>(t.oddmask[s])
+                 >> slot_value(p, t, m, s)) & 1ull;
+            fm = (fm & ~(1ull << s)) | (b << s);
+        }
+        if (parity(fm, reinterpret_cast<const unsigned long long*>(
+                           t.qmask + static_cast<long long>(gs) * p.S)))
+            sig = -1.0;
+    }
+    bool in;
+    const long long j = find(p, best, in);
+    f.image(e, in, j, sig, re, im, gs);
+}
+
+// The walk of one row's image columns, a thread alone; ``tr`` points at the
+// row's T_g(r), g at stride kThreads.
 template <class F>
 __device__ __forceinline__ void walk_row(const Params& p, const Tabs& t,
                                          long long i, long long* tr, F& f) {
@@ -777,106 +888,8 @@ __device__ __forceinline__ void walk_row(const Params& p, const Tabs& t,
     const unsigned long long fo =
         p.fodd != nullptr ? static_cast<unsigned long long>(__ldg(p.fodd + i))
                           : 0ull;
-    if (!p.diag_only) {                 // T_g(r), once a row
-        for (int g = 0; g < p.G; ++g) tr[static_cast<long long>(g) * kThreads] = 0;
-        for (int s = 0; s < p.S; ++s) {
-            const long long v = slot_value(p, t, r, s);
-            if (v == 0) continue;
-            const long long* row = t.sp + static_cast<long long>(s) * p.G;
-            for (int g = 0; g < p.G; ++g)
-                tr[static_cast<long long>(g) * kThreads] += v * row[g];
-        }
-    }
-    const int W = p.amp_c ? 4 : 2;
-    for (int e = 0; e < p.E; ++e) {
-        const int4 rc = t.rec[e];
-        const unsigned w0 = static_cast<unsigned>(rc.x);
-        const int* cs = t.cslot + static_cast<long long>(e) * p.A;
-        const int* cj = t.cstr + static_cast<long long>(e) * p.A;
-        long long c = 0;
-        int na = 0;
-        for (; na < p.A; ++na) {
-            const int s = cs[na];
-            if (s < 0) break;
-            c += slot_value(p, t, r, s) * cj[na];
-        }
-        const long long* q =
-            t.ad + static_cast<long long>(W) * ((w0 & kOffset) + c);
-        double re = __longlong_as_double(q[0]);
-        double im = p.amp_c ? __longlong_as_double(q[1]) : 0.0;
-        if (re == 0.0 && im == 0.0) {
-            f.dead(e);
-            continue;
-        }
-        const unsigned long long wm =
-            static_cast<unsigned long long>(static_cast<unsigned>(rc.z))
-            | (static_cast<unsigned long long>(static_cast<unsigned>(rc.w))
-               << 32);
-        if (__popcll(fo & wm) & 1) {
-            re = -re;
-            im = -im;
-        }
-        if (w0 & kDiag) {
-            f.own(e, re, im);
-            continue;
-        }
-        const long long m = r + q[p.amp_c ? 2 : 1];
-        // the minimum over g of T_g(m) and the first g that reaches it
-        long long best = LLONG_MAX;
-        int gs = 0;
-        if (na <= 2) {
-            int s0 = 0, s1 = 0;
-            long long d0 = 0, d1 = 0;
-            if (na > 0) {
-                s0 = cs[0];
-                d0 = slot_value(p, t, m, s0) - slot_value(p, t, r, s0);
-            }
-            if (na > 1) {
-                s1 = cs[1];
-                d1 = slot_value(p, t, m, s1) - slot_value(p, t, r, s1);
-            }
-            const long long* sp0 = t.sp + static_cast<long long>(s0) * p.G;
-            const long long* sp1 = t.sp + static_cast<long long>(s1) * p.G;
-            for (int g = 0; g < p.G; ++g) {
-                const long long v = tr[static_cast<long long>(g) * kThreads]
-                                    + d0 * sp0[g] + d1 * sp1[g];
-                if (v < best) {
-                    best = v;
-                    gs = g;
-                }
-            }
-        } else {                        // arity > 2: the slots in a loop
-            for (int g = 0; g < p.G; ++g) {
-                long long v = tr[static_cast<long long>(g) * kThreads];
-                for (int a = 0; a < na; ++a) {
-                    const int s = cs[a];
-                    v += (slot_value(p, t, m, s) - slot_value(p, t, r, s))
-                         * t.sp[static_cast<long long>(s) * p.G + g];
-                }
-                if (v < best) {
-                    best = v;
-                    gs = g;
-                }
-            }
-        }
-        double sig = 1.0;
-        if (p.qmask != nullptr) {       // sigma of g* from Fodd_m
-            unsigned long long fm = fo;
-            for (int a = 0; a < na; ++a) {
-                const int s = cs[a];
-                const unsigned long long b =
-                    (static_cast<unsigned long long>(t.oddmask[s])
-                     >> slot_value(p, t, m, s)) & 1ull;
-                fm = (fm & ~(1ull << s)) | (b << s);
-            }
-            if (parity(fm, reinterpret_cast<const unsigned long long*>(
-                               t.qmask + static_cast<long long>(gs) * p.S)))
-                sig = -1.0;
-        }
-        bool in;
-        const long long j = find(p, best, in);
-        f.image(e, in, j, sig, re, im, gs);
-    }
+    if (!p.diag_only) translate_row(p, t, r, tr, kThreads, 0, 1);
+    for (int e = 0; e < p.E; ++e) walk_column(p, t, r, fo, tr, kThreads, e, f);
 }
 
 // Row i of y = H x, gathering: sum sqrt(nu_j) / sqrt(nu_i) sigma conj(A)
@@ -925,33 +938,28 @@ struct ScatterVisit {
     }
 };
 
-// Row i's entries of H, one a column, at out (E of them).
+// One image column of row i of H: (j, H[i, j]); col stays -1 (a dropped
+// image) where the image is padding or outside the sector.
 struct ImagesVisit {
     const Params& p;
     const Tabs& t;
     double isn;
     long long i;
-    long long* cols;
-    double2* vals;
-    __device__ void dead(int e) {
-        cols[e] = -1;
-        vals[e] = make_double2(0.0, 0.0);
+    long long col;
+    double2 v;
+    __device__ void dead(int) {}
+    __device__ void own(int, double re, double im) {
+        col = i;
+        v = make_double2(re, -im);
     }
-    __device__ void own(int e, double re, double im) {
-        cols[e] = i;
-        vals[e] = make_double2(re, -im);
-    }
-    __device__ void image(int e, bool in, long long j, double sig, double re,
+    __device__ void image(int, bool in, long long j, double sig, double re,
                           double im, int gs) {
-        if (!in) {
-            dead(e);
-            return;
-        }
+        if (!in) return;
         const double w = __ldg(p.sqrt_nu + j) * isn * sig;
         const double2 ph = t.phase[gs];
-        cols[e] = j;
-        vals[e] = make_double2(w * (re * ph.x + im * ph.y),
-                               w * (re * ph.y - im * ph.x));
+        col = j;
+        v = make_double2(w * (re * ph.x + im * ph.y),
+                         w * (re * ph.y - im * ph.x));
     }
 };
 
@@ -979,7 +987,7 @@ __device__ __forceinline__ void general_kernel(const Params& p,
             const double yr = f.yr + f.own_r * xi.x + f.own_i * xi.y;
             const double yi = f.yi + f.own_r * xi.y - f.own_i * xi.x;
             reinterpret_cast<double2*>(p.y)[k] = make_double2(yr, yi);
-        } else if constexpr (KIND == kScatter) {
+        } else {
             const double2 xi = __ldg(reinterpret_cast<const double2*>(p.x) + i);
             if (xi.x == 0.0 && xi.y == 0.0) continue;      // adds nothing
             const double isn = __ldg(p.isn + i);
@@ -998,12 +1006,206 @@ __device__ __forceinline__ void general_kernel(const Params& p,
                 reinterpret_cast<double2*>(p.y)[j] = make_double2(cr, ci);
             else
                 add_to(p.y, j, cr, ci);
-        } else {
-            ImagesVisit f{p, t, __ldg(p.isn + i), i, p.cols + k * p.E,
-                          reinterpret_cast<double2*>(p.vals) + k * p.E};
-            walk_row(p, t, i, tr, f);
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// repr_images: a warp a row, a lane an image, rows finished by ell_rows
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+
+// Bytes of a warp's region of repr_images' shared memory: the row's keys
+// (entry path: GB of them, 32-bit) or T_g(r) (general path: G, 64-bit),
+// then the row stage's scratch (complex128 values).
+__host__ __device__ inline long long images_warp_bytes(const Params& p) {
+    return align16(p.gb != 0 ? 4ll * p.gb : 8ll * p.G)
+           + ell_rows::scratch_bytes(p.E, 16);
+}
+
+// Where the warps' regions start: after the staged blob or tables.
+__host__ __device__ inline long long images_base(const Params& p) {
+    return p.gb != 0 ? align16(p.blob_bytes) : layout(p).tr;
+}
+
+inline ell_rows::Plan images_plan(const Params& p) {
+    return ell_rows::plan(images_base(p), images_warp_bytes(p), kWarps,
+                          p.row_shared < kMaxShared ? p.row_shared
+                                                    : kMaxShared);
+}
+
+// The row's keys K_g = T_g(r) << SH | g (0xFFFFFFFF past G), lane g
+// computing key g over the row's nonzero slots.
+template <int GB>
+__device__ __forceinline__ void entry_keys(const Params& p, const Staged& t,
+                                           unsigned l, unsigned* keys) {
+    constexpr int SH = kShift<GB>, PITCH = GB + 4;
+    const int g = threadIdx.x & 31;
+    if (g >= GB) return;
+    unsigned key = 0u;
+    for (int s = 0; s < p.S; ++s) {
+        const unsigned v = vslot(p.bits != 0, t.slot[s], l);
+        if (v != 0) key += v * static_cast<unsigned>(t.sp[s * PITCH + g]);
+    }
+    keys[g] = g < p.G ? (key << SH) | static_cast<unsigned>(g) : 0xFFFFFFFFu;
+}
+
+// Image column e of row i (label l, odd-count slots fo, 1 / sqrt(nu_i)
+// isn) on the entry path, given the row's keys: (j, H[i, j]) in (col, v),
+// col left -1 where the image is padding or outside the sector.
+template <int MODE, int GB, bool FERM>
+__device__ __forceinline__ void entry_image(const Params& p, const Staged& t,
+                                            long long i, unsigned l,
+                                            unsigned long long fo, double isn,
+                                            const unsigned* keys, int e,
+                                            long long& col, double2& v) {
+    constexpr int SH = kShift<GB>, PITCH = GB + 4;
+    const int4 rc = t.rec[e];
+    const unsigned w0 = static_cast<unsigned>(rc.x);
+    const int idx = static_cast<int>(w0 & kOffset) + joint(p, t, e, rc, l);
+    const int* er = t.erow + idx * PITCH;
+    const int4 a = *reinterpret_cast<const int4*>(er);
+    double re = __hiloint2double(a.y, a.x);
+    double im = __hiloint2double(a.w, a.z);
+    if (re == 0.0 && im == 0.0) return;
+    if constexpr (FERM) {
+        const unsigned long long wm =
+            static_cast<unsigned long long>(static_cast<unsigned>(rc.z))
+            | (static_cast<unsigned long long>(static_cast<unsigned>(rc.w))
+               << 32);
+        if (__popcll(fo & wm) & 1) {
+            re = -re;
+            im = -im;
+        }
+    }
+    if (w0 & kDiag) {
+        col = i;
+        v = make_double2(re, -im);
+        return;
+    }
+    // the minimum of K_g + Delta_g over g: r_j and the first g*
+    const uint4* kq = reinterpret_cast<const uint4*>(keys);
+    const int4* dr = reinterpret_cast<const int4*>(er + 4);
+    unsigned m = 0xFFFFFFFFu;
+#pragma unroll
+    for (int q = 0; q < GB / 4; ++q) {
+        const uint4 k = kq[q];
+        const int4 d = dr[q];
+        m = min(m, k.x + static_cast<unsigned>(d.x));
+        m = min(m, k.y + static_cast<unsigned>(d.y));
+        m = min(m, k.z + static_cast<unsigned>(d.z));
+        m = min(m, k.w + static_cast<unsigned>(d.w));
+    }
+    double sg = 1.0;
+    if constexpr (FERM) {
+        if (t.q != nullptr
+            && parity(fo ^ t.fx[idx], t.q + (m & (GB - 1)) * p.S))
+            sg = -1.0;
+    }
+    const unsigned rj[1] = {m >> SH};
+    int j[1];
+    find_rows<1, MODE>(p, rj, 1u, j);
+    // a direct table marks an absent label with row n: no check there
+    if (MODE == kDirect && j[0] >= p.n) return;
+    const longlong2 r = __ldg(p.rrec + j[0]);
+    if (r.x != static_cast<long long>(rj[0])) return;
+    const double2 ph = t.phase[m & (GB - 1)];
+    const double w = sg * __longlong_as_double(r.y) * isn;
+    col = j[0];
+    v = make_double2(w * (re * ph.x + im * ph.y), w * (re * ph.y - im * ph.x));
+}
+
+// The row stage of a warp's row k: after its kept images are put, the
+// finished row (write) or its count; the warp's widest row so far in wmax.
+__device__ __forceinline__ void images_finish(
+        const Params& p, const ell_rows::Scratch<double2>& s, int kept,
+        long long k, int& wmax) {
+    __syncwarp();
+    const long long at = k * p.W;
+    const int cnt = ell_rows::finish(
+        s, kept, p.write ? p.cols + at : nullptr,
+        p.write ? reinterpret_cast<double2*>(p.vals) + at : nullptr, p.W,
+        p.write != 0);
+    wmax = max(wmax, cnt);
+    __syncwarp();                       // the scratch is free for the next row
+}
+
+// The count pass: the block's warps' widest rows into p.width.
+__device__ __forceinline__ void images_width(const Params& p, int wmax) {
+    if (!p.write && (threadIdx.x & 31) == 0) atomicMax(p.width, wmax);
+}
+
+template <int MODE, int GB, bool FERM>
+__device__ __forceinline__ void entry_images(const Params& p,
+                                             unsigned char* raw) {
+    const Staged t = stage_blob(p, raw);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    unsigned char* own = ell_rows::region<false>(
+        raw + images_base(p), p.row_scratch, images_warp_bytes(p));
+    unsigned* keys = reinterpret_cast<unsigned*>(own);
+    const ell_rows::Scratch<double2> s = ell_rows::scratch<double2>(
+        own + align16(4ll * GB), p.E);
+    const int E32 = (p.E + 31) & ~31;      // whole chunks of 32 images
+    int wmax = 0;
+    for (long long k = static_cast<long long>(blockIdx.x) * warps + warp;
+         k < p.rows; k += static_cast<long long>(gridDim.x) * warps) {
+        const long long i = p.row0 + k;
+        const unsigned l = static_cast<unsigned>(__ldg(p.labels + i));
+        const unsigned long long fo =
+            FERM ? static_cast<unsigned long long>(__ldg(p.fodd + i)) : 0ull;
+        const double isn = __ldg(p.isn + i);
+        if (!p.diag_only) entry_keys<GB>(p, t, l, keys);
+        __syncwarp();
+        int kept = 0;
+        for (int e = lane; e < E32; e += 32) {
+            long long col = -1;
+            double2 v = make_double2(0.0, 0.0);
+            if (e < p.E)
+                entry_image<MODE, GB, FERM>(p, t, i, l, fo, isn, keys, e, col,
+                                            v);
+            ell_rows::put(s, kept, col >= 0, col, v);
+        }
+        images_finish(p, s, kept, k, wmax);
+    }
+    images_width(p, wmax);
+}
+
+// The warps' regions in the device buffer (DEV) or in shared memory.
+template <bool DEV>
+__device__ __forceinline__ void general_images(const Params& p,
+                                               unsigned char* raw) {
+    const Tabs t = stage_tables(p, raw, layout(p));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    unsigned char* own = ell_rows::region<DEV>(
+        raw + images_base(p), p.row_scratch, images_warp_bytes(p));
+    long long* tr = reinterpret_cast<long long*>(own);
+    const ell_rows::Scratch<double2> s = ell_rows::scratch<double2>(
+        own + align16(8ll * p.G), p.E);
+    const int E32 = (p.E + 31) & ~31;      // whole chunks of 32 images
+    int wmax = 0;
+    for (long long k = static_cast<long long>(blockIdx.x) * warps + warp;
+         k < p.rows; k += static_cast<long long>(gridDim.x) * warps) {
+        const long long i = p.row0 + k;
+        const long long r = __ldg(p.labels + i);
+        const unsigned long long fo =
+            p.fodd != nullptr
+                ? static_cast<unsigned long long>(__ldg(p.fodd + i))
+                : 0ull;
+        if (!p.diag_only) translate_row(p, t, r, tr, 1, lane, 32);
+        __syncwarp();
+        int kept = 0;
+        for (int e = lane; e < E32; e += 32) {
+            ImagesVisit f{p, t, __ldg(p.isn + i), i, -1,
+                          make_double2(0.0, 0.0)};
+            if (e < p.E) walk_column(p, t, r, fo, tr, 1, e, f);
+            ell_rows::put(s, kept, f.col >= 0, f.col, f.v);
+        }
+        images_finish(p, s, kept, k, wmax);
+    }
+    images_width(p, wmax);
 }
 
 // ---------------------------------------------------------------------------
@@ -1014,8 +1216,18 @@ template <int KIND, int MODE, int GB, bool FERM>
 __device__ __forceinline__ void run(const Params& p) {
     extern __shared__ int4 smem[];
     unsigned char* raw = reinterpret_cast<unsigned char*>(smem);
-    if constexpr (GB == 0) general_kernel<KIND>(p, raw);
-    else entry_kernel<KIND, MODE, GB, FERM>(p, raw);
+    if constexpr (KIND == kImages) {
+        if constexpr (GB != 0)
+            entry_images<MODE, GB, FERM>(p, raw);
+        else if (p.row_scratch != nullptr)
+            general_images<true>(p, raw);
+        else
+            general_images<false>(p, raw);
+    } else if constexpr (GB == 0) {
+        general_kernel<KIND>(p, raw);
+    } else {
+        entry_kernel<KIND, MODE, GB, FERM>(p, raw);
+    }
 }
 
 template <int MODE, int GB, bool FERM>
@@ -1033,8 +1245,7 @@ repr_scatter_kernel(const Params p) {
 }
 
 template <int MODE, int GB, bool FERM>
-__global__ void __launch_bounds__(kThreads,
-                                  GB == 0 ? kMinBlocksGeneral : kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 repr_images_kernel(const Params p) {
     run<kImages, MODE, GB, FERM>(p);
 }
@@ -1044,16 +1255,29 @@ int launch(const Params& p, cudaStream_t stream) {
     auto kern = KIND == kRows      ? repr_rows_kernel<MODE, GB, FERM>
                 : KIND == kScatter ? repr_scatter_kernel<MODE, GB, FERM>
                                    : repr_images_kernel<MODE, GB, FERM>;
-    const long long smem = GB == 0 ? layout(p).total : p.blob_bytes;
-    if (smem > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
-    // the resident grid of this instance at this shared memory size,
-    // worked out at its first launch on a device and kept
-    thread_local int cached_dev = -1;
+    // repr_images: a warp a row, as many warps a block as images_plan fits
+    const ell_rows::Plan pl = KIND == kImages
+                                  ? images_plan(p)
+                                  : ell_rows::Plan{kWarps, 0, false};
+    const long long smem = KIND == kImages ? pl.smem
+                           : GB == 0       ? layout(p).total
+                                           : p.blob_bytes;
+    const int threads = KIND == kImages ? 32 * pl.warps : kThreads;
+    // the entry path's regions are always in shared memory: its tables
+    // (ENTRY_TABLES_MAX) hold a few hundred image columns at most
+    if (smem > kMaxShared
+        || (pl.device
+            && (GB != 0 || p.row_scratch == nullptr || p.row_blocks < 1)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    // the resident grid of this instance at this block size and shared
+    // memory size, worked out at its first launch on a device and kept
+    thread_local int cached_dev = -1, cached_threads = 0;
     thread_local long long cached_smem = -1, resident = 0;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev != cached_dev || smem != cached_smem) {
+    if (dev != cached_dev || smem != cached_smem
+        || threads != cached_threads) {
         if (smem > 48 * 1024) {
             err = cudaFuncSetAttribute(
                 kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
@@ -1063,18 +1287,24 @@ int launch(const Params& p, cudaStream_t stream) {
         if ((err = cudaDeviceGetAttribute(
                  &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess
             || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, kern, kThreads, static_cast<size_t>(smem)))
+                    &per_sm, kern, threads, static_cast<size_t>(smem)))
                    != cudaSuccess)
             return static_cast<int>(err);
         resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
         cached_dev = dev;
         cached_smem = smem;
+        cached_threads = threads;
     }
-    const long long tiles = (p.rows + kThreads - 1) / kThreads;
+    // a tile: kThreads rows (a thread a row), or a block's warps (a warp a
+    // row)
+    const long long per = KIND == kImages ? pl.warps : kThreads;
+    const long long tiles = (p.rows + per - 1) / per;
     long long grid = tiles < resident ? tiles : resident;
-    if (GB == 0 && p.tr_scratch != nullptr && grid > p.scratch_blocks)
+    if (KIND != kImages && GB == 0 && p.tr_scratch != nullptr
+        && grid > p.scratch_blocks)
         grid = p.scratch_blocks;
-    kern<<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem),
+    if (pl.device && grid > p.row_blocks) grid = p.row_blocks;
+    kern<<<static_cast<unsigned>(grid), threads, static_cast<size_t>(smem),
            stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1108,6 +1338,11 @@ int dispatch(Params p, cudaStream_t stream) {
         || (p.tr_scratch != nullptr && p.scratch_blocks < 1))
         return static_cast<int>(cudaErrorInvalidValue);
     if (p.gb == 0 && p.xlab != nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (KIND == kImages
+        && (p.n >= INT_MAX || p.W < 0
+            || (p.write ? p.cols == nullptr || p.vals == nullptr
+                        : p.width == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (p.gb != 0) {
         const int sh = p.gb == 8 ? 3 : p.gb == 16 ? 4 : p.gb == 32 ? 5 : -1;
@@ -1157,6 +1392,15 @@ int dispatch(Params p, cudaStream_t stream) {
 // returns a cudaError_t value, 0 on success. gb = 0 takes the general
 // path, 8, 16 or 32 the entry path at that G bucket.
 extern "C" long long qbt_repr_params_size() { return sizeof(Params); }
+
+// The bytes a block of repr_images' warp regions takes in device memory
+// (the wrapper allocates row_blocks of them), or 0 where they fit in
+// shared memory.
+extern "C" long long qbt_repr_images_scratch(const void* pp) {
+    const Params& p = *static_cast<const Params*>(pp);
+    const ell_rows::Plan pl = images_plan(p);
+    return pl.device ? pl.warps * images_warp_bytes(p) : 0;
+}
 
 extern "C" int qbt_repr_rows(const void* p, void* stream) {
     return dispatch<kRows>(*static_cast<const Params*>(p),

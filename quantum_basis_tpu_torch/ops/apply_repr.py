@@ -20,8 +20,9 @@ y = A x between two momentum sectors.
 Three kernels carry it, over the operator's packed columns
 (``ops/apply.py::pack_rows``) and the translations packed by
 :func:`translation_tables`: ``repr_rows`` (``MatvecRepr``), ``repr_scatter``
-(``mopr_x_vec_repr``) and ``repr_images`` (each row's columns and
-coefficients, for ``ops/sparse.py::build_sparse_repr``). A
+(``mopr_x_vec_repr``) and ``repr_images`` (the finished rows of the explicit
+ELL, for ``ops/sparse.py::build_sparse_repr``: a warp a row, merged and
+compacted in the kernel by the row stage of ``ops/ell_build.py``). A
 :class:`ReprLaunch` is one kernel's launch record, built once per engine
 (``MatvecRepr.record``, :func:`scatter_launch`): every argument check, the
 translation tables and the ctypes struct; a call then checks x, allocates
@@ -61,7 +62,7 @@ from quantum_basis_tpu_torch.basis.translation import (
     enumerate_reps,
     sector_norms,
 )
-from quantum_basis_tpu_torch.ops import cuda_build
+from quantum_basis_tpu_torch.ops import cuda_build, ell_build
 from quantum_basis_tpu_torch.ops.apply import (
     _MODES,
     _OFFSET,
@@ -75,6 +76,7 @@ from quantum_basis_tpu_torch.ops.apply import (
     pack_rows,
 )
 from quantum_basis_tpu_torch.ops.compile import CompiledOperator, compile_diagonal
+from quantum_basis_tpu_torch.ops.ell_build import assemble, compact_rows, two_pass
 
 _NU_TOL = 1e-10
 _SRC = cuda_build.CSRC / "apply_repr.cu"
@@ -596,7 +598,11 @@ def _repr_scatter_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag,
 
 def _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase,
                        row0, rows):
-    """Plain PyTorch ``repr_images``."""
+    """The image stage of the plain ``repr_images``: rows row0 .. row0 +
+    rows - 1, one entry an image column, (cols (rows, E) int64, vals (rows,
+    E) complex128): the column j and H[i, j] of every image the sector
+    holds (a diagonal column: i and conj(A)), (-1, 0) for the others.
+    ``compact_rows`` makes the rows of it."""
     if not tabs.n_cols:
         return (torch.zeros((rows, 0), dtype=torch.int64, device=isn.device),
                 torch.zeros((rows, 0), dtype=torch.complex128,
@@ -612,6 +618,19 @@ def _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase,
     return cols, vals
 
 
+def _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase, row0,
+                    rows, block=None):
+    """Plain PyTorch ``repr_images``: the finished rows row0 .. row0 +
+    rows - 1, :func:`_repr_images_plain` and ``compact_rows`` over blocks
+    of ``block`` rows (default: the plain versions' block), padded to the
+    widest."""
+    B = block or _block(rows, tabs, rt, isn.device)
+    return assemble([compact_rows(*_repr_images_plain(
+        rt, tabs, ix, labels, fodd, isn, sqrt_nu, phase, i0,
+        min(B, row0 + rows - i0))) for i0 in range(row0, row0 + rows, B)],
+        torch.complex128, isn.device)
+
+
 # --------------------------------------------------------------------------
 # The kernels: building, argument checks, launch records
 # --------------------------------------------------------------------------
@@ -624,14 +643,14 @@ class _Params(ctypes.Structure):
         "rec", "ad", "cslot", "cstr", "sstride", "sdim", "oddmask", "sp",
         "qmask", "phase", "labels", "fodd", "isn", "diag", "t0", "t1",
         "index_labels", "sqrt_nu", "x", "y", "cols", "vals", "tr_scratch",
-        "blob", "gsel", "gstr", "rrec", "xlab")]
+        "blob", "gsel", "gstr", "rrec", "xlab", "width", "row_scratch")]
         + [(f, ctypes.c_longlong) for f in (
             "M", "row0", "rows", "sa", "sb", "label_space", "n",
-            "scratch_blocks", "blob_bytes")]
+            "scratch_blocks", "blob_bytes", "row_blocks", "row_shared")]
         + [(f, ctypes.c_int) for f in (
             "E", "A", "amp_c", "S", "G", "bits", "diag_only", "mode",
             "sa_shift", "tabs_shared", "threads", "gb", "absent", "o_erow",
-            "o_fx", "o_sp", "o_slot", "o_phase", "o_q")])
+            "o_fx", "o_sp", "o_slot", "o_phase", "o_q", "W", "write")])
 
 
 def build_library(verbose: bool = False) -> ctypes.CDLL:
@@ -653,6 +672,8 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p]
         lib.qbt_repr_label_clear.restype = ctypes.c_int
+        lib.qbt_repr_images_scratch.argtypes = [ctypes.POINTER(_Params)]
+        lib.qbt_repr_images_scratch.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -854,7 +875,8 @@ class ReprLaunch:
         if self.entry is not None:
             blob, off = _blob(self.entry, rt, tabs, phase)
             self._keep.append(blob)
-        elif 8 * rt.G * THREADS > TR_SHARED_MAX and dev.type == "cuda":
+        elif (8 * rt.G * THREADS > TR_SHARED_MAX and dev.type == "cuda"
+              and kind != "repr_images"):    # images: T_g(r) a warp
             blocks = 2 * torch.cuda.get_device_properties(
                 dev).multi_processor_count
             scratch = torch.empty(blocks * rt.G * THREADS,
@@ -933,30 +955,48 @@ class ReprLaunch:
         self._launch()
         return y
 
-    def images(self, row0: int, rows: int):
-        """Rows ``row0 .. row0 + rows - 1`` of H in the sector, one entry
-        an image column: (cols (rows, E) int64, vals (rows, E) complex128),
-        the column j and H[i, j] of every image the sector holds (a
-        diagonal column: i and conj(A)), (-1, 0) for the others."""
+    def images(self, row0: int, rows: int, block: int | None = None):
+        """Rows ``row0 .. row0 + rows - 1`` of H in the sector as finished
+        ELL rows: (cols (rows, W) int64, vals (rows, W) complex128), each
+        row's entries (j, H[i, j]) merged over its images (a diagonal
+        column's at j = i), sorted by column, (0, 0) past them, W the
+        widest of these rows. On a CUDA device two launches (the count
+        pass, then the rows) and one host sync, for any number of image
+        columns (``ell_build.row_scratch``); on the CPU the plain
+        version, ``_repr_images_plain`` and ``compact_rows`` over blocks of
+        ``block`` rows (default: the plain versions' block)."""
         if self.kind != "repr_images":
             raise TypeError(f"a {self.kind} record is called with x")
         if not 0 <= row0 <= row0 + rows <= self.rows:
             raise ValueError(f"rows {row0} .. {row0 + rows} outside the "
                              f"sector's {self.rows}")
         rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = self.args
+        if not rows or not tabs.n_cols:
+            return (torch.zeros((rows, 0), dtype=torch.int64,
+                                device=self.device),
+                    torch.zeros((rows, 0), dtype=torch.complex128,
+                                device=self.device))
         if self.device.type == "cpu":
-            return _repr_images_plain(rt, tabs, ix, labels, fodd, isn,
-                                      sqrt_nu, phase, row0, rows)
-        E = tabs.n_cols
-        cols = torch.empty((rows, E), dtype=torch.int64, device=self.device)
-        vals = torch.empty((rows, E), dtype=torch.complex128,
-                           device=self.device)
-        if rows and E:
-            p = self.p
-            p.row0, p.rows = row0, rows
-            p.cols, p.vals = cols.data_ptr(), vals.data_ptr()
+            return _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                   phase, row0, rows, block)
+        if ix.n >= 2 ** 31 - 1:
+            raise ValueError("the ELL build takes fewer than 2 ** 31 - 1 "
+                             "rows")
+        p = self.p
+        p.row0, p.rows = row0, rows
+        # the rows' scratch where it is not in shared memory, held to the
+        # end of the build
+        scratch = ell_build.row_scratch(
+            p, build_library().qbt_repr_images_scratch, self.device)
+
+        def launch(cols, vals, width, W):
+            p.cols, p.vals, p.width = (None if t is None else t.data_ptr()
+                                       for t in (cols, vals, width))
+            p.W, p.write = W, int(cols is not None)
             self._launch()
-        return cols, vals
+        out = two_pass(rows, torch.complex128, self.device, launch)
+        del scratch
+        return out
 
 
 # --------------------------------------------------------------------------

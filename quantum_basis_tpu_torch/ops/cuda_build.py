@@ -2,7 +2,8 @@
 
 Each source compiles at first use, for sm_90a, into a shared library with a
 plain C interface under ``quantum_basis_tpu_torch/_build/`` (git-ignored),
-named by a hash of the source, and is loaded with ctypes. Nothing builds at
+named by a hash of the source and of every header it includes from
+``csrc/`` (``#include "..."``), and is loaded with ctypes. Nothing builds at
 import. :func:`build` compiles several sources at once, one nvcc each, all
 started together.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,10 +32,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources_of(src: Path) -> list[Path]:
+    """``src`` and every header it includes with ``#include "..."``,
+    directly or through another header (paths relative to the including
+    file), each once, in the order first met."""
+    seen, todo = [], [Path(src)]
+    while todo:
+        f = todo.pop(0).resolve()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [f.parent / m.decode() for m in
+                 _INCLUDE.findall(f.read_bytes())]
+    return seen
+
+
 def library_path(src: Path) -> Path:
-    """Where the shared library of ``src`` lives: ``lib<stem>_<hash>.so``."""
-    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    """Where the shared library of ``src`` lives: ``lib<stem>_<hash>.so``,
+    the hash over the source and the headers it includes, so that an edited
+    header builds a new library."""
+    h = hashlib.sha1()
+    for f in sources_of(src):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{Path(src).stem}_{h.hexdigest()[:12]}.so"
 
 
 def build(sources, verbose: bool = False) -> list[Path]:

@@ -61,7 +61,7 @@ from quantum_basis_tpu_torch.ops.apply import pack_rows
 from quantum_basis_tpu_torch.ops.apply_repr import (
     MatvecRepr,
     _orbit_min_plain,
-    _repr_images_plain,
+    _repr_ell_plain,
     _repr_rows_plain,
     _repr_scatter_plain,
     column_slots,
@@ -255,7 +255,7 @@ def test_repr_scatter_plain_matches_jax(kind):
 def test_build_sparse_repr_on_images_matches_jax(name):
     """(c) The ELL built from repr_images' rows equals the JAX
     build_sparse_repr as a dense matrix (1e-12); the rows are
-    _repr_images_plain's."""
+    _repr_images_plain's images compacted (_repr_ell_plain)."""
     Hj = _jax_case(name)[4]
     mt, s = _port_case(name)
     ell = build_sparse_repr(s.matvec)
@@ -264,16 +264,18 @@ def test_build_sparse_repr_on_images_matches_jax(name):
     rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = s.matvec.args()
     img = s.matvec.record("repr_images")
     c, v = img.images(0, s.dim)
-    c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                phase, 0, s.dim)
+    c2, v2 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                             phase, 0, s.dim)
     torch.testing.assert_close(c, c2, rtol=0, atol=0)
     torch.testing.assert_close(v, v2, rtol=0, atol=0)
-    assert c.shape == (s.dim, tabs.n_cols)
-    # one row block at a time gives the same rows
+    assert c.shape == (s.dim, ell.width) and torch.equal(c, ell.cols)
+    # a part of the rows gives the same rows, at its own width
     h = s.dim // 2
     c3, v3 = img.images(h, s.dim - h)
-    torch.testing.assert_close(c3, c[h:], rtol=0, atol=0)
-    torch.testing.assert_close(v3, v[h:], rtol=0, atol=0)
+    w = c3.shape[1]
+    torch.testing.assert_close(c3, c[h:, :w], rtol=0, atol=0)
+    torch.testing.assert_close(v3, v[h:, :w], rtol=0, atol=0)
+    assert not bool(v[h:, w:].abs().any())
 
 
 @pytest.mark.parametrize("name", ["chain12_k1", "spin1_chain8_k2",
@@ -577,8 +579,8 @@ def test_launch_record_built_on_cpu(name, monkeypatch):
     assert img.p.rrec == rrec.data_ptr() and not img.by_label
     assert img.p.xlab is None
     c, v = img.images(0, n)
-    c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
-                                phase, 0, n)
+    c2, v2 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                             phase, 0, n)
     assert torch.equal(c, c2) and torch.equal(v, v2)
     sc = ar.scatter_launch(mt.compiled_Ham, s.dbasis, s.dbasis)
     torch.testing.assert_close(sc(x), rec(x), rtol=0, atol=1e-12)
@@ -799,17 +801,20 @@ def test_kernels_match_plain_on_cuda(monkeypatch):
         img = ar.ReprLaunch("repr_images", rt, tabs, ix, labels, fodd, isn,
                             sqrt_nu, None, phase, n)
         c, v = img.images(0, n)
-        c2, v2 = _repr_images_plain(rt, tabs, ix, labels, fodd, isn,
-                                    sqrt_nu, phase, 0, n)
+        c2, v2 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                 phase, 0, n)
         torch.cuda.synchronize()
         assert torch.equal(c, c2)
         close(v, v2)
         h = n // 2
         c3, v3 = mv.record("repr_images").images(h, n - h)
+        c4, v4 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                 phase, h, n - h)
         torch.cuda.synchronize()
-        assert torch.equal(c3, c2[h:])
-        close(v3, v2[h:])
-        want = {"repr_rows": 2, "repr_scatter": 2, "repr_images": 2}
+        assert torch.equal(c3, c4)
+        close(v3, v4)
+        # an images call is two launches: the count pass and the rows
+        want = {"repr_rows": 2, "repr_scatter": 2, "repr_images": 4}
         assert rec.p.gb == (rec.entry.gb if entry else 0)
         assert all(ar.launches[k] == before[k] + want[k] for k in ar.KERNELS)
 

@@ -1,8 +1,14 @@
 """Port explicit sparse build (ELL) against the JAX package.
 
 ``build_sparse_repr`` must give the same matrix (dense-equal to 1e-12), the
-ELL apply the same H.x (1e-12), and the device row compaction the same
-layout and values as the JAX package's numpy ``_compact_rows_np``.
+ELL apply the same H.x (1e-12), and the row stage the same layout and
+values as the JAX package's numpy ``_compact_rows_np``: the torch
+``compact_rows`` (the builds' plain version) and, emulated here step by
+step, the warp's rank sort, run heads and ballots of
+``csrc/ell_rows.cuh``, on crafted image sets. The ``cuda``-marked test holds
+the ``repr_images`` kernel against its plain version on the card; the JAX
+package is imported inside the CPU tests only, so this file runs on a
+machine without JAX.
 """
 
 from __future__ import annotations
@@ -11,10 +17,20 @@ import numpy as np
 import pytest
 import torch
 
-from quantum_basis_tpu.ops.sparse import _compact_rows_np, build_sparse_repr as jax_build
 from quantum_basis_tpu_torch.interop import ell_from_numpy, vec_from_split, vec_to_split
-from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr, compact_rows
-from test_torch_repr import SECTORS, build_both
+from quantum_basis_tpu_torch.ops.ell_build import assemble, compact_rows
+from quantum_basis_tpu_torch.ops.sparse import build_sparse_repr
+
+# tests/test_torch_repr.py's SECTORS
+SECTORS = ("chain12_k1", "honeycomb_3x2_k10", "kagome_tj_1x2_k01")
+TOL = 1e-14
+DROP = 2 ** 31 - 1
+
+
+def build_both(name):
+    from test_torch_repr import build_both as both
+
+    return both(name)
 
 
 def dense(n, cols, vals, diag):
@@ -25,8 +41,10 @@ def dense(n, cols, vals, diag):
     return H
 
 
-@pytest.mark.parametrize("name", sorted(SECTORS))
+@pytest.mark.parametrize("name", SECTORS)
 def test_build_sparse_repr_matches_jax(name):
+    from quantum_basis_tpu.ops.sparse import build_sparse_repr as jax_build
+
     mj, mt = build_both(name)
     ej = jax_build(mj.sec_repr[0].matvec)
     et = build_sparse_repr(mt.sec_repr[0].matvec)
@@ -49,8 +67,44 @@ def test_build_sparse_repr_matches_jax(name):
     np.testing.assert_allclose(ci, np.asarray(yi), rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("name", SECTORS)
+@pytest.mark.parametrize("parts", [3, 5])
+def test_build_sparse_repr_blocks_match_jax(name, parts):
+    """The momentum ELL built over several row blocks (the last one past
+    the sector's end) equals the JAX package's entry for entry: columns
+    and W exactly, values to 1e-14, H.x to 1e-12."""
+    from quantum_basis_tpu.ops.sparse import build_sparse_repr as jax_build
+
+    mj, mt = build_both(name)
+    ej = jax_build(mj.sec_repr[0].matvec)
+    mv = mt.sec_repr[0].matvec
+    n = mv.n
+    block = n // parts + 1
+    assert n % block and n > 2 * block
+    cols, vals = mv.record("repr_images").images(0, n, block)
+    assert cols.shape == (n, ej.width) and vals.dtype == torch.complex128
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(ej.cols))
+    np.testing.assert_allclose(vals.real.numpy(), np.asarray(ej.vre),
+                               rtol=0, atol=1e-14)
+    np.testing.assert_allclose(vals.imag.numpy(), np.asarray(ej.vim),
+                               rtol=0, atol=1e-14)
+    # the whole sector in one block gives the same rows
+    c1, v1 = mv.record("repr_images").images(0, n, n)
+    assert torch.equal(c1, cols) and torch.equal(v1, vals)
+    x = np.random.default_rng(5).standard_normal(n)
+    ell = build_sparse_repr(mv)
+    y = ell(torch.as_tensor(x, dtype=torch.complex128))
+    yr, yi = ej((x, np.zeros(n)))
+    np.testing.assert_allclose(y.real.numpy(), np.asarray(yr), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(y.imag.numpy(), np.asarray(yi), rtol=0,
+                               atol=1e-12)
+
+
 @pytest.mark.parametrize("complex_vals", [False, True])
 def test_compact_rows_matches_numpy(complex_vals):
+    from quantum_basis_tpu.ops.sparse import _compact_rows_np
+
     rng = np.random.default_rng(9)
     n, W = 64, 24
     cols = rng.integers(-1, 12, size=(n, W)).astype(np.int64)
@@ -75,3 +129,215 @@ def test_compact_rows_matches_numpy(complex_vals):
     np.testing.assert_array_equal(vt.numpy().real, rn)
     if complex_vals:
         np.testing.assert_array_equal(vt.numpy().imag, inn)
+
+
+def _crafted(case, cplx):
+    """(cols (n, E) int64, vals (n, E)) of one crafted image set: -1 and 0
+    where an image is dropped, as the builds' image stages give them."""
+    rng = np.random.default_rng(31)
+    n, E, span = {"runs": (16, 24, 6), "cancel": (4, 8, 4),
+                  "at_tol": (4, 6, 3), "all_invalid": (3, 5, 4),
+                  "empty": (5, 0, 1), "wide": (9, 80, 30)}[case]
+    cols = rng.integers(0, span, size=(n, E)).astype(np.int64)
+    vals = rng.standard_normal((n, E))
+    if cplx:
+        vals = vals + 1j * rng.standard_normal((n, E))
+    off = rng.random((n, E)) < 0.15
+    cols[off], vals[off] = -1, 0.0
+    def row(i, c, v):
+        cols[i], vals[i] = -1, 0.0
+        cols[i, :len(c)], vals[i, :len(v)] = c, v
+    if case == "cancel":
+        # an exact cancellation inside a run, and a run that leaves 5.6e-17
+        # (dropped after the merge); a row that is one run
+        row(0, [2, 2, 1, 2], [1.5, -1.5, 0.75, 0.0625])
+        row(1, [3, 3, 3], [0.1, 0.2, -0.3])
+        cols[2] = 1
+    if case == "at_tol":
+        # at the tolerance: dropped before the merge, never joins a run
+        # (two of them merged would pass it); just above it kept
+        t = 5e-15 + 5e-15j if cplx else 1e-14
+        row(0, [1, 1, 2], [t, 1.0, 1.0000000000000002e-14])
+        row(1, [0, 0], [t, t])
+    if case == "all_invalid":
+        cols[0], vals[0] = -1, 0.0
+        cols[1], vals[1] = 2, 1e-15
+    return cols, vals
+
+
+def _warp_rows(cols, vals):
+    """The row stage of csrc/ell_rows.cuh as a warp runs it: the images
+    above the tolerance packed in slot order (the ballots of ``put``), each
+    one's rank among them (lower columns, then its column at lower places)
+    places it, a run's head sums the run in order, the heads above the
+    tolerance go left in rank order; W the widest row."""
+    def mag(v):
+        return abs(v.real) + abs(v.imag)
+    n, E = cols.shape
+    rows = []
+    for i in range(n):
+        kept = [e for e in range(E) if mag(vals[i, e]) > TOL]
+        c = [int(cols[i, e]) for e in kept] + [DROP] * (-len(kept) % 4)
+        val = [vals[i, e] for e in kept]
+        order = [0] * len(kept)
+        for e in range(len(kept)):
+            order[sum((c[f] < c[e]) or (c[f] == c[e] and f < e)
+                      for f in range(len(c)))] = e
+        row = []
+        for q, e in enumerate(order):
+            if q and c[order[q - 1]] == c[e]:
+                continue
+            s = val[e]
+            for u in range(q + 1, len(order)):
+                if c[order[u]] != c[e]:
+                    break
+                s = s + val[order[u]]
+            if mag(s) > TOL:
+                row.append((c[e], s))
+        rows.append(row)
+    W = max((len(r) for r in rows), default=0)
+    oc = np.zeros((n, W), np.int64)
+    ov = np.zeros((n, W), vals.dtype)
+    for i, r in enumerate(rows):
+        for k, (c, v) in enumerate(r):
+            oc[i, k], ov[i, k] = c, v
+    return oc, ov
+
+
+@pytest.mark.parametrize("complex_vals", [False, True])
+@pytest.mark.parametrize("case", ["runs", "cancel", "at_tol", "all_invalid",
+                                  "empty", "wide"])
+def test_row_stage_matches_numpy(case, complex_vals):
+    """The builds' row stage on crafted image sets (several duplicate runs,
+    exact cancellations, entries at the tolerance, an all-invalid row, E =
+    0, E = 80 > 64) equals ``_compact_rows_np`` exactly: the plain version
+    (``compact_rows``), the plain version over row blocks of 5 (the last
+    one past the rows' end) assembled, and the warp's algorithm."""
+    from quantum_basis_tpu.ops.sparse import _compact_rows_np
+
+    cols, vals = _crafted(case, complex_vals)
+    cn, rn, inn = _compact_rows_np(
+        cols.copy(), vals.real.copy(),
+        vals.imag.copy() if complex_vals else None)
+    want = rn + 1j * inn if complex_vals else rn
+    if case == "cancel":
+        assert cn.shape[1] < cols.shape[1]
+        assert (cn[1] == 0).all() and cn[0, :2].tolist() == [1, 2]
+    if case == "at_tol":
+        assert want[0, 0] == 1.0 and cn[0, :2].tolist() == [1, 2]
+        assert (cn[1] == 0).all()
+    ct, vt = compact_rows(torch.as_tensor(cols), torch.as_tensor(vals))
+    np.testing.assert_array_equal(ct.numpy(), cn)
+    np.testing.assert_array_equal(vt.numpy(), want)
+    cb, vb = assemble([compact_rows(torch.as_tensor(cols[i:i + 5]),
+                                    torch.as_tensor(vals[i:i + 5]))
+                       for i in range(0, cols.shape[0], 5)],
+                      vt.dtype, "cpu")
+    np.testing.assert_array_equal(cb.numpy(), cn)
+    np.testing.assert_array_equal(vb.numpy(), want)
+    cw, vw = _warp_rows(cols, vals)
+    np.testing.assert_array_equal(cw, cn)
+    np.testing.assert_array_equal(vw, want)
+
+
+@pytest.mark.cuda
+def test_repr_images_kernel_matches_plain_on_cuda(monkeypatch):
+    """The ``repr_images`` kernel (a warp a row, the row stage fused) on
+    the card against its plain version on the same CUDA tensors: columns
+    and W exactly, values to 1e-14 of max|v|, on the entry path and on the
+    general path (ENTRY_TABLES_MAX = 0), a chain (bit fields), the spin-1
+    chain (mixed radix), kagome t-J and the honeycomb fermions (signs),
+    the DM chain (complex amplitudes) and the three-site chain (arity 3);
+    a part of the rows; two launches a build, one where every row is
+    empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    import torch_zoo as tz
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+    from quantum_basis_tpu_torch.ops.apply_repr import _repr_ell_plain
+
+    dev = "cuda"
+    cases = [(tz.heisenberg_chain(12, device=dev), ["Sz"], [0.0], [1]),
+             (tz.heisenberg_chain(8, spin="1", device=dev), ["Sz"], [0.0],
+              [2]),
+             (tz.kagome_tj(1, 2, device=dev), ["N", "Sz"], [4.0, 0.0],
+              [0, 1]),
+             (tz.spinless_fermion_honeycomb(3, 2, device=dev), ["N"], [4.0],
+              [1, 0]),
+             (tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr, tz.Mopr,
+                                       12, device=dev), ["Sz"], [0.0], [3]),
+             (tz.dm_chain(10, device=dev), ["Sz"], [0.0], [2])]
+    for (m, ops), names, vals, k in cases:
+        m.enumerate_basis_repr(k, [ops[c] for c in names], vals)
+        mv = m.sec_repr[0].matvec
+        rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = mv.args()
+        n = mv.n
+        for emax in (ar.ENTRY_TABLES_MAX, 0):
+            monkeypatch.setattr(ar, "ENTRY_TABLES_MAX", emax)
+            img = ar.ReprLaunch("repr_images", rt, tabs, ix, labels, fodd,
+                                isn, sqrt_nu, None, phase, n,
+                                rrec=mv.basis.row_records())
+            assert (img.entry is None) == (emax == 0)
+            for row0, rows in ((0, n), (n // 3, n - n // 3 - 1)):
+                before = ar.launches["repr_images"]
+                c, v = img.images(row0, rows)
+                c2, v2 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn,
+                                         sqrt_nu, phase, row0, rows)
+                torch.cuda.synchronize()
+                assert ar.launches["repr_images"] == before + 2
+                assert c.shape == c2.shape and torch.equal(c, c2)
+                scale = max(float(v2.abs().max()), 1e-300)
+                assert float((v - v2).abs().max()) <= 1e-14 * scale
+
+
+@pytest.mark.cuda
+def test_repr_images_wide_rows_on_cuda(monkeypatch):
+    """``repr_images`` on rows of 2240 and 3584 image columns (bosons with
+    a dense three-site term on every triple, k = 1; the general path, as
+    the entry path's tables never hold so many columns): at 3584 fewer
+    than 4 warps' regions fit a block's shared memory, so a block runs
+    fewer warps. Then every warp's region in the device buffer
+    (ROW_SHARED_MAX = 0), of one block (ROW_SCRATCH_MAX = 1) or of many.
+    Each build against the plain version (columns and W exactly, values to
+    1e-14 of max|v|) and its H x against MatvecRepr's (1e-12 of
+    max|y|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    import torch_zoo as tz
+    from quantum_basis_tpu_torch.ops import apply_repr as ar
+    from quantum_basis_tpu_torch.ops import ell_build
+    from quantum_basis_tpu_torch.ops.apply_repr import _repr_ell_plain
+    from quantum_basis_tpu_torch.ops.sparse import EllMatrix
+
+    dev = "cuda"
+    for L in (7, 8):
+        m, _ = tz.boson_triples(L, complex_=L == 7, device=dev)
+        m.enumerate_basis_repr([1], [], [])
+        mv = m.sec_repr[0].matvec
+        rt, tabs, ix, labels, fodd, isn, sqrt_nu, diag, phase = mv.args()
+        n = mv.n
+        assert tabs.n_cols == 64 * L * (L - 1) * (L - 2) // 6
+        c2, v2 = _repr_ell_plain(rt, tabs, ix, labels, fodd, isn, sqrt_nu,
+                                 phase, 0, n)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(n, dtype=torch.complex128, device=dev, generator=g)
+        y = mv(x)
+        for shared, scratch in ((None, None), (0, None), (0, 1)):
+            with monkeypatch.context() as mp:
+                if shared is not None:
+                    mp.setattr(ell_build, "ROW_SHARED_MAX", shared)
+                if scratch is not None:
+                    mp.setattr(ell_build, "ROW_SCRATCH_MAX", scratch)
+                img = ar.ReprLaunch("repr_images", rt, tabs, ix, labels,
+                                    fodd, isn, sqrt_nu, None, phase, n,
+                                    rrec=mv.basis.row_records())
+                assert img.entry is None
+                c, v = img.images(0, n)
+            torch.cuda.synchronize()
+            assert c.shape == c2.shape and torch.equal(c, c2)
+            scale = float(v2.abs().max())
+            assert float((v - v2).abs().max()) <= 1e-14 * scale
+            got = EllMatrix(c, v, diag.reshape(-1)[:n])(x)
+            torch.cuda.synchronize()
+            assert float((got - y).abs().max()) <= 1e-12 * float(
+                y.abs().max())

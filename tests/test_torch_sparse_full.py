@@ -2,10 +2,14 @@
 
 The ELL extracted from the port's ``MatvecFull`` must equal the JAX
 package's entry for entry after row compaction: ``cols`` exactly, ``vals``
-and ``diag`` to 1e-14 (both sum the same few table amplitudes per entry).
-Both Hermiticity checks pass on H and raise on a deliberately non-Hermitian
-ELL; ``Model.generate_Ham_sparse_full`` / ``generate_Ham_sparse_repr``
-switch the sector's matvec to the ELL and keep the matrix-free apply.
+and ``diag`` to 1e-14 (both sum the same few table amplitudes per entry),
+over one or several row blocks and in every index mode. Both Hermiticity
+checks pass on H and raise on a deliberately non-Hermitian ELL;
+``Model.generate_Ham_sparse_full`` / ``generate_Ham_sparse_repr`` switch the
+sector's matvec to the ELL and keep the matrix-free apply. The
+``cuda``-marked test holds the ``ell_rows`` kernel against its plain
+version on the card; the JAX package is imported inside the CPU tests
+only, so this file runs on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -14,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-import models_zoo as jz
 import torch_zoo as tz
-from test_torch_apply import MODELS, build_both
-from quantum_basis_tpu.ops.sparse import build_sparse_full as jax_build_full
+from quantum_basis_tpu_torch.basis.index import BasisIndex
+from quantum_basis_tpu_torch.basis.lin_table import digit_split
 from quantum_basis_tpu_torch.interop import ell_from_numpy
+from quantum_basis_tpu_torch.ops import ell_build
 from quantum_basis_tpu_torch.ops.apply import DeviceBasis, MatvecFull
 from quantum_basis_tpu_torch.ops.apply_repr import MatvecRepr
 from quantum_basis_tpu_torch.ops.sparse import (
@@ -28,11 +32,27 @@ from quantum_basis_tpu_torch.ops.sparse import (
     hermiticity_probe,
 )
 
+# tests/test_torch_apply.py's MODELS
+MODELS = ("chain12_Sz0", "dm_chain10_Sz0", "honeycomb_3x2_N4",
+          "kondo4_N4_Sz0", "tj_chain8_N6_Sz0")
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+
+def build_both(name):
+    from test_torch_apply import build_both as both
+
+    return both(name)
+
+
+def _jax_ell(mj):
+    from quantum_basis_tpu.ops.sparse import build_sparse_full
+
+    return build_sparse_full(mj.sec_full[0].matvec)
+
+
+@pytest.mark.parametrize("name", MODELS)
 def test_build_sparse_full_matches_jax(name):
     mj, mt, cplx = build_both(name)
-    ej = jax_build_full(mj.sec_full[0].matvec)
+    ej = _jax_ell(mj)
     st = mt.sec_full[0]
     # several row blocks, a padded last one: per-block compaction + padding
     db = DeviceBasis(mt.space, st.labels, st.dbasis.index, block_rows=100,
@@ -107,6 +127,7 @@ def test_generate_ham_sparse_full_switches_matvec():
 
 
 def test_generate_ham_sparse_repr_matches_jax():
+    import models_zoo as jz
     from quantum_basis_tpu.ops.sparse import EllMatrix as JaxEll
 
     mj, oj = jz.heisenberg_chain(12)
@@ -128,3 +149,140 @@ def test_generate_ham_sparse_repr_matches_jax():
     mj.locate_E0_lanczos(which="repr")
     assert abs(mt.eigenvals_repr[0] - mj.eigenvals_repr[0]) < 1e-10
     assert mt.generate_Ham_sparse_repr(check=False) is et
+
+
+def _indexed(mt, mode, device="cpu", block_rows=None):
+    """A MatvecFull of mt's sector 0 over a basis indexed in ``mode``."""
+    st = mt.sec_full[0]
+    ix = BasisIndex(st.labels, mt.space.label_space, mode=mode,
+                    lin_split=digit_split(mt.space), device=device)
+    return MatvecFull(mt.compiled_Ham, DeviceBasis(
+        mt.space, st.labels, ix, block_rows=block_rows, device=device))
+
+
+@pytest.mark.parametrize("mode", ["lin", "bsearch"])
+@pytest.mark.parametrize("name", ["chain12_Sz0", "honeycomb_3x2_N4"])
+def test_build_sparse_full_index_modes_match_jax(name, mode):
+    """The ELL over a lin or binary-search index, in row blocks of 37 (the
+    last one past the sector's end), equals the JAX package's: columns and
+    W exactly, values to 1e-14, H.x to 1e-12."""
+    mj, mt, _ = build_both(name)
+    ej = _jax_ell(mj)
+    mv = _indexed(mt, mode, block_rows=37)
+    assert mv.basis.index.mode == mode
+    assert mv.n % 37 and mv.basis.n_blocks > 2
+    et = build_sparse_full(mv)
+    assert et.width == ej.width
+    np.testing.assert_array_equal(et.cols.numpy(), np.asarray(ej.cols))
+    np.testing.assert_allclose(et.vals.numpy(), np.asarray(ej.vre), rtol=0,
+                               atol=1e-14)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(et.n))
+    y = np.asarray(ej((x.numpy(), None))[0])
+    np.testing.assert_allclose(et(x).numpy(), y, rtol=0, atol=1e-12)
+
+
+def test_build_sparse_full_without_off_diagonal_columns():
+    """An operator with no image column (Sz Sz alone) builds a zero-width
+    ELL whose apply is the diagonal."""
+    m, ops = tz.heisenberg_chain(8)
+    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    zz = m.compile_op(tz.sz_pair(0, 1))
+    mv = MatvecFull(zz, m.sec_full[0].dbasis)
+    assert mv.tables.n_cols == 0
+    ell = build_sparse_full(mv)
+    assert ell.width == 0 and ell.cols.shape == (mv.n, 0)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(mv.n))
+    torch.testing.assert_close(ell(x), mv(x), rtol=0, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_ell_rows_kernel_matches_plain_on_cuda():
+    """The ``ell_rows`` kernel (a warp a row, the row stage fused) on the
+    card against its plain version on the same CUDA tensors: columns and W
+    exactly, values to 1e-14 of max|v|, with a direct, a lin and a
+    binary-search index, on a spin-1/2 chain (bit fields), the spin-1 chain
+    (slot values from V), t-J, Kondo and the honeycomb fermions
+    (Jordan-Wigner signs), the DM chain (complex amplitudes) and the
+    three-site chain (arity 3); two launches a build; and the built ELL's
+    H x against MatvecFull's (1e-12 of max|y|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    dev = "cuda"
+    cases = [(tz.heisenberg_chain(12, device=dev), ["Sz"], [0.0]),
+             (tz.heisenberg_chain(8, spin="1", device=dev), ["Sz"], [0.0]),
+             (tz.tj_chain(8, device=dev), ["Sz", "N"], [0.0, 6.0]),
+             (tz.kondo_chain(4, 1.3, device=dev), ["N", "Sz"], [4.0, 0.0]),
+             (tz.spinless_fermion_honeycomb(3, 2, device=dev), ["N"], [4.0]),
+             (tz.dm_chain(10, device=dev), ["Sz"], [0.0]),
+             (tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr, tz.Mopr,
+                                       12, device=dev), ["Sz"], [0.0])]
+    for (m, ops), names, vals in cases:
+        m.enumerate_basis_full([ops[c] for c in names], vals)
+        for mode in ("direct", "lin", "bsearch"):
+            mv = _indexed(m, mode, dev)
+            db, tabs = mv.basis, mv.tables
+            args = (tabs, db.index.tables, db.labels_b.view(-1),
+                    db.V_b.view(-1, db.space.n_slots), db.fodd, db.n)
+            before = ell_build.launch_count
+            c, v = ell_build.ell_rows(*args, db.block_rows)
+            c2, v2 = ell_build._ell_rows_plain(*args, db.block_rows)
+            torch.cuda.synchronize()
+            assert ell_build.launch_count == before + 2
+            assert c.shape == c2.shape and torch.equal(c, c2)
+            assert v.dtype == v2.dtype
+            scale = max(float(v2.abs().max()), 1e-300)
+            assert float((v - v2).abs().max()) <= 1e-14 * scale
+            x = torch.randn(db.n, dtype=torch.float64, device=dev)
+            if mv.is_complex:
+                x = x.to(torch.complex128)
+            y = mv(x)
+            got = EllMatrix(c, v, mv.diag_b.reshape(-1)[:db.n])(x)
+            torch.cuda.synchronize()
+            assert float((got - y).abs().max()) <= 1e-12 * float(
+                y.abs().max())
+
+
+@pytest.mark.cuda
+def test_ell_rows_wide_rows_on_cuda(monkeypatch):
+    """``ell_rows`` on rows of 640 to 2240 image columns (bosons with a
+    dense three-site term on every triple, real and complex): at 1280
+    complex and 2240 columns fewer than 8 warps' scratch fits a block's
+    shared memory, so a block runs fewer warps. Then every row's scratch
+    in the device buffer (ROW_SHARED_MAX = 0), of one block
+    (ROW_SCRATCH_MAX = 1) or of many. Each build against the plain version
+    (columns and W exactly, values to 1e-14 of max|v|) and its H x against
+    MatvecFull's (1e-12 of max|y|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    dev = "cuda"
+    cases = [(5, False, None, None), (6, True, None, None),
+             (7, False, None, None), (7, True, None, None),
+             (5, False, 0, None), (6, True, 0, 1), (7, True, 0, None)]
+    for L, cplx, shared, scratch in cases:
+        m, _ = tz.boson_triples(L, cplx, device=dev)
+        m.enumerate_basis_full([], [])
+        mv = m.sec_full[0].matvec
+        assert mv.tables.n_cols == 64 * L * (L - 1) * (L - 2) // 6
+        with monkeypatch.context() as mp:
+            if shared is not None:
+                mp.setattr(ell_build, "ROW_SHARED_MAX", shared)
+            if scratch is not None:
+                mp.setattr(ell_build, "ROW_SCRATCH_MAX", scratch)
+            db, tabs = mv.basis, mv.tables
+            args = (tabs, db.index.tables, db.labels_b.view(-1),
+                    db.V_b.view(-1, db.space.n_slots), db.fodd, db.n)
+            c, v = ell_build.ell_rows(*args, db.block_rows)
+        c2, v2 = ell_build._ell_rows_plain(*args, db.block_rows)
+        torch.cuda.synchronize()
+        assert c.shape == c2.shape and torch.equal(c, c2)
+        assert v.dtype == v2.dtype == (torch.complex128 if cplx
+                                       else torch.float64)
+        scale = float(v2.abs().max())
+        assert float((v - v2).abs().max()) <= 1e-14 * scale
+        x = torch.randn(db.n, dtype=torch.float64, device=dev)
+        if mv.is_complex:
+            x = x.to(torch.complex128)
+        y = mv(x)
+        got = EllMatrix(c, v, mv.diag_b.reshape(-1)[:db.n])(x)
+        torch.cuda.synchronize()
+        assert float((got - y).abs().max()) <= 1e-12 * float(y.abs().max())

@@ -129,6 +129,31 @@ def dm_chain(L, D=0.3, device="cpu"):
     return dm_chain_with(Lattice, Model, Opr, Mopr, L, D, device=device)
 
 
+def boson_triples(L, complex_=False, seed=5, device="cpu"):
+    """Bosons (Nmax = 4) on a ring of L sites with H = sum over every three
+    sites i < j < k of M_i M_j M_k, M a seeded 5x5 Hermitian matrix with a
+    zero diagonal (real, or complex with ``complex_``). Each triple gives a
+    row 64 images, so a row has 64 C(L, 3) image columns (640, 1280, 2240,
+    3584 at L = 5, 6, 7, 8): rows wider than the ELL builds' warps fit in a
+    block's shared memory. H is
+    symmetric under every permutation of the sites, so it has momentum
+    sectors; no quantum number is conserved."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((5, 5))
+    if complex_:
+        a = a + 1j * rng.standard_normal((5, 5))
+    M = (a + a.conj().T) / 2
+    np.fill_diagonal(M, 0.0)
+    m = Model(Lattice("chain", [L], ["pbc"]), device=device)
+    m.add_orbital(L, "boson", Nmax=4)
+    for i in range(L):
+        for j in range(i + 1, L):
+            for k in range(j + 1, L):
+                m.add_Ham(Opr(i, 0, False, M) * Opr(j, 0, False, M)
+                          * Opr(k, 0, False, M))
+    return m, {}
+
+
 def tj_chain(L, t=1.0, J=1.0, device="cpu"):
     """t-J chain of the reference's self-test (src/main_test.cc; the same
     terms as tests/test_golden_chain.py::build_tj_chain)."""
