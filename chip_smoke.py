@@ -7,7 +7,8 @@ Phases (any failure raises, so the exit code is nonzero):
    torch/CUDA versions;
 2. builds the kernels (csrc/bsr_spmv.cu, csrc/kron_ell.cu,
    csrc/apply_rows.cu, csrc/krylov.cu, csrc/apply_repr.cu,
-   csrc/ell_build.cu) with nvcc, one process each, all at once;
+   csrc/ell_build.cu, csrc/ell_spmv.cu) with nvcc, one process each, all
+   at once;
 3. holds the kernel against its plain PyTorch version on the card, on a
    momentum sector of the 20-site tilted cluster (f32: the shape of the
    kernel's main path, phase 4b), on the
@@ -200,7 +201,9 @@ Phases (any failure raises, so the exit code is nonzero):
    apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
    measure_full_static, the K6 kernels' in phase 5's chain-24 solve and
    phase 7's 4x4 solve, the K9 kernels' in phases 4, 8 and 10, ell_rows'
-   in phase 5's ELL builds, each count
+   in phase 5's ELL builds, ell_spmv's in the ELL solves of phases 5
+   (chain-24 and kagome-24 Sz=0) and 8 (the explicit route at kagome-24
+   k=(0,2)), each asserted equal to the solve's ELL applies, each count
    set to 0 just before its path and read just after; the worst
    error against the plain version, the
    kernel's, plain version's and library call's ms and the bound at the
@@ -332,6 +335,17 @@ Phases (any failure raises, so the exit code is nonzero):
    3.35 TB/s). Phase 5 counts ell_rows' launches on its main path (the
    full sectors' ELL builds) and asserts it launched; phases 8 and 13
    print the momentum ELL builds' seconds beside their solves.
+22. (after 21, before 15; ``--ell-apply`` runs it alone) the ELL apply
+   (csrc/ell_spmv.cu, K3) against its plain version on the card, 1e-12 of
+   max|y|: the explicit momentum sectors kagome-24 Sz=0 k=(0,2) (dim
+   338,356) and chain-24 Sz=0 k=0 (complex), the full sectors chain-24 and
+   kagome-24 Sz=0 (dim 2,704,156, real values; a real and a complex x),
+   MatvecVrnl of the Holstein chain at depth 14 and k = 1/4 (phase 11's
+   sector) and a diagonal-only matrix (W = 0); each timed (CUDA events 25x5,
+   and the launch's torch.profiler device time) beside its plain version,
+   one torch.sparse CSR product of the same matrix with the diagonal (used
+   nowhere in the package) and its bound (bytes: the stored columns and
+   values, the diagonal and x read once, y written once; over 3.35 TB/s).
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -360,7 +374,7 @@ driver on the 4x4 cluster (four sectors of dim 1.3-1.7e8, E0(8,8) held to
 sector resumed from its completion record with no apply and the same gaps;
 ``--bsr-bench`` runs bsr_bench alone; ``--kron-ell`` phase 17;
 ``--apply-rows`` phase 18; ``--krylov`` phase 19; ``--apply-repr`` phase
-20; ``--ell-build`` phase 21; ``--ranks N``
+20; ``--ell-build`` phase 21; ``--ell-apply`` phase 22; ``--ranks N``
 runs phase 14 alone. Imports nothing of JAX.
 """
 
@@ -799,6 +813,23 @@ def full_goldens(dev):
         "plan": fs.plan.describe(), "matvecs": fs.n_applies}), flush=True)
 
 
+# ell_spmv's launches in the ELL solves of phases 5 and 8, by solve: the
+# count set to 0 just before each solve and read just after
+ELL_SPMV_LAUNCHES = {}
+
+
+def ell_spmv_window(tag, rec):
+    """Keeps one ELL solve's ell_spmv launches, which must equal its ELL
+    applies (``rec["matvecs_ell"]``): every apply is one launch."""
+    n = rec["ell_spmv_launches"]
+    ELL_SPMV_LAUNCHES[tag] = n
+    print(f"check {tag} ell_spmv launches {n} = the solve's ELL applies "
+          f"{rec['matvecs_ell']}", flush=True)
+    if not 0 < n == rec["matvecs_ell"]:
+        raise AssertionError(f"{tag}: {n} ell_spmv launches for "
+                             f"{rec['matvecs_ell']} ELL applies")
+
+
 def full_width(dev, tag, model, sz, matrix_free, maxit):
     """One dim-2,704,156 case. Returns its record; the model keeps the ELL
     as the sector's matvec, and E0 and the eigenvector of the solve on it.
@@ -806,7 +837,7 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
     ``locate_E0_lanczos("full")`` on the card's route, MatvecFull, whose
     every apply must be one apply_rows launch."""
     from quantum_basis_tpu_torch.basis.enumerate import enumerate_basis
-    from quantum_basis_tpu_torch.ops import apply, krylov
+    from quantum_basis_tpu_torch.ops import apply, krylov, sparse
     from quantum_basis_tpu_torch.ops.apply import MatvecFull
 
     torch.cuda.reset_peak_memory_stats()
@@ -861,10 +892,13 @@ def full_width(dev, tag, model, sz, matrix_free, maxit):
                              f"{diff:.3e}")
     rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=10, per_sample=3)
     n0 = ell.n_applies
+    sparse.launch_count = 0
     _, rec["solve_ell_s"] = _timed(
         lambda: model.locate_E0_lanczos("full", maxit=maxit))
+    rec["ell_spmv_launches"] = sparse.launch_count
     rec["E0_ell"] = e0 = model.eigenvals_full[0]
     rec["matvecs_ell"] = ell.n_applies - n0
+    ell_spmv_window(f"5 {tag}", rec)
     v = model.eigenvecs_full[0]
     rec["residual"] = float(torch.linalg.vector_norm(ell(v) - e0 * v))
     rec["residual_gate"] = max(1e3 * 2e-12 * abs(e0), 5e-10)
@@ -1231,6 +1265,8 @@ def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
     """Phase 8, the other route on the same sector: method="dnc" against
     "direct", then the explicit ELL/BSR solve through the same entry point
     with the full-label-space engine switched off for this model."""
+    from quantum_basis_tpu_torch.ops import sparse
+
     direct = model.sec_repr[0]
     dim, t_dnc = _timed(lambda: model.enumerate_basis_repr(
         list(k), [sz], [0.0], sec=1, method="dnc"))
@@ -1263,8 +1299,10 @@ def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
                             + 0j, device=dev)
         rec["ell_ms"] = cuda_ms(lambda: ell(x), samples=10, per_sample=3)
         n0 = ell.n_applies
+        sparse.launch_count = 0
         _, rec["solve_s"] = _timed(
             lambda: model.locate_E0_lanczos(which="repr", sec=1, maxit=40000))
+        rec["ell_spmv_launches"] = sparse.launch_count
     finally:
         del model._fullspace_repr_op
     rec["E0"] = model.sec_repr[1].evals[0]
@@ -1272,6 +1310,7 @@ def explicit_route(bsr_mod, dev, tag, model, sz, k, e0_want):
     rec["ell_build_share"] = rec["ell_build_s"] / (rec["ell_build_s"]
                                                    + rec["solve_s"])
     rec["matvecs_ell"] = ell.n_applies - n0
+    ell_spmv_window(f"8 {tag} k={k}", rec)
     rec["bsr32_routed"] = s.bsr32 is not None
     rec["bsr_blocks"] = s.bsr32.nb if s.bsr32 is not None else None
     rec["bsr_launches"] = bsr_mod.launch_count - launches_before
@@ -4555,6 +4594,171 @@ def ell_build_run(dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 22: the ELL apply (ell_spmv)
+# --------------------------------------------------------------------------
+
+
+def ell_apply_bound(ell, x):
+    """Least time of one ELL apply y = diag x + A x on this card in ms, and
+    which bound it is. Bytes: the stored (n, W) columns and values, the
+    diagonal and x read once, y written once, over 3.35 TB/s. Operations:
+    2 a stored slot for real values and a real x, 4 against a complex x, 8
+    for complex values, and the diagonal's 2 or 4 a row, over the float64
+    peak."""
+    n, W = ell.n, ell.width
+    cplx = ell.is_complex or x.is_complex()
+    vb = 16 if cplx else 8
+    nbytes = (ell.cols.numel() * ell.cols.element_size()
+              + ell.vals.numel() * ell.vals.element_size() + 8 * n
+              + 2 * vb * n)
+    per = 8 if ell.is_complex else (4 if cplx else 2)
+    flops = per * n * W + (4 if cplx else 2) * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_ell_ms(ell, x):
+    """Time of one ``torch.sparse`` CSR product of the same matrix (the
+    live slots and the diagonal, in x's type) with x, and its y; or (None,
+    None, the error's first line). Timed only: nothing in the package
+    calls it."""
+    dev = ell.diag.device
+    n = ell.n
+    try:
+        rows = torch.arange(n, device=dev).repeat_interleave(ell.width)
+        live = ell.vals.reshape(-1) != 0
+        diag = torch.arange(n, device=dev)
+        idx = torch.stack([torch.cat([rows[live], diag]),
+                           torch.cat([ell.cols.reshape(-1)[live], diag])])
+        vals = torch.cat([ell.vals.reshape(-1)[live].to(x.dtype),
+                          ell.diag.to(x.dtype)])
+        del rows, live
+        A = torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce() \
+            .to_sparse_csr()
+        del idx, vals
+        y = A @ x
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, None, str(e).splitlines()[0]
+    return cuda_ms(lambda: A @ x, samples=10, per_sample=3), y, None
+
+
+def ell_apply_case(tag, ell, x, out):
+    """One matrix and vector: the kernel (one launch) against the plain
+    version on the same CUDA tensors to 1e-12 of max|y|, then the kernel,
+    the plain version and the CSR product timed with CUDA events (the
+    kernel also by torch.profiler), beside the bound."""
+    from quantum_basis_tpu_torch.ops import sparse
+    from quantum_basis_tpu_torch.ops.sparse import _ell_spmv_plain, ell_spmv
+
+    cdt = (torch.complex128 if ell.is_complex or x.is_complex()
+           else torch.float64)
+    x = x.to(cdt)
+    args = (ell.cols, ell.vals, ell.diag, x)
+    before = sparse.launch_count
+    y = ell_spmv(*args)
+    if sparse.launch_count != before + 1:
+        raise AssertionError(f"22 {tag}: {sparse.launch_count - before} "
+                             f"launches for one apply")
+    want = _ell_spmv_plain(*args, x)
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max())
+    scale = float(want.abs().max())
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    print(f"check 22 {tag}: kernel vs plain {err:.3e} (max|y| {scale:.3e}, "
+          f"tol 1e-12 max|y|)", flush=True)
+    if not err <= 1e-12 * scale:
+        raise AssertionError(f"22 {tag}: the kernel differs from its plain "
+                             f"version by {err:.3e}")
+    del want
+    rec = {"case": tag, "dim": ell.n, "W": ell.width,
+           "values": "complex" if ell.is_complex else "real",
+           "x": "complex" if x.is_complex() else "real",
+           "ell_bytes": (ell.cols.numel() * ell.cols.element_size()
+                         + ell.vals.numel() * ell.vals.element_size()),
+           "card": card_line(), "max_abs_err": err, "max_abs_y": scale}
+    rec["bound_ms"], rec["bound_by"] = ell_apply_bound(ell, x)
+    rec["ms"] = cuda_ms(lambda: ell_spmv(*args))
+    rec["device_ms"] = kernel_device_ms(lambda: ell_spmv(*args),
+                                        ("ell_spmv_kernel",))[
+        "ell_spmv_kernel"]
+    rec["plain_ms"] = cuda_ms(lambda: _ell_spmv_plain(*args, x), samples=10,
+                              per_sample=3)
+    rec["library_ms"], y_lib, rec["library_error"] = library_ell_ms(ell, x)
+    if y_lib is not None:
+        rec["library_rel_diff"] = float((y_lib - y).abs().max()) / scale
+    del y_lib
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    print("ell_apply", json.dumps(rec), flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ell_apply_run(dev):
+    """Phase 22: ell_spmv at the main path's shapes, each against its plain
+    version on the card (1e-12 of max|y|) and timed beside it, the CSR
+    product and the bound: the explicit momentum sectors kagome-24 Sz=0
+    k=(0,2) and chain-24 Sz=0 k=0 (complex), the full sectors chain-24 and
+    kagome-24 Sz=0 (dim 2,704,156, real; a real and a complex x), the
+    Holstein chain's MatvecVrnl at depth 14, k = 1/4 (phase 11's) and a
+    diagonal-only matrix. Returns the records by tag and the worst error."""
+    from quantum_basis_tpu_torch.ops.apply import MatvecFull
+    from quantum_basis_tpu_torch.ops.apply_vrnl import MatvecVrnl
+    from quantum_basis_tpu_torch.ops.sparse import (EllMatrix,
+                                                    build_sparse_full,
+                                                    build_sparse_repr)
+    from torch_zoo import holstein_chain
+
+    t22 = time.perf_counter()
+    out = {"max_abs_err": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def vec(n, cplx):
+        return torch.randn(n, dtype=torch.complex128 if cplx
+                           else torch.float64, device=dev, generator=gen)
+    for tag, kind, k in (("kagome24_k02", "kagome", (0, 2)),
+                         ("chain24_k0", "chain", (0,))):
+        m, op = _k9_model(kind, dev)
+        m.enumerate_basis_repr(list(k), [op], [0.0])
+        ell = build_sparse_repr(m.sec_repr[0].matvec)
+        del m
+        out[tag] = ell_apply_case(tag, ell, vec(ell.n, True), out)
+        del ell
+    for tag, kind in (("chain24_Sz0", "chain"), ("kagome24_Sz0", "kagome")):
+        m, op = _k9_model(kind, dev)
+        m.enumerate_basis_full([op], [0.0])
+        sec = m.sec_full[0]
+        mv = sec.matvec if isinstance(sec.matvec, MatvecFull) else \
+            MatvecFull(m.compiled_Ham, sec.dbasis)
+        ell = build_sparse_full(mv)
+        del m, sec, mv
+        out[tag] = ell_apply_case(tag, ell, vec(ell.n, False), out)
+        out[tag + "_cx"] = ell_apply_case(tag + "_cx", ell,
+                                          vec(ell.n, True), out)
+        if kind == "chain":
+            diag = EllMatrix(torch.zeros((ell.n, 0), dtype=torch.int64,
+                                         device=dev),
+                             torch.zeros((ell.n, 0), dtype=torch.float64,
+                                         device=dev), ell.diag)
+            out["diagonal_only"] = ell_apply_case(
+                "diagonal_only", diag, vec(ell.n, False), out)
+            del diag
+        del ell
+    model, ops = holstein_chain(HOLSTEIN_L, 3, device=dev)
+    seed = int(model.space.strides[model.space.slot(HOLSTEIN_L // 2, 0)])
+    model.build_basis_vrnl([seed], 0, [0.0], [0.0], 14, [ops["N_e"]], [1.0])
+    model.generate_Ham_sparse_vrnl(0)
+    vr = MatvecVrnl(model.sec_vrnl[0].vmat, [0.25])
+    out["vrnl_holstein16_k1/4"] = ell_apply_case(
+        "vrnl_holstein16_k1/4", vr, vec(vr.n, True), out)
+    del model, vr
+    torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
+    return out
+
+
 def memory_run(dev, prod, ckpt_dir):
     """Phase 16: each size of config.MEMORY["cuda"] read by a model on the
     card, at full width, beside the golden of the sector it solves; the
@@ -4899,10 +5103,10 @@ def profile_windows(dev):
 
 
 def main() -> int:
-    """Phases 1-13, 16-21 and 15 on one card; or one mode: ``--profile``,
+    """Phases 1-13, 16-22 and 15 on one card; or one mode: ``--profile``,
     ``--hubbard4x4`` (phase 7), ``--kron-ell`` (phase 17), ``--apply-rows``
     (phase 18), ``--krylov`` (phase 19), ``--apply-repr`` (phase 20),
-    ``--ell-build`` (phase 21), ``--gaps``,
+    ``--ell-build`` (phase 21), ``--ell-apply`` (phase 22), ``--gaps``,
     ``--bsr-bench``, ``--mesh``
     (phase 12), ``--ranks N`` (phase 14: the route on N cards over NCCL,
     then the scaling drivers); ``--mesh-rank`` / ``--ranks-worker`` are the
@@ -4971,6 +5175,15 @@ def main() -> int:
                          verbose=True)
         ell_build_run("cuda")
         return 0
+    if "--ell-apply" in sys.argv[1:]:
+        from quantum_basis_tpu_torch.ops import (apply, apply_repr,
+                                                 cuda_build, ell_build,
+                                                 sparse)
+
+        cuda_build.build([apply._SRC, apply_repr._SRC, ell_build._SRC,
+                          sparse._SRC], verbose=True)
+        ell_apply_run("cuda")
+        return 0
     if "--gaps" in sys.argv[1:]:
         gaps_run("cuda")
         return 0
@@ -4991,20 +5204,22 @@ def main() -> int:
         mesh_run("cuda", m.sec_full[0].labels, m.eigenvals_full[0])
         return 0
     from quantum_basis_tpu_torch.ops import (apply, apply_kron, apply_repr,
-                                             cuda_build, ell_build, krylov)
+                                             cuda_build, ell_build, krylov,
+                                             sparse)
     from quantum_basis_tpu_torch.ops import bsr as bsr_mod
 
     # every kernel of the path, one nvcc each, all started together
     t0 = time.perf_counter()
     cuda_build.build([bsr_mod._SRC, apply_kron._SRC, apply._SRC,
-                      krylov._SRC, apply_repr._SRC, ell_build._SRC],
-                     verbose=True)
+                      krylov._SRC, apply_repr._SRC, ell_build._SRC,
+                      sparse._SRC], verbose=True)
     bsr_mod.build_library()
     apply_kron.build_library()
     apply.build_library()
     krylov.build_library()
     apply_repr.build_library()
     ell_build.build_library()
+    sparse.build_library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     # K9's main path: phases 4, 8 and 10, each with the counts set to 0
@@ -5104,6 +5319,12 @@ def main() -> int:
     ell21 = ell_build_run(dev)
     print(f"phases 1-13, 16-21: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    ell22 = ell_apply_run(dev)
+    print(f"phases 1-13, 16-22: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print("ell_spmv launches in the ELL solves of phases 5 and 8:",
+          json.dumps(ELL_SPMV_LAUNCHES), flush=True)
 
     main_row = next(r for r in rows if r["case"] == "tilted20_k00"
                     and r["vector"] == "complex")
@@ -5249,6 +5470,23 @@ def main() -> int:
         "shapes": {t: {f: ell21[t][f] for f in (
             "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
             for t in ("kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")}})
+    # the ELL apply: launches in the ELL solves of phases 5 and 8, times in
+    # phase 22 at the explicit momentum route's sector (phase 8's)
+    record["kernels"].append({
+        "name": "ell_spmv",
+        "route": "cuda",
+        "source": "quantum_basis_tpu_torch/csrc/ell_spmv.cu",
+        "replaces": "quantum_basis_tpu/ops/sparse.py:96",
+        "launches": sum(ELL_SPMV_LAUNCHES.values()),
+        "max_abs_err": ell22["max_abs_err"],
+        **{f: ell22["kagome24_k02"][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")},
+        "launches_by_solve": ELL_SPMV_LAUNCHES,
+        "shapes": {t: {f: r[f] for f in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+            for t, r in ell22.items() if t not in ("max_abs_err",
+                                                   "kagome24_k02")}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

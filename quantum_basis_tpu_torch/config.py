@@ -151,9 +151,15 @@ ROUTING = {
         # against MatvecRepr: 810 (chain-16) 0.039, 0.040 / 0.030, 0.032;
         # 8,730 (kagome t-J) 0.066, 0.058 / 0.045, 0.049; 9,252 (chain-20)
         # 0.058, 0.053 / 0.036, 0.036; 338,356 (kagome-24) 0.216, 0.283 /
-        # 0.175, 0.167 (2.4 / 1.8 GB peak). MatvecRepr wins at every
-        # measured dim: the bound sits below the smallest.
-        "bsr_auto_max_dim": 0,
+        # 0.175, 0.167 (2.4 / 1.8 GB peak): MatvecRepr won at every
+        # measured dim, whence 0. On the ELL apply's kernel (csrc/
+        # ell_spmv.cu; two runs, the ELL built in the run / MatvecRepr):
+        # 810 0.028, 0.032 / 0.025, 0.040; 8,730 0.034, 0.036 / 0.043,
+        # 0.047; 9,252 0.042, 0.030 / 0.041, 0.037; 338,356 0.132, 0.145
+        # / 0.198, 0.176 (1.53 / 1.49 GB peak). Both runs give the ELL the
+        # largest and the kagome t-J dim, and split near even at the other
+        # two: the bound is the largest measured dim.
+        "bsr_auto_max_dim": 338_356,
         # KPM on P_k H against the sector-dim engines (ELL / BSR /
         # MatvecRepr): 2^16 labels (chain-16) 0.29 against 0.04 / 0.07 /
         # 0.22, 3^12 (kagome t-J) 0.60 against 0.06 / 0.08 / 0.32, 2^20

@@ -3,8 +3,10 @@
 Port of ``quantum_basis_tpu.ops.sparse`` (reference LIL -> CSR pipeline,
 ``generate_Ham_sparse_full/repr``, src/model.cc:619-836, src/sparse.cc). Rows
 are stored fixed-width (ELL): ``cols (n, W) int64`` + ``vals (n, W)``
-(complex128, or float64 for a real matrix) + real ``diag (n,)``. The SpMV
-is one gather ``x[cols]`` and a row reduction.
+(complex128, or float64 for a real matrix) + real ``diag (n,)``. The SpMV,
+:func:`ell_spmv`, launches ``csrc/ell_spmv.cu`` on CUDA tensors (built with
+nvcc for sm_90a at first use, ops/cuda_build.py) and runs the plain
+version, a gather ``x[cols]`` and a row reduction, on CPU tensors.
 
 The builds reuse the matrix-free image machinery (the packed tables of a
 full sector, ``apply_repr.ReprLaunch.images`` for a momentum sector) and
@@ -16,10 +18,105 @@ order as the JAX package's numpy ``_compact_rows_np``.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from quantum_basis_tpu_torch.ops import cuda_build
 from quantum_basis_tpu_torch.ops.ell_build import ell_rows
+
+_SRC = cuda_build.CSRC / "ell_spmv.cu"
+
+# Launches of ell_spmv since the last reset (the CPU plain version is not
+# counted): lets a run show that its solves went through the kernel.
+launch_count = 0
+
+_lib = None
+
+
+def build_library(verbose: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/ell_spmv.cu`` (once per source content, into
+    ``quantum_basis_tpu_torch/_build/``, ops/cuda_build.py) and load it.
+    ``verbose`` prints nvcc's ptxas report when this call builds."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load(_SRC, verbose)
+        lib.qbt_ell_spmv.argtypes = ([ctypes.c_void_p] * 6
+                                     + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p])
+        lib.qbt_ell_spmv.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _ell_spmv_plain(cols, vals, diag, xd, xs):
+    """Plain PyTorch :func:`ell_spmv`: the gather, the products and the
+    row sum as torch ops (two (n, W) intermediates)."""
+    return diag * xd + (vals * xs[cols]).sum(dim=1)
+
+
+def _check_cuda_args(cols, vals, diag, xd, xs):
+    dev = diag.device
+    if vals.dim() != 2 or vals.dtype not in (torch.float64,
+                                             torch.complex128):
+        raise ValueError(f"ell_spmv takes (n, W) float64 or complex128 "
+                         f"values, got {vals.dtype} {tuple(vals.shape)}")
+    n, W = vals.shape
+    for name, t, dt, shape in (("cols", cols, torch.int64, (n, W)),
+                               ("vals", vals, vals.dtype, (n, W)),
+                               ("diag", diag, torch.float64, (n,)),
+                               ("xd", xd, xd.dtype, (n,)),
+                               ("xs", xs, xd.dtype, (xs.shape[0],))):
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"ell_spmv: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.numel() and t.data_ptr() % t.element_size():
+            raise ValueError(f"ell_spmv: {name} is not aligned to its "
+                             f"elements")
+    if W and n and not xs.numel():
+        raise ValueError("ell_spmv: the columns index an empty xs")
+
+
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
+             xd: torch.Tensor, xs: torch.Tensor | None = None) -> torch.Tensor:
+    """y[i] = diag[i] xd[i] + sum_k vals[i, k] xs[cols[i, k]].
+
+    ``cols`` (n, W) int64 and ``vals`` (n, W) float64 or complex128 (padded
+    slots column 0, value 0), ``diag`` (n,) float64; ``xd`` (n,) and ``xs``
+    the vector the columns index (``xd`` where None; the halo engine's
+    ``[x_local | halo]``). x and y are complex128 where x or the values
+    are complex, else float64. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise).
+    """
+    global launch_count
+    cdt = (torch.complex128 if vals.is_complex() or xd.is_complex()
+           or (xs is not None and xs.is_complex()) else torch.float64)
+    xd = xd.to(cdt).contiguous()
+    xs = xd if xs is None else xs.to(cdt).contiguous()
+    if xd.device.type == "cpu":
+        return _ell_spmv_plain(cols, vals, diag, xd, xs)
+    if xd.device.type != "cuda":
+        raise ValueError(f"ell_spmv: unsupported device {xd.device}")
+    _check_cuda_args(cols, vals, diag, xd, xs)
+    n, W = vals.shape
+    y = torch.empty(n, dtype=cdt, device=xd.device)
+    if not n:
+        return y
+    lib = build_library()
+    with torch.cuda.device(xd.device):
+        err = lib.qbt_ell_spmv(
+            cols.data_ptr(), vals.data_ptr(), diag.data_ptr(),
+            xd.data_ptr(), xs.data_ptr(), y.data_ptr(), n, W,
+            int(vals.is_complex()), int(cdt == torch.complex128),
+            torch.cuda.current_stream(xd.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ell_spmv kernel launch failed: cudaError {err}")
+    launch_count += 1
+    return y
 
 
 class EllMatrix:
@@ -38,10 +135,8 @@ class EllMatrix:
         self.n_applies = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.is_complex:
-            x = x.to(torch.complex128)
         self.n_applies += 1
-        return self.diag * x + (self.vals * x[self.cols]).sum(dim=1)
+        return ell_spmv(self.cols, self.vals, self.diag, x)
 
 
 def build_sparse_full(matvec) -> EllMatrix:

@@ -19,7 +19,8 @@ likewise builds CSR once and reuses it per MultMv, src/sparse.cc:113-328):
    each owner which of its entries to send (the send index lists);
 3. per apply: gather the send values, ONE ragged ``all_to_all_single``
    with exact per-pair sizes, concatenate ``[x_local | halo]``, and run the
-   ELL row reduction with columns remapped into that buffer.
+   ELL row reduction (``ops/sparse.py::ell_spmv``, the ``csrc/ell_spmv.cu``
+   kernel on the card) with columns remapped into that buffer.
 
 "Live" is a stored nonzero value (``vals != 0``): padding entries create no
 traffic and read local slot 0. What is left behind: the JAX package pads
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from quantum_basis_tpu_torch.ops.sparse import ell_spmv
 from quantum_basis_tpu_torch.parallel.mesh import RowSharded
 
 
@@ -119,7 +121,7 @@ class EllShardedHalo(RowSharded):
                                     self._recv_counts)
         buf = torch.cat([x, halo])
         self.n_applies += 1
-        return self._diag * x + (self._vals * buf[self._cols]).sum(dim=1)
+        return ell_spmv(self._cols, self._vals, self._diag, x, buf)
 
     # ---------------------------------------------------------- diagnostics
 

@@ -162,9 +162,9 @@ def test_cuda_bsr_rule(case):
 def test_cuda_kpm_runs_at_the_sector_dim():
     """KPM on a chain-16 momentum sector (2^16 labels, above the card's
     kpm_fullspace_max_N): on the "cuda" table the recurrence runs on the
-    sector's matrix-free MatvecRepr (its dim 810 above bsr_auto_max_dim:
-    no ELL is built for a BSR decision), not on P_k H, and gives the P_k H
-    moments."""
+    sector's explicit ELL (its dim 810 within bsr_auto_max_dim: the ELL is
+    built for a BSR decision, which on the CPU keeps the ELL), not on P_k
+    H, and gives the P_k H moments."""
     from quantum_basis_tpu_torch.benchmarks.routing import SZ_HALF, _sz_q
     from quantum_basis_tpu_torch.examples import kpm_engine_of
 
@@ -181,7 +181,7 @@ def test_cuda_kpm_runs_at_the_sector_dim():
                                                        bounds=(-8.0, 6.0))
             out[table] = (kpm_engine_of(m, 1), nrm, mu)
     assert out["cpu"][0] == "ProjectedFullOp"
-    assert out["cuda"][0] == "MatvecRepr"
+    assert out["cuda"][0] == "EllMatrix"
     assert abs(out["cpu"][1] - out["cuda"][1]) < 1e-12
     assert max(abs(a - b) for a, b in zip(out["cpu"][2], out["cuda"][2])) \
         < 1e-10
