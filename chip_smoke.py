@@ -337,15 +337,20 @@ Phases (any failure raises, so the exit code is nonzero):
    print the momentum ELL builds' seconds beside their solves.
 22. (after 21, before 15; ``--ell-apply`` runs it alone) the ELL apply
    (csrc/ell_spmv.cu, K3) against its plain version on the card, 1e-12 of
-   max|y|: the explicit momentum sectors kagome-24 Sz=0 k=(0,2) (dim
-   338,356) and chain-24 Sz=0 k=0 (complex), the full sectors chain-24 and
-   kagome-24 Sz=0 (dim 2,704,156, real values; a real and a complex x),
-   MatvecVrnl of the Holstein chain at depth 14 and k = 1/4 (phase 11's
-   sector) and a diagonal-only matrix (W = 0); each timed (CUDA events 25x5,
-   and the launch's torch.profiler device time) beside its plain version,
-   one torch.sparse CSR product of the same matrix with the diagonal (used
-   nowhere in the package) and its bound (bytes: the stored columns and
-   values, the diagonal and x read once, y written once; over 3.35 TB/s).
+   max|y|, through the matrix's launch record (int32 columns, the main
+   path's call) and through the functional wrapper on int64 columns: the
+   explicit momentum sectors kagome-24 Sz=0 k=(0,2) (dim 338,356) and
+   chain-24 Sz=0 k=0 (complex), the full sectors chain-24 and kagome-24
+   Sz=0 (dim 2,704,156, real values; a real and a complex x), MatvecVrnl of
+   the Holstein chain at depth 14 and k = 1/4 (phase 11's sector) and a
+   diagonal-only matrix (W = 0); each timed (CUDA events 25x5, the launch's
+   torch.profiler device time, the record's host time a call over 200
+   calls, the int64 instance) beside its plain version, one torch.sparse
+   CSR product of the same matrix with the diagonal (used nowhere in the
+   package), the mean live slots a row and two bounds (bytes over 3.35
+   TB/s: the live slots at int32 columns, the row lengths, the diagonal
+   and x read once, y written once; and the stored columns and values in
+   place of the live slots).
 
 Phases 4a, 8 and 10b drive P_k H and phases 4b and 10a the BSR bulk stage
 on purpose: they pin the JAX package's values of the bounds that select
@@ -1914,7 +1919,8 @@ def holstein_band(dev, model, ops, seed):
         # least time of one apply: cols, values, diagonal and x read once,
         # y written once, over the memory rate
         ell = s.matvec
-        bound_ms = (ell.cols.numel() * 8 + ell.vals.numel() * 16
+        bound_ms = (ell.cols.numel() * ell.cols.element_size()
+                    + ell.vals.numel() * 16
                     + ell.n * (8 + 16 + 16)) / HBM_BYTES_PER_S * 1e3
         # 11c: the spectral function of B_k|0>
         bk = _b_k(ops, k)
@@ -4448,7 +4454,7 @@ def ell_bound(ell, ix, per_row, tables, records):
                       device=j.device)
     pos[ix.labels[j] // per] = True
     nbytes = (per_row * ell.n + tables + 32 * int(pos.sum())
-              + ell.cols.numel() * 8
+              + ell.cols.numel() * ell.cols.element_size()
               + ell.vals.numel() * ell.vals.element_size())
     if records:
         rec = torch.zeros(-(-ix.n // 2), dtype=torch.bool, device=j.device)
@@ -4599,21 +4605,29 @@ def ell_build_run(dev):
 # --------------------------------------------------------------------------
 
 
-def ell_apply_bound(ell, x):
+def ell_apply_bound(ell, x, live=True):
     """Least time of one ELL apply y = diag x + A x on this card in ms, and
-    which bound it is. Bytes: the stored (n, W) columns and values, the
-    diagonal and x read once, y written once, over 3.35 TB/s. Operations:
-    2 a stored slot for real values and a real x, 4 against a complex x, 8
-    for complex values, and the diagonal's 2 or 4 a row, over the float64
+    which bound it is. Bytes, with ``live``: each row's live slots (below
+    its row length, ops/sparse.py::row_lengths: an int32 column and a value
+    each), the row lengths (int32), the diagonal and x read once, y written
+    once; without: the stored (n, W) columns and values as they are stored,
+    the diagonal and x, and y; over 3.35 TB/s. Operations: 2 a slot (live
+    or stored) for real values and a real x, 4 against a complex x, 8 for
+    complex values, and the diagonal's 2 or 4 a row, over the float64
     peak."""
-    n, W = ell.n, ell.width
+    n = ell.n
     cplx = ell.is_complex or x.is_complex()
     vb = 16 if cplx else 8
-    nbytes = (ell.cols.numel() * ell.cols.element_size()
-              + ell.vals.numel() * ell.vals.element_size() + 8 * n
-              + 2 * vb * n)
+    if live:
+        slots = int(ell.rowlen.sum())
+        nbytes = slots * (4 + ell.vals.element_size()) + 4 * n
+    else:
+        slots = n * ell.width
+        nbytes = (ell.cols.numel() * ell.cols.element_size()
+                  + ell.vals.numel() * ell.vals.element_size())
+    nbytes += 8 * n + 2 * vb * n
     per = 8 if ell.is_complex else (4 if cplx else 2)
-    flops = per * n * W + (4 if cplx else 2) * n
+    flops = per * slots + (4 if cplx else 2) * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -4631,7 +4645,8 @@ def library_ell_ms(ell, x):
         live = ell.vals.reshape(-1) != 0
         diag = torch.arange(n, device=dev)
         idx = torch.stack([torch.cat([rows[live], diag]),
-                           torch.cat([ell.cols.reshape(-1)[live], diag])])
+                           torch.cat([ell.cols.reshape(-1)[live].long(),
+                                      diag])])
         vals = torch.cat([ell.vals.reshape(-1)[live].to(x.dtype),
                           ell.diag.to(x.dtype)])
         del rows, live
@@ -4646,51 +4661,77 @@ def library_ell_ms(ell, x):
 
 
 def ell_apply_case(tag, ell, x, out):
-    """One matrix and vector: the kernel (one launch) against the plain
-    version on the same CUDA tensors to 1e-12 of max|y|, then the kernel,
-    the plain version and the CSR product timed with CUDA events (the
-    kernel also by torch.profiler), beside the bound."""
+    """One matrix and vector: the kernel through the matrix's launch record
+    (``ell(x)``, the main path's call, int32 columns; one launch) and
+    through the functional wrapper on the same matrix with int64 columns,
+    each against the plain version on the same CUDA tensors to 1e-12 of
+    max|y|; then the record's call, the int64 instance, the plain version
+    and the CSR product timed with CUDA events (the kernel also by
+    torch.profiler, and the record's call by the host clock over 200
+    calls), beside the live and the stored bytes' bounds."""
     from quantum_basis_tpu_torch.ops import sparse
-    from quantum_basis_tpu_torch.ops.sparse import _ell_spmv_plain, ell_spmv
+    from quantum_basis_tpu_torch.ops.sparse import (EllLaunch,
+                                                    _ell_spmv_plain,
+                                                    ell_spmv)
 
     cdt = (torch.complex128 if ell.is_complex or x.is_complex()
            else torch.float64)
     x = x.to(cdt)
-    args = (ell.cols, ell.vals, ell.diag, x)
-    before = sparse.launch_count
-    y = ell_spmv(*args)
-    if sparse.launch_count != before + 1:
-        raise AssertionError(f"22 {tag}: {sparse.launch_count - before} "
-                             f"launches for one apply")
-    want = _ell_spmv_plain(*args, x)
-    torch.cuda.synchronize()
-    err = float((y - want).abs().max())
+    if ell.cols.dtype != torch.int32:
+        raise AssertionError(f"22 {tag}: {ell.cols.dtype} columns")
+    want = _ell_spmv_plain(ell.cols, ell.vals, ell.diag, x, x)
+    cols64 = ell.cols.long()
     scale = float(want.abs().max())
-    out["max_abs_err"] = max(out["max_abs_err"], err)
-    print(f"check 22 {tag}: kernel vs plain {err:.3e} (max|y| {scale:.3e}, "
-          f"tol 1e-12 max|y|)", flush=True)
-    if not err <= 1e-12 * scale:
-        raise AssertionError(f"22 {tag}: the kernel differs from its plain "
-                             f"version by {err:.3e}")
+    errs = {}
+    for name, call in (("int32", lambda: ell(x)),
+                       ("int64", lambda: ell_spmv(cols64, ell.vals,
+                                                  ell.diag, x))):
+        before = sparse.launch_count
+        y = call()
+        if sparse.launch_count != before + 1:
+            raise AssertionError(f"22 {tag} {name}: "
+                                 f"{sparse.launch_count - before} launches "
+                                 f"for one apply")
+        torch.cuda.synchronize()
+        errs[name] = float((y - want).abs().max())
+        print(f"check 22 {tag} {name} columns: kernel vs plain "
+              f"{errs[name]:.3e} (max|y| {scale:.3e}, tol 1e-12 max|y|)",
+              flush=True)
+        if not errs[name] <= 1e-12 * scale:
+            raise AssertionError(f"22 {tag} {name}: the kernel differs from "
+                                 f"its plain version by {errs[name]:.3e}")
     del want
+    rec64 = EllLaunch(cols64, ell.vals, ell.diag, ell.rowlen)
+    err = max(errs.values())
+    out["max_abs_err"] = max(out["max_abs_err"], err)
     rec = {"case": tag, "dim": ell.n, "W": ell.width,
            "values": "complex" if ell.is_complex else "real",
            "x": "complex" if x.is_complex() else "real",
+           "group": ell._launch.group,
+           "live_slots_mean": float(ell.rowlen.sum()) / max(ell.n, 1),
            "ell_bytes": (ell.cols.numel() * ell.cols.element_size()
                          + ell.vals.numel() * ell.vals.element_size()),
-           "card": card_line(), "max_abs_err": err, "max_abs_y": scale}
-    rec["bound_ms"], rec["bound_by"] = ell_apply_bound(ell, x)
-    rec["ms"] = cuda_ms(lambda: ell_spmv(*args))
-    rec["device_ms"] = kernel_device_ms(lambda: ell_spmv(*args),
+           "card": card_line(), "max_abs_err": err,
+           "max_abs_err_int64": errs["int64"], "max_abs_y": scale}
+    rec["live_bound_ms"], rec["bound_by"] = ell_apply_bound(ell, x)
+    rec["bound_ms"] = rec["live_bound_ms"]
+    rec["stored_bound_ms"] = ell_apply_bound(ell, x, live=False)[0]
+    rec["ms"] = cuda_ms(lambda: ell(x))
+    rec["device_ms"] = kernel_device_ms(lambda: ell(x),
                                         ("ell_spmv_kernel",))[
         "ell_spmv_kernel"]
-    rec["plain_ms"] = cuda_ms(lambda: _ell_spmv_plain(*args, x), samples=10,
-                              per_sample=3)
+    rec["host_ms"] = host_ms(lambda: ell(x))
+    rec["ms_int64"] = cuda_ms(lambda: rec64(x))
+    del rec64, cols64
+    rec["plain_ms"] = cuda_ms(
+        lambda: _ell_spmv_plain(ell.cols, ell.vals, ell.diag, x, x),
+        samples=10, per_sample=3)
     rec["library_ms"], y_lib, rec["library_error"] = library_ell_ms(ell, x)
     if y_lib is not None:
-        rec["library_rel_diff"] = float((y_lib - y).abs().max()) / scale
+        rec["library_rel_diff"] = float((y_lib - ell(x)).abs().max()) / scale
     del y_lib
-    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["share_of_bound"] = rec["live_bound_ms"] / rec["ms"]
+    rec["share_of_stored_bound"] = rec["stored_bound_ms"] / rec["ms"]
     print("ell_apply", json.dumps(rec), flush=True)
     torch.cuda.empty_cache()
     return rec
@@ -5471,7 +5512,11 @@ def main() -> int:
             "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
             for t in ("kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")}})
     # the ELL apply: launches in the ELL solves of phases 5 and 8, times in
-    # phase 22 at the explicit momentum route's sector (phase 8's)
+    # phase 22 at the explicit momentum route's sector (phase 8's); bound_ms
+    # is the live slots' bound, stored_bound_ms the stored arrays'
+    ell_fields = ("ms", "device_ms", "host_ms", "ms_int64", "plain_ms",
+                  "bound_ms", "stored_bound_ms", "library_ms",
+                  "live_slots_mean", "group")
     record["kernels"].append({
         "name": "ell_spmv",
         "route": "cuda",
@@ -5479,14 +5524,11 @@ def main() -> int:
         "replaces": "quantum_basis_tpu/ops/sparse.py:96",
         "launches": sum(ELL_SPMV_LAUNCHES.values()),
         "max_abs_err": ell22["max_abs_err"],
-        **{f: ell22["kagome24_k02"][f] for f in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms")},
+        **{f: ell22["kagome24_k02"][f] for f in ell_fields + ("bound_by",)},
         "launches_by_solve": ELL_SPMV_LAUNCHES,
-        "shapes": {t: {f: r[f] for f in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
-            for t, r in ell22.items() if t not in ("max_abs_err",
-                                                   "kagome24_k02")}})
+        "shapes": {t: {f: r[f] for f in ell_fields}
+                   for t, r in ell22.items() if t not in ("max_abs_err",
+                                                          "kagome24_k02")}})
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

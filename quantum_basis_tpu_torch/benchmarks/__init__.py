@@ -6,9 +6,11 @@ S(q, w)), ``memory`` (whole solves at each setting of the memory sizes),
 ``hubbard4x4`` (the 4x4 Hubbard ground state, dim 165,636,900),
 ``hubbard4x4_gaps`` (its spin and charge gaps), ``scaling`` (the sharded
 engines on 1, 2, 4, ... ranks), ``comm_roofline`` (their communication
-against their compute), ``krylov_trace`` (a restart cycle's split) and
-``turns`` (the momentum-sector kernels or the ELL builds at full width, for
-turns with another tree). Each runs as
+against their compute), ``krylov_trace`` (a restart cycle's split),
+``turns`` (the momentum-sector kernels, the ELL builds or the ELL apply at
+full width, for turns with another tree) and ``ell_variants`` (the ELL
+apply's design choices against variants of its kernel and layout). Each
+runs as
 
     python -m quantum_basis_tpu_torch.benchmarks.<name> [--device cpu]
 

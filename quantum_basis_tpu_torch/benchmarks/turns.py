@@ -1,6 +1,7 @@
 """One tree of the package timed at full width on the card, so that two
 trees can be run in turns on one card: its momentum-sector kernels
-(section ``repr``) or its explicit ELL builds (section ``ell``).
+(section ``repr``), its explicit ELL builds (section ``ell``) or its ELL
+apply (section ``spmv``).
 
 ``repr``: at kagome-24 Sz=0 k=(0,2) (dim 338,356, G = 8) and chain-24 Sz=0
 k=0 (dim 112,720, G = 24), ``repr_rows`` through the sector's
@@ -20,12 +21,24 @@ peak device bytes above what was held before, the device time a build of
 the kernels named ``repr_images_kernel`` or ``ell_rows_kernel``
 (``torch.profiler``, every launch of a build summed; absent in a tree
 whose build runs no such kernel), the ELL's width, and a CRC32 of its
-columns (equal columns in two trees, equal checksums).
+columns (equal columns in two trees, equal checksums; taken over the int64
+view, so that a tree of int64 columns and one of int32 compare).
+
+``spmv``: the ELL apply ``EllMatrix.__call__`` (``ell_spmv``) at the
+sectors of ``chip_smoke.py``'s phase 22: the two momentum sectors above
+(a complex x), chain-24 and kagome-24 Sz=0 (a real and a complex x), the
+Holstein chain's ``MatvecVrnl`` at depth 14, k = 1/4 (complex), and
+chain-24 Sz=0's diagonal alone (W = 0, a real x). Each matrix as the tree
+builds it, checked against the tree's plain version (1e-12 of max|y|),
+timed as ``repr``'s kernels are (CUDA events, the ``ell_spmv_kernel``
+launches' device time, the host clock over 200 calls), with its width,
+columns' type, the kernel's group size where the tree chooses one, and
+the CRC32 of its columns (int64 view).
 
 One JSON line a sector, tagged with ``--tag`` and the card's name and power
 limit; the records also go to ``--out``.
 
-Run:  python -m quantum_basis_tpu_torch.benchmarks.turns {repr,ell} [--tag NAME] [--out PATH]
+Run:  python -m quantum_basis_tpu_torch.benchmarks.turns {repr,ell,spmv} [--tag NAME] [--out PATH]
 
 Another tree (a parent commit unpacked in DIR): ``cd DIR && PYTHONPATH=.
 python <this file> SECTION --tag parent --out PATH``; the models come from
@@ -190,14 +203,77 @@ def ell_case(name, kind, k):
         rec["s"].append(t)
         rec["peak_bytes"].append(peak)
     rec["W"] = ell.width
-    rec["cols_crc32"] = zlib.crc32(ell.cols.cpu().numpy().tobytes())
+    # over the int64 view, so that trees that store int32 and int64
+    # columns compare
+    rec["cols_crc32"] = zlib.crc32(
+        ell.cols.cpu().numpy().astype(np.int64).tobytes())
     del ell
     rec["device_ms"] = _device_ms(
         build, ("repr_images_kernel", "ell_rows_kernel"), reps=3)
     return rec
 
 
-SECTIONS = {"repr": (repr_case, MOMENTA), "ell": (ell_case, MOMENTA + FULL)}
+# --------------------------------------------------------------------------
+# spmv: the ELL apply
+# --------------------------------------------------------------------------
+
+
+SPMV = MOMENTA + FULL[:2] + (("vrnl_holstein16_k1/4", "vrnl", None),
+                             ("diagonal_only", "chain24", None))
+
+
+def _vrnl_matrix():
+    """The Holstein chain's MatvecVrnl (L = 16, Nmax = 3, depth 14, k =
+    1/4: dim 28,956), chip_smoke.py's phase-11 sector."""
+    from torch_zoo import holstein_chain
+
+    from quantum_basis_tpu_torch.ops.apply_vrnl import MatvecVrnl
+
+    m, ops = holstein_chain(16, 3, device="cuda")
+    seed = int(m.space.strides[m.space.slot(8, 0)])
+    m.build_basis_vrnl([seed], 0, [0.0], [0.0], 14, [ops["N_e"]], [1.0])
+    m.generate_Ham_sparse_vrnl(0)
+    return MatvecVrnl(m.sec_vrnl[0].vmat, [0.25])
+
+
+def spmv_case(name, kind, k):
+    from quantum_basis_tpu_torch.ops.sparse import (EllMatrix,
+                                                    _ell_spmv_plain,
+                                                    build_sparse_full,
+                                                    build_sparse_repr)
+
+    if kind == "vrnl":
+        ell = _vrnl_matrix()
+    else:
+        _, mv = _model(kind, k)
+        ell = build_sparse_full(mv) if k is None else build_sparse_repr(mv)
+        del mv
+    if name == "diagonal_only":
+        n = ell.n
+        ell = EllMatrix(torch.zeros((n, 0), dtype=torch.int64, device="cuda"),
+                        torch.zeros((n, 0), dtype=torch.float64,
+                                    device="cuda"), ell.diag)
+    rec = {"case": name, "dim": ell.n, "W": ell.width,
+           "cols_dtype": str(ell.cols.dtype),
+           "cols_crc32": zlib.crc32(
+               ell.cols.cpu().numpy().astype(np.int64).tobytes())}
+    vecs = (("complex",) if ell.is_complex or kind == "vrnl"
+            else ("real",) if name == "diagonal_only"
+            else ("real", "complex"))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for v in vecs:
+        x = torch.randn(ell.n, dtype=torch.complex128 if v == "complex"
+                        else torch.float64, device="cuda", generator=g)
+        _check(f"{name} {v} x", ell(x),
+               _ell_spmv_plain(ell.cols, ell.vals, ell.diag, x, x))
+        rec[v] = _times(lambda: ell(x), "ell_spmv_kernel")
+    launch = getattr(ell, "_launch", None)
+    rec["group"] = getattr(launch, "group", None)
+    return rec
+
+
+SECTIONS = {"repr": (repr_case, MOMENTA), "ell": (ell_case, MOMENTA + FULL),
+            "spmv": (spmv_case, SPMV)}
 
 
 def main(argv=None) -> int:

@@ -125,16 +125,18 @@ ROUTING = {
         # f32 BSR bulk + f64 polish against the f64 ELL. Off on this card
         # by policy: the bound sits below every measured fill. Per apply
         # the ELL is faster at every fill (benchmarks/bsr_bench.py: 84 to
-        # 834, break-even 29.8-31.9 in three runs, whence 31). Whole
-        # solves: fill 84 (chain-16 k=0) 0.44 / 0.10, 199 (kagome t-J)
-        # 0.24 / 0.24, 308 (kagome-24 k=(0,2)) 1.80 / 0.92 at 53.2 / 22.4
-        # GB peak, 340 (tilted-20) 0.48 / 0.49, 374 (chain-20) 0.40 / 0.49,
-        # 620 (chain-22) 2.15 / 2.48, 834 (chain-24 k=0) 0.53 / 0.49. Under
+        # 834; break-even 29.8-31.9 in three runs against the torch ELL,
+        # 5.31 and 5.48 in two against the live-slot ell_spmv kernel with
+        # int32 columns, whence 5.3). Whole solves: fill 84 (chain-16 k=0)
+        # 0.44 / 0.10, 199 (kagome t-J) 0.24 / 0.24, 308 (kagome-24
+        # k=(0,2)) 1.80 / 0.92 at 53.2 / 22.4 GB peak, 340 (tilted-20)
+        # 0.48 / 0.49, 374 (chain-20) 0.40 / 0.49, 620 (chain-22) 2.15 /
+        # 2.48, 834 (chain-24 k=0) 0.53 / 0.49. Under
         # the rule's form (fill <= bound) every bound from 84 up sends
         # chain-16 k=0 to the BSR (4.4x slower), and the seven sectors
         # together lose 0.34-1.22 s at every such bound, for 2-3x the peak
         # memory.
-        "bsr_blowup_max": 31.0,
+        "bsr_blowup_max": 5.3,
         # the largest measured stored size (kagome-24 k=(0,2): 20.9 GB of
         # f32 blocks, 53.2 GB peak in the solve). It binds only where
         # bsr_blowup_max admits a sector, which none measured here is,
@@ -158,7 +160,12 @@ ROUTING = {
         # 0.047; 9,252 0.042, 0.030 / 0.041, 0.037; 338,356 0.132, 0.145
         # / 0.198, 0.176 (1.53 / 1.49 GB peak). Both runs give the ELL the
         # largest and the kagome t-J dim, and split near even at the other
-        # two: the bound is the largest measured dim.
+        # two: the bound is the largest measured dim. On the kernel that
+        # reads only live slots (two runs): 810 0.037, 0.050 / 0.043,
+        # 0.049; 8,730 0.055, 0.053 / 0.082, 0.065; 9,252 0.034, 0.044 /
+        # 0.055, 0.056; 338,356 0.133, 0.161 / 0.186, 0.152: the ELL at
+        # both middle dims in both runs, a split at the other two; the
+        # bound stays.
         "bsr_auto_max_dim": 338_356,
         # KPM on P_k H against the sector-dim engines (ELL / BSR /
         # MatvecRepr): 2^16 labels (chain-16) 0.29 against 0.04 / 0.07 /

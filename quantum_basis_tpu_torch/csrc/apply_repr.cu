@@ -182,7 +182,7 @@ struct Params {
     // vectors and outputs (complex128 as (re, im) pairs)
     const double* x;
     double* y;
-    long long* cols;                // (rows, W) repr_images
+    int* cols;                      // (rows, W) repr_images
     double* vals;                   // (rows, W, 2) repr_images
     long long* tr_scratch;          // null: T_g(r) in shared memory
     // the entry path

@@ -79,7 +79,7 @@ struct Params {
     const long long* labels;    // (>= rows,) the rows' labels
     const signed char* V;       // (>= rows, S) their slot values
     const long long* fodd;      // (>= rows,) or null
-    long long* cols;            // (rows, W) the finished rows
+    int* cols;                  // (rows, W) the finished rows
     double* vals;               // (rows, W) or (rows, W, 2)
     int* width;                 // the count pass: the widest row
     unsigned char* row_scratch; // the rows' scratch where it is not in

@@ -153,11 +153,13 @@ __device__ __forceinline__ void put(const Scratch<T>& s, int& kept,
 }
 
 // The row from the ``kept`` images the warp put: with write, its entries
-// at cols[0 .. W) and vals[0 .. W); returns its count (the same on every
-// lane). Every lane of the warp calls it.
+// at cols[0 .. W) (int32, the ELL's layout) and vals[0 .. W); returns its
+// count (the same on every lane), which is the row's length in the ELL's
+// sense (ops/sparse.py::row_lengths: every entry kept is nonzero). Every
+// lane of the warp calls it.
 template <class T>
-__device__ int finish(const Scratch<T>& s, int kept, long long* cols,
-                      T* vals, int W, bool write) {
+__device__ int finish(const Scratch<T>& s, int kept, int* cols, T* vals,
+                      int W, bool write) {
     const int lane = threadIdx.x & 31;
     const int K4 = padded(kept);
     if (kept + lane < K4) s.col[kept + lane] = kDrop;

@@ -46,9 +46,10 @@ def vec_to_split(x: torch.Tensor):
 
 
 def ell_from_numpy(cols, vre, vim, diag, *, device) -> EllMatrix:
-    """The JAX package's EllMatrix arrays -> the port's EllMatrix."""
+    """The JAX package's EllMatrix arrays -> the port's EllMatrix (its
+    int32 columns kept)."""
     return EllMatrix(
-        torch.as_tensor(np.array(cols, dtype=np.int64), device=device),
+        torch.as_tensor(np.array(cols, dtype=np.int32), device=device),
         vec_from_split(vre, vim, device=device),
         torch.as_tensor(np.array(diag, dtype=np.float64), device=device))
 

@@ -61,6 +61,7 @@ import torch
 from quantum_basis_tpu_torch import config
 from quantum_basis_tpu_torch.ops import cuda_build
 from quantum_basis_tpu_torch.ops.compile import compile_diagonal
+from quantum_basis_tpu_torch.ops.sparse import row_lengths
 
 _SRC = cuda_build.CSRC / "kron_ell.cu"
 
@@ -80,8 +81,8 @@ def _ell_to_dense(ell, dtype) -> torch.Tensor:
     if ell.width:
         rows = torch.arange(na, device=ell.device)[:, None].expand_as(ell.cols)
         # padding entries carry val 0.0 at col 0: harmless under add
-        dense.index_put_((rows, ell.cols), ell.vals.to(torch.float64),
-                         accumulate=True)
+        dense.index_put_((rows, ell.cols.long()),
+                         ell.vals.to(torch.float64), accumulate=True)
     return dense.to(dtype)
 
 
@@ -106,7 +107,7 @@ def pack_slots(cols, vals, n_cols: int, dtype, device):
     takes 4 bytes a slot against 12 in float64, which took the kernel's
     apply at Hubbard 4x4 from 7.9 to 6.6 ms on an H100; in float32 (8 bytes
     a slot) it was no faster, so float32 is always wide."""
-    cnt = _live_count(vals).to(device)
+    cnt = row_lengths(vals).to(device)
     cols = cols.to(device=device, dtype=torch.int64)
     vals = vals.to(device=device, dtype=dtype)
     cols, vals = _bank_order(cols, vals, cnt)
@@ -190,15 +191,6 @@ def ell_arrays(ell, dtype, device, lo: int = 0, hi: int | None = None):
         cols[: top - lo] = ell.cols[lo:top].to(device)
         vals[: top - lo] = ell.vals[lo:top].to(device)
     return pack_slots(cols, vals, ell.n, dtype, device)
-
-
-def _live_count(vals) -> torch.Tensor:
-    """One past the last nonzero slot of each row of (n, W) values, int32."""
-    if not vals.shape[1]:
-        return torch.zeros(vals.shape[0], dtype=torch.int32,
-                           device=vals.device)
-    slot = torch.arange(1, vals.shape[1] + 1, device=vals.device)
-    return ((vals != 0) * slot).amax(dim=1).to(torch.int32)
 
 
 def kron_layout(na: int, nb: int, device) -> str:

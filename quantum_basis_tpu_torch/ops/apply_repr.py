@@ -957,7 +957,7 @@ class ReprLaunch:
 
     def images(self, row0: int, rows: int, block: int | None = None):
         """Rows ``row0 .. row0 + rows - 1`` of H in the sector as finished
-        ELL rows: (cols (rows, W) int64, vals (rows, W) complex128), each
+        ELL rows: (cols (rows, W) int32, vals (rows, W) complex128), each
         row's entries (j, H[i, j]) merged over its images (a diagonal
         column's at j = i), sorted by column, (0, 0) past them, W the
         widest of these rows. On a CUDA device two launches (the count
@@ -972,7 +972,7 @@ class ReprLaunch:
                              f"sector's {self.rows}")
         rt, tabs, ix, labels, fodd, isn, sqrt_nu, _, phase = self.args
         if not rows or not tabs.n_cols:
-            return (torch.zeros((rows, 0), dtype=torch.int64,
+            return (torch.zeros((rows, 0), dtype=torch.int32,
                                 device=self.device),
                     torch.zeros((rows, 0), dtype=torch.complex128,
                                 device=self.device))

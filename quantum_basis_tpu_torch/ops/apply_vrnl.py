@@ -34,14 +34,14 @@ from quantum_basis_tpu_torch.ops.sparse import EllMatrix
 
 
 def _coo_to_ell(n, rows, cols, vals):
-    """COO entries -> ELL (cols (n, width), vals (n, width)), each row's
-    entries in their COO order; padding is column 0 with value 0."""
+    """COO entries -> ELL (cols (n, width) int32, vals (n, width)), each
+    row's entries in their COO order; padding is column 0 with value 0."""
     order = np.argsort(rows, kind="stable")
     rows, cols, vals = rows[order], cols[order], vals[order]
     counts = np.bincount(rows, minlength=n)
     width = int(counts.max()) if rows.size else 0
     slot = np.arange(rows.size) - np.repeat(np.cumsum(counts) - counts, counts)
-    ell_cols = np.zeros((n, width), dtype=np.int64)
+    ell_cols = np.zeros((n, width), dtype=np.int32)
     ell_vals = np.zeros((n, width), dtype=vals.dtype)
     ell_cols[rows, slot] = cols
     ell_vals[rows, slot] = vals

@@ -143,7 +143,7 @@ def bsr_spmv(blocks_re, blocks_im, bi, bj, row_ptr, x2d):
 def _ell_entries(ell):
     """Live (rows, cols, vals) streams of an EllMatrix."""
     rows = torch.arange(ell.n, device=ell.device).repeat_interleave(ell.width)
-    cols = ell.cols.reshape(-1)
+    cols = ell.cols.reshape(-1).long()
     vals = ell.vals.reshape(-1)
     live = vals != 0
     return rows[live], cols[live], vals[live]

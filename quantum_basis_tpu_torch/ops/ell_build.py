@@ -62,7 +62,8 @@ def compact_rows(cols: torch.Tensor, vals: torch.Tensor,
 
     cols (n, W) int64, vals (n, W) real or complex. Returns (cols, vals)
     sorted by column within each row, invalid slots zeroed, trimmed to the
-    widest surviving row.
+    widest surviving row; the columns int32, the ELL's layout (every
+    column is a row below 2 ** 31 - 1).
     """
     def mag(v):
         return v.real.abs() + v.imag.abs() if v.is_complex() else v.abs()
@@ -87,14 +88,14 @@ def compact_rows(cols: torch.Tensor, vals: torch.Tensor,
     width = int(valid.sum(dim=1).max()) if n else 0
     cols = torch.where(valid, cols, 0)
     vals = torch.where(valid, vals, 0.0)
-    return cols[:, :width], vals[:, :width]
+    return cols[:, :width].to(torch.int32), vals[:, :width]
 
 
 def assemble(parts, vdt, device):
     """The compacted blocks ``parts`` [(cols, vals), ...] padded to the
-    widest and stacked: (cols (rows, W) int64, vals (rows, W) ``vdt``)."""
+    widest and stacked: (cols (rows, W) int32, vals (rows, W) ``vdt``)."""
     if not parts:
-        return (torch.zeros((0, 0), dtype=torch.int64, device=device),
+        return (torch.zeros((0, 0), dtype=torch.int32, device=device),
                 torch.zeros((0, 0), dtype=vdt, device=device))
     width = max(c.shape[1] for c, _ in parts)
 
@@ -127,12 +128,12 @@ def two_pass(rows: int, vdt, device, launch):
     """A kernel build of ``rows`` finished rows: ``launch(cols, vals,
     width, W)`` once with no output and a device int32 ``width`` that the
     count pass raises to the widest row, then, after the build's one host
-    sync reads W, once more into (rows, W) cols (int64) and vals (``vdt``)
+    sync reads W, once more into (rows, W) cols (int32) and vals (``vdt``)
     (no second launch where W is 0)."""
     width = torch.zeros(1, dtype=torch.int32, device=device)
     launch(None, None, width, 0)
     W = int(width)
-    cols = torch.empty((rows, W), dtype=torch.int64, device=device)
+    cols = torch.empty((rows, W), dtype=torch.int32, device=device)
     vals = torch.empty((rows, W), dtype=vdt, device=device)
     if W:
         launch(cols, vals, None, W)
@@ -220,7 +221,7 @@ def _check(tabs, ix, labels, V, fodd, n, dev):
 def ell_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, n: int,
              block: int):
     """The finished ELL rows of H over the basis rows 0 .. n - 1: (cols (n,
-    W) int64, vals (n, W)), H[i, j] = conj(A) sign over the images of
+    W) int32, vals (n, W)), H[i, j] = conj(A) sign over the images of
     ``tabs`` applied to |i> (the matrix-free apply's Hermitian row-gather
     direction), float64 where every amplitude is real, else complex128.
 
@@ -233,7 +234,7 @@ def ell_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, n: int,
     vdt = torch.complex128 if tabs.is_complex else torch.float64
     dev = labels.device
     if not n or not tabs.n_cols:
-        return (torch.zeros((n, 0), dtype=torch.int64, device=dev),
+        return (torch.zeros((n, 0), dtype=torch.int32, device=dev),
                 torch.zeros((n, 0), dtype=vdt, device=dev))
     if _device_of(labels) == "cpu":
         return _ell_rows_plain(tabs, ix, labels, V, fodd, n, block)

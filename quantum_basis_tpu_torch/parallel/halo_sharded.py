@@ -19,8 +19,10 @@ likewise builds CSR once and reuses it per MultMv, src/sparse.cc:113-328):
    each owner which of its entries to send (the send index lists);
 3. per apply: gather the send values, ONE ragged ``all_to_all_single``
    with exact per-pair sizes, concatenate ``[x_local | halo]``, and run the
-   ELL row reduction (``ops/sparse.py::ell_spmv``, the ``csrc/ell_spmv.cu``
-   kernel on the card) with columns remapped into that buffer.
+   ELL row reduction with int32 columns remapped into that buffer (on the
+   card the ``csrc/ell_spmv.cu`` kernel through one launch record,
+   ``ops/sparse.py::EllLaunch``, built with the engine; the plain
+   ``ell_spmv`` on the CPU).
 
 "Live" is a stored nonzero value (``vals != 0``): padding entries create no
 traffic and read local slot 0. What is left behind: the JAX package pads
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from quantum_basis_tpu_torch.ops.sparse import ell_spmv
+from quantum_basis_tpu_torch.ops.sparse import EllLaunch, ell_spmv
 from quantum_basis_tpu_torch.parallel.mesh import RowSharded
 
 
@@ -97,10 +99,12 @@ class EllShardedHalo(RowSharded):
         # columns remapped into the buffer [x_local (nl) | halo]
         rm = torch.where(owner == mesh.rank, cols - lo, 0)
         rm[remote] = nl + torch.searchsorted(need, cols[remote])
-        self._cols = torch.where(live, rm, 0)
+        self._cols = torch.where(live, rm, 0).to(torch.int32)
         self._vals = vals
         self._diag = diag
         self.width = W
+        self._launch = (EllLaunch(self._cols, vals, diag)
+                        if dev.type == "cuda" else None)
 
         # the JAX package's diagnostics, over all pairs
         nnz = torch.tensor([need.numel()], dtype=torch.int64, device=dev)
@@ -121,7 +125,9 @@ class EllShardedHalo(RowSharded):
                                     self._recv_counts)
         buf = torch.cat([x, halo])
         self.n_applies += 1
-        return ell_spmv(self._cols, self._vals, self._diag, x, buf)
+        if self._launch is None:
+            return ell_spmv(self._cols, self._vals, self._diag, x, buf)
+        return self._launch(x, buf)
 
     # ---------------------------------------------------------- diagnostics
 

@@ -43,7 +43,7 @@ def _dense_rows(ell, lo: int, hi: int, width: int, device):
     out = torch.zeros((hi - lo, width), dtype=torch.float64, device=device)
     top = min(hi, ell.n)
     if ell.width and top > lo:
-        cols = ell.cols[lo:top].to(device)
+        cols = ell.cols[lo:top].to(device=device, dtype=torch.int64)
         rows = torch.arange(top - lo, device=device)[:, None].expand_as(cols)
         # padding entries carry val 0.0 at col 0: harmless under add
         out.index_put_((rows, cols), ell.vals[lo:top].to(
