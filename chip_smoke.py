@@ -201,7 +201,9 @@ Phases (any failure raises, so the exit code is nonzero):
    apply_rows' in phase 5's chain-24 solve and scatter_rows' in its
    measure_full_static, the K6 kernels' in phase 5's chain-24 solve and
    phase 7's 4x4 solve, the K9 kernels' in phases 4, 8 and 10, ell_rows'
-   in phase 5's ELL builds, ell_spmv's in the ELL solves of phases 5
+   in every ELL build of the run before phase 21 (phase 5's, the mesh
+   route's, the drivers', phase 7's factors', phase 18's; by window),
+   ell_spmv's in the ELL solves of phases 5
    (chain-24 and kagome-24 Sz=0) and 8 (the explicit route at kagome-24
    k=(0,2)), each asserted equal to the solve's ELL applies, each count
    set to 0 just before its path and read just after; the worst
@@ -331,8 +333,15 @@ Phases (any failure raises, so the exit code is nonzero):
    kernel's asserted no higher than the plain build's), launches (two a
    build), CUDA-event and device ms, and bound (each row's label and the
    tables read once, the 32-byte sectors of the position table and of the
-   destination records at the entries' columns, the ELL written once; over
-   3.35 TB/s). Phase 5 counts ell_rows' launches on its main path (the
+   destination records at the entries' columns, the ELL written once, and
+   for ell_rows the rows' lengths; over 3.35 TB/s). For ell_rows also the
+   rows' lengths the build wrote against row_lengths of its values, the
+   row stage it took (ell_build.PATHS: in registers, rows a warp), its
+   instances' registers (cuobjdump -res-usage of the built library), and
+   the build split by CUDA events (ell_build.trace): the host work before
+   the count pass, the count pass, the host gap between the passes (the
+   host sync and the output allocations, their host seconds apart), the
+   write pass. Phase 5 counts ell_rows' launches on its main path (the
    full sectors' ELL builds) and asserts it launched; phases 8 and 13
    print the momentum ELL builds' seconds beside their solves.
 22. (after 21, before 15; ``--ell-apply`` runs it alone) the ELL apply
@@ -387,7 +396,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -4444,7 +4455,8 @@ def ell_bound(ell, ix, per_row, tables, records):
     finished entries' columns (the lookups that this run's data needs,
     merged ones once); with ``records`` (the momentum build) the sectors
     of the destination's 16-byte (label, sqrt(nu)) records there; the
-    finished (n, W) columns and values written once; over 3.35 TB/s.
+    finished (n, W) columns and values written once (and, without
+    ``records``, the full build's int32 row lengths); over 3.35 TB/s.
     Operations: one add an entry, over the float64 peak."""
     if ix.mode != "direct":
         raise ValueError("the bound counts the direct index's sectors")
@@ -4460,6 +4472,8 @@ def ell_bound(ell, ix, per_row, tables, records):
         rec = torch.zeros(-(-ix.n // 2), dtype=torch.bool, device=j.device)
         rec[j // 2] = True
         nbytes += 32 * int(rec.sum())
+    else:
+        nbytes += 4 * ell.n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = j.numel() / PEAK_FLOPS[torch.float64] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -4544,12 +4558,63 @@ def ell_repr_case(tag, kind, val, k, out, dev):
                               True), out, "repr_images")
 
 
+def ell_registers():
+    """{(pass, mode, amp_c, path code): registers} of every ell_rows
+    instance in the built library, read by cuobjdump -res-usage; {} where
+    cuobjdump is missing or fails (not measured)."""
+    from quantum_basis_tpu_torch.ops import cuda_build, ell_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    try:
+        res = subprocess.run(
+            [tool, "-res-usage", str(cuda_build.library_path(
+                ell_build._SRC))], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    found = re.findall(r"ell_rows_kernel_(count|write)ILi(\d)ELb(\d)ELi(\d)E"
+                       r"\S*\s*REG:(\d+)", res.stdout)
+    return {(w, int(m), int(c), int(pth)): int(reg)
+            for w, m, c, pth, reg in found}
+
+
+def ell_split(build, samples=7):
+    """ell_rows' build split by CUDA events (ell_build.trace), the median
+    of ``samples`` builds after one: ms of the host work before the count
+    pass (``pre_ms``), the count pass, the host gap between the passes,
+    the write pass and the host work after it; the host ms of the gap's
+    sync and allocations; the row stage taken."""
+    from quantum_basis_tpu_torch.ops import ell_build
+
+    build()
+    ell_build.trace = []
+    try:
+        for _ in range(samples):
+            build()
+            torch.cuda.synchronize()
+        recs = ell_build.trace
+    finally:
+        ell_build.trace = None
+    keys = ("pre_ms", "count_ms", "host_gap_ms", "write_ms", "post_ms")
+    out = {}
+    for i, key in enumerate(keys):
+        out[key] = float(np.median([r["events"][i].elapsed_time(
+            r["events"][i + 1]) for r in recs]))
+    out["sync_ms"] = 1e3 * float(np.median([r["sync_s"] for r in recs]))
+    out["alloc_ms"] = 1e3 * float(np.median([r["alloc_s"] for r in recs]))
+    out["path"] = recs[-1]["path"]
+    return out
+
+
 def ell_full_case(tag, out, dev):
     """Phase 21, a full sector: build_sparse_full (ell_rows) against the
-    plain build (_row_images, the lookup and compact_rows a block)."""
+    plain build (_row_images, the lookup and compact_rows a block); the
+    rows' lengths the build wrote against row_lengths, its row stage, its
+    instances' registers and its split (ell_split)."""
     from quantum_basis_tpu_torch.ops import ell_build
     from quantum_basis_tpu_torch.ops.apply import MatvecFull
-    from quantum_basis_tpu_torch.ops.sparse import build_sparse_full
+    from quantum_basis_tpu_torch.ops.sparse import (build_sparse_full,
+                                                    row_lengths)
     from torch_zoo import heisenberg_chain, kagome_heisenberg, tj_chain
 
     if tag == "kagome24_Sz0":
@@ -4572,12 +4637,34 @@ def ell_full_case(tag, out, dev):
     x = torch.as_tensor(np.random.default_rng(21).standard_normal(db.n),
                         device=dev)
     per_row = 8 + (8 if db.fodd is not None else 0)
-    return ell_case(
+
+    def bound(ell):
+        if not torch.equal(ell.rowlen, row_lengths(ell.vals)):
+            raise AssertionError(f"21 {tag}: the build's row lengths "
+                                 f"differ from row_lengths")
+        return ell_bound(ell, db.index.tables, per_row, tabs.nbytes, False)
+    rec = ell_case(
         tag, "full", db.n, tabs.n_cols, lambda: build_sparse_full(mv),
-        lambda: ell_build._ell_rows_plain(*args, db.block_rows), mv, x,
-        lambda: ell_build.launch_count, "ell_rows_kernel",
-        lambda ell: ell_bound(ell, db.index.tables, per_row, tabs.nbytes,
-                              False), out, "ell_rows")
+        lambda: ell_build._ell_rows_plain(*args, db.block_rows)[:2], mv, x,
+        lambda: ell_build.launch_count, "ell_rows_kernel", bound, out,
+        "ell_rows")
+    rec.update(ell_split(lambda: build_sparse_full(mv)))
+    passes = kernel_device_ms(lambda: build_sparse_full(mv),
+                              ("ell_rows_kernel_count",
+                               "ell_rows_kernel_write"), per_call=True)
+    rec["count_device_ms"] = passes["ell_rows_kernel_count"]
+    rec["write_device_ms"] = passes["ell_rows_kernel_write"]
+    code = ell_build.PATHS.index(rec["path"])
+    rec["rows_a_warp"] = 2 if code == 1 else 1
+    regs = ell_registers()
+    rec["registers"] = {w: regs.get((w, 0, int(tabs.is_complex), code))
+                        for w in ("count", "write")}
+    print("ell_split", json.dumps({k: rec[k] for k in (
+        "case", "path", "rows_a_warp", "registers", "pre_ms", "count_ms",
+        "host_gap_ms", "sync_ms", "alloc_ms", "write_ms", "post_ms", "ms",
+        "device_ms", "count_device_ms", "write_device_ms", "bound_ms")}),
+          flush=True)
+    return rec
 
 
 def ell_build_run(dev):
@@ -5280,13 +5367,15 @@ def main() -> int:
                     "bsr_stored_max_bytes"):
         launches, e0_chain20, tilted = k9_window(
             lambda: slice_run(bsr_mod, dev))
-    # ell_rows' main path: phase 5's full-sector ELL builds
+    # ell_rows' main path: every ELL build of the run before phase 21's
+    # comparisons, phase 5's full sectors first
     ell_build.launch_count = 0
     launches5, wide, launches_k2, launches_k6 = full_sector_run(
         bsr_mod, dev, e0_chain20)
-    launches_ell = ell_build.launch_count
-    print(f"ell_rows launches in phase 5: {launches_ell}", flush=True)
-    if not launches_ell:
+    launches_ell = {"phase 5": ell_build.launch_count}
+    print(f"ell_rows launches in phase 5: {launches_ell['phase 5']}",
+          flush=True)
+    if not launches_ell["phase 5"]:
         raise AssertionError("ell_rows was not launched on its main path")
     launches += launches5
     with jax_bounds("fullspace_max_blowup", "fullspace_mixed_max_blowup"):
@@ -5326,6 +5415,8 @@ def main() -> int:
           flush=True)
     launches13, _ = drivers_run(bsr_mod, dev, art)
     launches += launches13
+    launches_ell["phases 6-13"] = (ell_build.launch_count
+                                   - sum(launches_ell.values()))
     torch.cuda.empty_cache()
     print(f"phases 1-6, 8-13: {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -5340,6 +5431,8 @@ def main() -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     print(f"phases 1-13, 16: {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    launches_ell["phases 7, 16"] = (ell_build.launch_count
+                                    - sum(launches_ell.values()))
     torch.cuda.empty_cache()
     kron = kron_ell_run(dev)
     print(f"phases 1-13, 16, 17: {time.perf_counter() - t_start:.1f} s",
@@ -5357,6 +5450,10 @@ def main() -> int:
     print(f"phases 1-13, 16-20: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     torch.cuda.empty_cache()
+    launches_ell["phases 17-20"] = (ell_build.launch_count
+                                    - sum(launches_ell.values()))
+    print("ell_rows launches by window:", json.dumps(launches_ell),
+          flush=True)
     ell21 = ell_build_run(dev)
     print(f"phases 1-13, 16-21: {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -5495,22 +5592,24 @@ def main() -> int:
         k9["kagome24_k02"].get("passes_device_ms")
     record["kernels"][-1]["launches_count"] = (
         "launches: a build is two, the count pass and the rows")
-    # the full-sector ELL build: launches in phase 5, times in phase 21
+    # the full-sector ELL build: launches in every build before phase 21,
+    # times in phase 21
+    build_fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms", "count_ms", "host_gap_ms", "write_ms",
+                    "path", "rows_a_warp", "registers")
     record["kernels"].append({
         "name": "ell_rows",
         "route": "cuda",
         "source": "quantum_basis_tpu_torch/csrc/ell_build.cu",
         "replaces": "quantum_basis_tpu/ops/sparse.py:156",
-        "launches": launches_ell,
+        "launches": sum(launches_ell.values()),
         "max_abs_err": ell21["max_abs_err"]["ell_rows"],
-        **{f: ell21["chain24_Sz0"][f] for f in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms")},
+        **{f: ell21["chain24_Sz0"][f] for f in build_fields},
         "launches_count": "launches: a build is two, the count pass and "
                           "the rows",
-        "shapes": {t: {f: ell21[t][f] for f in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
-            for t in ("kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")}})
+        "launches_by_window": launches_ell,
+        "shapes": {t: {f: ell21[t][f] for f in build_fields}
+                   for t in ("kagome24_Sz0", "chain26_Sz0", "tJ12_N8_Sz0")}})
     # the ELL apply: launches in the ELL solves of phases 5 and 8, times in
     # phase 22 at the explicit momentum route's sector (phase 8's); bound_ms
     # is the live slots' bound, stored_bound_ms the stored arrays'

@@ -8,8 +8,10 @@ S(q, w)), ``memory`` (whole solves at each setting of the memory sizes),
 engines on 1, 2, 4, ... ranks), ``comm_roofline`` (their communication
 against their compute), ``krylov_trace`` (a restart cycle's split),
 ``turns`` (the momentum-sector kernels, the ELL builds or the ELL apply at
-full width, for turns with another tree) and ``ell_variants`` (the ELL
-apply's design choices against variants of its kernel and layout). Each
+full width, for turns with another tree), ``ell_variants`` (the ELL
+apply's design choices against variants of its kernel and layout) and
+``ell_build_variants`` (the full-sector ELL build's against variants of
+its kernel). Each
 runs as
 
     python -m quantum_basis_tpu_torch.benchmarks.<name> [--device cpu]

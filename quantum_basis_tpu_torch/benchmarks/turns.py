@@ -14,15 +14,20 @@ time of the kernels a call launches, without the wrapper) and by the host
 clock (one call's enqueue, the mean of 200).
 
 ``ell``: ``build_sparse_repr`` at the same two momentum sectors and
-``build_sparse_full`` at chain-24 Sz=0 and kagome-24 Sz=0 (dim 2,704,156)
-and chain-26 Sz=0 (dim 10,400,600): each build's seconds (the host clock
-around a build, the device drained before and after; three builds), its
-peak device bytes above what was held before, the device time a build of
-the kernels named ``repr_images_kernel`` or ``ell_rows_kernel``
+``build_sparse_full`` at chain-24 Sz=0 and kagome-24 Sz=0 (dim 2,704,156),
+chain-26 Sz=0 (dim 10,400,600) and t-J-12 N=8 Sz=0 (dim 34,650): each
+build's seconds (the host clock around a build, the device drained before
+and after; three builds), its peak device bytes above what was held
+before, the same two for a build with its matrix's row lengths
+(``EllMatrix.rowlen``: the build's where it writes them, else one
+``row_lengths`` pass, as the first apply needs them), the device time a
+build of the kernels named ``repr_images_kernel`` or ``ell_rows_kernel``
 (``torch.profiler``, every launch of a build summed; absent in a tree
-whose build runs no such kernel), the ELL's width, and a CRC32 of its
-columns (equal columns in two trees, equal checksums; taken over the int64
-view, so that a tree of int64 columns and one of int32 compare).
+whose build runs no such kernel) and of each of ``ell_rows``' passes where
+their kernels have their own names (``ell_rows_kernel_count``,
+``ell_rows_kernel_write``), the ELL's width, and a CRC32 of its columns
+(equal columns in two trees, equal checksums; taken over the int64 view,
+so that a tree of int64 columns and one of int32 compare).
 
 ``spmv``: the ELL apply ``EllMatrix.__call__`` (``ell_spmv``) at the
 sectors of ``chip_smoke.py``'s phase 22: the two momentum sectors above
@@ -61,22 +66,30 @@ import torch
 MOMENTA = (("kagome24_k02", "kagome", (0, 2)), ("chain24_k0", "chain24", (0,)))
 FULL = (("chain24_Sz0", "chain24", None), ("kagome24_Sz0", "kagome", None),
         ("chain26_Sz0", "chain26", None))
+TJ12 = (("tJ12_N8_Sz0", "tj12", None),)
 
 
 def _model(kind, k):
     """The sector's matvec: a momentum sector's ``MatvecRepr`` (k given),
-    else the Sz=0 sector's ``MatvecFull``."""
-    from torch_zoo import heisenberg_chain, kagome_heisenberg
+    else the Sz=0 (and, for t-J, N=8) sector's ``MatvecFull``."""
+    from torch_zoo import heisenberg_chain, kagome_heisenberg, tj_chain
 
     from quantum_basis_tpu_torch.ops.apply import MatvecFull
 
-    m, ops = (kagome_heisenberg(2, 4, device="cuda") if kind == "kagome"
-              else heisenberg_chain(26 if kind == "chain26" else 24,
-                                    device="cuda"))
+    if kind == "tj12":
+        m, ops = tj_chain(12, device="cuda")
+    elif kind == "kagome":
+        m, ops = kagome_heisenberg(2, 4, device="cuda")
+    else:
+        m, ops = heisenberg_chain(26 if kind == "chain26" else 24,
+                                  device="cuda")
     if k is not None:
         m.enumerate_basis_repr(list(k), [ops["Sz"]], [0.0])
         return m, m.sec_repr[0].matvec
-    m.enumerate_basis_full([ops["Sz"]], [0.0])
+    if kind == "tj12":
+        m.enumerate_basis_full([ops["Sz"], ops["N"]], [0.0, 8.0])
+    else:
+        m.enumerate_basis_full([ops["Sz"]], [0.0])
     sec = m.sec_full[0]
     return m, (sec.matvec if isinstance(sec.matvec, MatvecFull)
                else MatvecFull(m.compiled_Ham, sec.dbasis))
@@ -197,11 +210,20 @@ def ell_case(name, kind, k):
     _, mv = _model(kind, k)
     build = ((lambda: build_sparse_full(mv)) if k is None
              else (lambda: build_sparse_repr(mv)))
-    rec = {"case": name, "dim": mv.n, "s": [], "peak_bytes": []}
+    def with_rowlen():
+        ell = build()
+        ell.rowlen
+        return ell
+    rec = {"case": name, "dim": mv.n, "s": [], "peak_bytes": [],
+           "rowlen_s": [], "rowlen_peak_bytes": []}
     for _ in range(3):
         ell, t, peak = _build_timed(build)
         rec["s"].append(t)
         rec["peak_bytes"].append(peak)
+        del ell
+        ell, t, peak = _build_timed(with_rowlen)
+        rec["rowlen_s"].append(t)
+        rec["rowlen_peak_bytes"].append(peak)
     rec["W"] = ell.width
     # over the int64 view, so that trees that store int32 and int64
     # columns compare
@@ -210,6 +232,10 @@ def ell_case(name, kind, k):
     del ell
     rec["device_ms"] = _device_ms(
         build, ("repr_images_kernel", "ell_rows_kernel"), reps=3)
+    if k is None:
+        for tag in ("ell_rows_kernel_count", "ell_rows_kernel_write"):
+            rec[tag.replace("ell_rows_kernel_", "") + "_device_ms"] = \
+                _device_ms(build, (tag,), reps=3, windows=1)
     return rec
 
 
@@ -272,7 +298,8 @@ def spmv_case(name, kind, k):
     return rec
 
 
-SECTIONS = {"repr": (repr_case, MOMENTA), "ell": (ell_case, MOMENTA + FULL),
+SECTIONS = {"repr": (repr_case, MOMENTA),
+            "ell": (ell_case, MOMENTA + FULL + TJ12),
             "spmv": (spmv_case, SPMV)}
 
 

@@ -8,20 +8,24 @@ and (0, 0) past them, at the width W of the widest row of the whole
 sector. :func:`compact_rows` is that stage in torch ops over a (rows, E)
 block, the JAX package's ``_compact_rows_np`` with the same folds.
 
-On the card the stage runs inside the builds' kernels (``csrc/ell_rows.cuh``,
-a warp a row), so no (rows, E) block reaches device memory: the momentum
-build's ``repr_images`` (``ops/apply_repr.py``, ``csrc/apply_repr.cu``) and
-the full-sector build's ``ell_rows`` (:func:`ell_rows`,
-``csrc/ell_build.cu``). Either build is :func:`two_pass`: a count pass
-gives the sector's W (the build's one host sync), then a pass writes the
-(n, W) rows. CPU tensors run the plain versions: the images of a row block
-(``_row_images`` and the index lookup, or ``_repr_images_plain``),
-:func:`compact_rows`, and :func:`assemble` of the blocks.
+On the card the stage runs inside the builds' kernels, so no (rows, E)
+block reaches device memory: the momentum build's ``repr_images``
+(``ops/apply_repr.py``, ``csrc/apply_repr.cu``: a warp a row through the
+shared row stage ``csrc/ell_rows.cuh``) and the full-sector build's
+``ell_rows`` (:func:`ell_rows`, ``csrc/ell_build.cu``: rows of up to 64
+image columns sorted and merged in registers, wider ones through the
+shared stage: ``PATHS``), which also writes each row's length. Either
+build is :func:`two_pass`: a count pass gives the sector's W (the build's
+one host sync), then a pass writes the (n, W) rows. CPU tensors run the
+plain versions: the images of a row block (``_row_images`` and the index
+lookup, or ``_repr_images_plain``), :func:`compact_rows`, and
+:func:`assemble` of the blocks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -52,6 +56,22 @@ ROW_SCRATCH_MAX = 1 << 26
 # Launches of ell_rows since the last reset (two a build: the count pass and
 # the write; the CPU plain version is not counted).
 launch_count = 0
+
+# The row stages of csrc/ell_build.cu, by qbt_ell_rows_path's code: in
+# registers (rows of up to 64 image columns in sectors below 2^26 - 1 rows;
+# two rows a warp up to 16 columns, two images a lane past 32), else the
+# shared row stage of csrc/ell_rows.cuh, its scratch in shared memory or in
+# a device buffer
+PATHS = ("shared", "register, two rows a warp", "register, a row a warp",
+         "register, two images a lane", "device")
+
+# A list to trace the card's builds into, or None: each ell_rows build on a
+# CUDA device appends {"path": its row stage, "events": CUDA events recorded
+# at its start, before and after the count pass and the write pass, and at
+# its end, "sync_s", "alloc_s": the host seconds of the host sync and of the
+# output allocations between the passes} (chip_smoke.py's phase 21 splits a
+# build's time with it).
+trace = None
 
 _lib = None
 
@@ -124,19 +144,38 @@ def row_scratch(p, query, device):
     return buf
 
 
-def two_pass(rows: int, vdt, device, launch):
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def two_pass(rows: int, vdt, device, launch, rec=None):
     """A kernel build of ``rows`` finished rows: ``launch(cols, vals,
     width, W)`` once with no output and a device int32 ``width`` that the
     count pass raises to the widest row, then, after the build's one host
     sync reads W, once more into (rows, W) cols (int32) and vals (``vdt``)
-    (no second launch where W is 0)."""
+    (no second launch where W is 0). ``rec``, a dict, takes the trace's
+    events and host times (:data:`trace`)."""
     width = torch.zeros(1, dtype=torch.int32, device=device)
+    if rec is not None:
+        rec["events"].append(_event())
     launch(None, None, width, 0)
+    if rec is not None:
+        rec["events"].append(_event())
+        t0 = time.perf_counter()
     W = int(width)
+    if rec is not None:
+        t1 = time.perf_counter()
     cols = torch.empty((rows, W), dtype=torch.int32, device=device)
     vals = torch.empty((rows, W), dtype=vdt, device=device)
+    if rec is not None:
+        rec["sync_s"], rec["alloc_s"] = t1 - t0, time.perf_counter() - t1
+        rec["events"].append(_event())
     if W:
         launch(cols, vals, None, W)
+    if rec is not None:
+        rec["events"].append(_event())
     return cols, vals
 
 
@@ -150,7 +189,7 @@ class _Params(ctypes.Structure):
 
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "rec", "ad", "gsel", "gstr", "t0", "t1", "labels", "V", "fodd",
-        "cols", "vals", "width", "row_scratch")]
+        "cols", "vals", "rowlen", "width", "row_scratch")]
         + [(f, ctypes.c_longlong) for f in (
             "M", "sa", "label_space", "n", "rows", "row_blocks",
             "row_shared")]
@@ -176,6 +215,8 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
         lib.qbt_ell_rows.restype = ctypes.c_int
         lib.qbt_ell_rows_scratch.argtypes = [ctypes.POINTER(_Params)]
         lib.qbt_ell_rows_scratch.restype = ctypes.c_longlong
+        lib.qbt_ell_rows_path.argtypes = [ctypes.POINTER(_Params)]
+        lib.qbt_ell_rows_path.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -183,7 +224,8 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 def _ell_rows_plain(tabs, ix, labels, V, fodd, n, block):
     """Plain PyTorch :func:`ell_rows`: blocks of ``block`` rows, each's
     images (``_row_images``, the lookup; H[i, j] = conj(A) sign) compacted
-    by :func:`compact_rows`, then :func:`assemble`."""
+    by :func:`compact_rows`, then :func:`assemble`; each row's length its
+    count of entries (nonzero and left, so ``row_lengths``' rule)."""
     vdt = torch.complex128 if tabs.is_complex else torch.float64
     parts = []
     for i0 in range(0, n, block):
@@ -193,7 +235,8 @@ def _ell_rows_plain(tabs, ix, labels, V, fodd, n, block):
         # images always land in the sector
         parts.append(compact_rows(lookup_tables(ix, tgt),
                                   amp.conj().to(vdt)))
-    return assemble(parts, vdt, labels.device)
+    cols, vals = assemble(parts, vdt, labels.device)
+    return cols, vals, (vals != 0).sum(dim=1, dtype=torch.int32)
 
 
 def _check(tabs, ix, labels, V, fodd, n, dev):
@@ -221,23 +264,29 @@ def _check(tabs, ix, labels, V, fodd, n, dev):
 def ell_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, n: int,
              block: int):
     """The finished ELL rows of H over the basis rows 0 .. n - 1: (cols (n,
-    W) int32, vals (n, W)), H[i, j] = conj(A) sign over the images of
-    ``tabs`` applied to |i> (the matrix-free apply's Hermitian row-gather
-    direction), float64 where every amplitude is real, else complex128.
+    W) int32, vals (n, W), rowlen (n,) int32), H[i, j] = conj(A) sign over
+    the images of ``tabs`` applied to |i> (the matrix-free apply's
+    Hermitian row-gather direction), float64 where every amplitude is
+    real, else complex128; rowlen each row's count of entries, which is
+    its length under ``ops/sparse.py::row_lengths``' rule.
 
     ``labels`` (R,) int64, ``V`` (R, S) int8 and ``fodd`` (R,) int64 or
     None are the basis' flat per-row arrays, ``ix`` its index. CPU tensors
     take the plain version over blocks of ``block`` rows; CUDA tensors
     launch ``ell_rows`` twice (:func:`two_pass`; or raise), for any number
-    of image columns (:func:`row_scratch`).
+    of image columns (``PATHS``, :func:`row_scratch`).
     """
     vdt = torch.complex128 if tabs.is_complex else torch.float64
     dev = labels.device
     if not n or not tabs.n_cols:
         return (torch.zeros((n, 0), dtype=torch.int32, device=dev),
-                torch.zeros((n, 0), dtype=vdt, device=dev))
+                torch.zeros((n, 0), dtype=vdt, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev))
     if _device_of(labels) == "cpu":
         return _ell_rows_plain(tabs, ix, labels, V, fodd, n, block)
+    rec = None
+    if trace is not None:
+        rec = {"events": [_event()]}
     _check(tabs, ix, labels, V, fodd, n, dev)
     E, A = tabs.slots.shape
 
@@ -256,6 +305,9 @@ def ell_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, n: int,
     # the rows' scratch where it is not in shared memory, held to the end
     # of the build
     scratch = row_scratch(p, lib.qbt_ell_rows_scratch, dev)
+    # the rows' lengths, written by the write pass (none where W is 0)
+    rowlen = torch.empty(n, dtype=torch.int32, device=dev)
+    p.rowlen = rowlen.data_ptr()
 
     def launch(cols, vals, width, W):
         global launch_count
@@ -268,6 +320,12 @@ def ell_rows(tabs: RowTables, ix: IndexTables, labels, V, fodd, n: int,
             raise RuntimeError(f"ell_rows kernel launch failed: cudaError "
                                f"{err}")
         launch_count += 1
-    out = two_pass(n, vdt, dev, launch)
+    cols, vals = two_pass(n, vdt, dev, launch, rec)
     del scratch
-    return out
+    if not vals.shape[1]:
+        rowlen.zero_()
+    if rec is not None:
+        rec["path"] = PATHS[lib.qbt_ell_rows_path(ctypes.byref(p))]
+        rec["events"].append(_event())
+        trace.append(rec)
+    return cols, vals, rowlen

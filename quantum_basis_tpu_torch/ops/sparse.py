@@ -22,7 +22,6 @@ order as the JAX package's numpy ``_compact_rows_np``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -240,12 +239,14 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, diag: torch.Tensor,
 
 class EllMatrix:
     """Explicit H over a sector basis in ELL layout (device-resident):
-    int32 columns (given int64, converted), the values, the diagonal; the
-    rows' lengths (``rowlen``, :func:`row_lengths`) are derived once, at
-    the first CUDA apply, with the :class:`EllLaunch` that applies it."""
+    int32 columns (given int64, converted), the values, the diagonal, and
+    the rows' lengths (``rowlen``): those its build gives (the full-sector
+    build's ``ell_rows`` writes them), else derived once by
+    :func:`row_lengths` at their first use, the first CUDA apply, with the
+    :class:`EllLaunch` that applies it."""
 
     def __init__(self, cols: torch.Tensor, vals: torch.Tensor,
-                 diag: torch.Tensor):
+                 diag: torch.Tensor, rowlen: torch.Tensor | None = None):
         self.n = int(diag.shape[0])
         if self.n >= 2 ** 31 - 1:
             raise ValueError("an EllMatrix takes fewer than 2 ** 31 - 1 rows")
@@ -258,10 +259,13 @@ class EllMatrix:
         self.is_complex = vals.is_complex()
         self.n_applies = 0
         self._launch = None
+        self._rowlen = rowlen
 
-    @functools.cached_property
+    @property
     def rowlen(self) -> torch.Tensor:
-        return row_lengths(self.vals)
+        if self._rowlen is None:
+            self._rowlen = row_lengths(self.vals)
+        return self._rowlen
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         self.n_applies += 1
@@ -280,14 +284,14 @@ def build_sparse_full(matvec) -> EllMatrix:
     applying the operator's packed tables (``matvec.tables``) to |i> (the
     same Hermitian row-gather direction as the matrix-free apply). Values
     are float64 when every term group is real, else complex128. On the card
-    ``ell_rows`` (``ops/ell_build.py``) builds the rows: two launches and
-    one host sync a build.
+    ``ell_rows`` (``ops/ell_build.py``) builds the rows and their lengths:
+    two launches and one host sync a build.
     """
     db = matvec.basis
-    cols, vals = ell_rows(matvec.tables, db.index.tables, db.labels_b.view(-1),
-                          db.V_b.view(-1, db.space.n_slots), db.fodd, db.n,
-                          db.block_rows)
-    return EllMatrix(cols, vals, matvec.diag_b.reshape(-1)[:db.n])
+    cols, vals, rowlen = ell_rows(
+        matvec.tables, db.index.tables, db.labels_b.view(-1),
+        db.V_b.view(-1, db.space.n_slots), db.fodd, db.n, db.block_rows)
+    return EllMatrix(cols, vals, matvec.diag_b.reshape(-1)[:db.n], rowlen)
 
 
 def build_sparse_repr(matvec) -> EllMatrix:

@@ -21,8 +21,9 @@ likewise builds CSR once and reuses it per MultMv, src/sparse.cc:113-328):
    with exact per-pair sizes, concatenate ``[x_local | halo]``, and run the
    ELL row reduction with int32 columns remapped into that buffer (on the
    card the ``csrc/ell_spmv.cu`` kernel through one launch record,
-   ``ops/sparse.py::EllLaunch``, built with the engine; the plain
-   ``ell_spmv`` on the CPU).
+   ``ops/sparse.py::EllLaunch``, built with the engine from the rows'
+   lengths the matrix carries (its build's); the plain ``ell_spmv`` on
+   the CPU).
 
 "Live" is a stored nonzero value (``vals != 0``): padding entries create no
 traffic and read local slot 0. What is left behind: the JAX package pads
@@ -103,8 +104,14 @@ class EllShardedHalo(RowSharded):
         self._vals = vals
         self._diag = diag
         self.width = W
-        self._launch = (EllLaunch(self._cols, vals, diag)
-                        if dev.type == "cuda" else None)
+        self._launch = None
+        if dev.type == "cuda":
+            # the rows' lengths as the matrix has them (its build's), zero
+            # past n: the remapped columns keep every live slot
+            rowlen = torch.zeros(nl, dtype=torch.int32, device=dev)
+            if nr:
+                rowlen[:nr] = ell.rowlen[lo:lo + nr].to(dev)
+            self._launch = EllLaunch(self._cols, vals, diag, rowlen)
 
         # the JAX package's diagnostics, over all pairs
         nnz = torch.tensor([need.numel()], dtype=torch.int64, device=dev)

@@ -5,7 +5,9 @@ ELL apply the same H.x (1e-12), and the row stage the same layout and
 values as the JAX package's numpy ``_compact_rows_np``: the torch
 ``compact_rows`` (the builds' plain version) and, emulated here step by
 step, the warp's rank sort, run heads and ballots of
-``csrc/ell_rows.cuh``, on crafted image sets. The ``cuda``-marked test holds
+``csrc/ell_rows.cuh`` and the register stage of ``csrc/ell_build.cu``
+(keys, bitonic exchanges, head walk, ballots, two rows a warp), on crafted
+image sets. The ``cuda``-marked test holds
 the ``repr_images`` kernel against its plain version on the card; the JAX
 package is imported inside the CPU tests only, so this file runs on a
 machine without JAX.
@@ -137,7 +139,9 @@ def _crafted(case, cplx):
     rng = np.random.default_rng(31)
     n, E, span = {"runs": (16, 24, 6), "cancel": (4, 8, 4),
                   "at_tol": (4, 6, 3), "all_invalid": (3, 5, 4),
-                  "empty": (5, 0, 1), "wide": (9, 80, 30)}[case]
+                  "empty": (5, 0, 1), "wide": (9, 80, 30),
+                  "e13": (11, 13, 5), "e24": (10, 24, 8),
+                  "e48": (9, 48, 14), "e64": (7, 64, 20)}[case]
     cols = rng.integers(0, span, size=(n, E)).astype(np.int64)
     vals = rng.standard_normal((n, E))
     if cplx:
@@ -162,6 +166,10 @@ def _crafted(case, cplx):
     if case == "all_invalid":
         cols[0], vals[0] = -1, 0.0
         cols[1], vals[1] = 2, 1e-15
+    if case == "e48":
+        # every row but the last keeps at most 32 of its 48 images, some
+        # past slot 32: the register stage compacts them into one register
+        cols[:-1, 1::3], vals[:-1, 1::3] = -1, 0.0
     return cols, vals
 
 
@@ -202,6 +210,252 @@ def _warp_rows(cols, vals):
         for k, (c, v) in enumerate(r):
             oc[i, k], ov[i, k] = c, v
     return oc, ov
+
+
+_NOKEY = (1 << 32) - 1      # a dropped image's 32-bit key: the largest
+
+
+def _register_rows(cols, vals, compact=True):
+    """The register row stage of csrc/ell_build.cu (rows of E <= 64 image
+    columns) as a warp runs it, lane by lane: a segment of SEG lanes a row
+    (16, two rows a warp, where E <= 16), image e at lane e % SEG of its
+    segment, register e // SEG; the 32-bit keys (j << 6 | e, the largest
+    where dropped); a row of two registers whose kept keys fit 32 (with
+    ``compact``) moved into one in slot order; the bitonic network over
+    the segment's places, each lane's exchange directions taken from its
+    bits a step, the exchanges by shuffle (width SEG) and the in-lane one
+    at distance SEG; each place's value from its slot's lane; the heads,
+    the run ends from the heads' ballot, the walk in place order; the
+    survivors' ballot and places. The count pass counts a row in one
+    register by its columns' matches (``__match_any_sync``: the lowest
+    lane of a column heads its run and sums it in lane order), which must
+    equal the sorted count; then the write pass into (n, W) with the rows'
+    lengths."""
+    def mag(v):
+        return abs(v.real) + abs(v.imag)
+    n, E = cols.shape
+    SEG = 16 if E <= 16 else 32
+    R = 2 if E > 32 else 1
+    L = range(32)
+    sl = [lane % SEG for lane in L]
+    half = [lane // SEG for lane in L]
+
+    def ballot(pred):                   # pred[lane] -> the 32-bit word
+        return sum(1 << lane for lane in L if pred[lane])
+
+    def seg_bits(b, lane):
+        return b if SEG == 32 else (b >> (16 * half[lane])) & 0xffff
+
+    def shfl(x, lane, src):             # __shfl_sync(x, src, SEG)
+        return x[lane - lane % SEG + src % SEG]
+
+    def popc(x):
+        return bin(x).count("1")
+
+    def steps(RS):
+        """The network's steps (size, j) over SEG * RS places."""
+        size = 2
+        while size <= SEG * RS:
+            j = size >> 1
+            while j:
+                yield size, j
+                j >>= 1
+            size <<= 1
+
+    def directions(RS):                 # directions(): dir[lane][r]
+        out = [[0] * RS for _ in L]
+        shuffles = [(size, j) for size, j in steps(RS) if j != SEG]
+        for lane in L:
+            for r in range(RS):
+                pos = sl[lane] + SEG * r
+                for s, (size, j) in enumerate(shuffles):
+                    if ((pos & j) == 0) == ((pos & size) == 0):
+                        out[lane][r] |= 1 << s
+        return out
+
+    dirs = {RS: directions(RS) for RS in (1, R)}
+
+    def by_slot(v, lane, slot):
+        return shfl([vr[slot // SEG if R == 2 else 0] for vr in v], lane,
+                    slot)
+
+    def sorted_row(key, v, RS):
+        """sorted_row: {row: (count, {place: (column, value)})}."""
+        N = SEG * RS
+        key = [list(kr) for kr in key]
+        s = 0
+        for size, j in steps(RS):
+            if j == SEG:                # RS == 2: the lane's two registers
+                for lane in L:
+                    key[lane] = sorted(key[lane])
+                continue
+            new = [list(kr) for kr in key]
+            for lane in L:
+                for r in range(RS):
+                    o = shfl([kr[r] for kr in key], lane, sl[lane] ^ j)
+                    keep_min = (dirs[RS][lane][r] >> s) & 1
+                    new[lane][r] = o if (o < key[lane][r]) == keep_min \
+                        else key[lane][r]
+            key = new
+            s += 1
+        for lane in range(0, 32, SEG):  # each segment sorted over its places
+            flat = [key[lane + q % SEG][q // SEG] for q in range(N)]
+            assert flat == sorted(flat)
+        sv = [[by_slot(v, lane, key[lane][r] & 63) for r in range(RS)]
+              for lane in L]
+        prev = [[None] * RS for _ in L]
+        for lane in L:
+            up = lane - 1 if sl[lane] else lane     # __shfl_up_sync(.., 1)
+            prev[lane][0] = key[up][0]
+            if RS == 2:
+                prev[lane][1] = (shfl([kr[0] for kr in key], lane, SEG - 1)
+                                 if sl[lane] == 0 else key[up][1])
+        alive = [[key[lane][r] != _NOKEY for r in range(RS)] for lane in L]
+        head = [[alive[lane][r] and (sl[lane] + SEG * r == 0 or
+                                     prev[lane][r] >> 6 != key[lane][r] >> 6)
+                 for r in range(RS)] for lane in L]
+        A = [0] * 32
+        H = [0] * 32
+        for r in range(RS):
+            ba = ballot([alive[lane][r] for lane in L])
+            bh = ballot([head[lane][r] for lane in L])
+            for lane in L:
+                A[lane] |= seg_bits(ba, lane) << (SEG * r)
+                H[lane] |= seg_bits(bh, lane) << (SEG * r)
+        length = [[0] * RS for _ in L]
+        for lane in L:
+            for r in range(RS):
+                pos = sl[lane] + SEG * r
+                if head[lane][r]:
+                    above = H[lane] >> (pos + 1)
+                    nxt = (pos + (above & -above).bit_length() if above
+                           else N)
+                    length[lane][r] = min(nxt, popc(A[lane])) - pos
+        most = max(max(lr) for lr in length)   # __reduce_max_sync
+        total = [list(sr) for sr in sv]
+        for d in range(1, most):        # the run's next place, in order
+            a = [shfl([sr[0] for sr in sv], lane, sl[lane] + d) for lane in L]
+            b = ([shfl([sr[1] for sr in sv], lane, sl[lane] + d)
+                  for lane in L] if RS == 2 else a)
+            for lane in L:
+                if d < length[lane][0]:
+                    total[lane][0] = total[lane][0] + (
+                        a[lane] if sl[lane] + d < SEG else b[lane])
+                if RS == 2 and d < length[lane][1]:
+                    total[lane][1] = total[lane][1] + b[lane]
+        keep = [[head[lane][r] and mag(total[lane][r]) > TOL
+                 for r in range(RS)] for lane in L]
+        S = [0] * 32
+        for r in range(RS):
+            bk = ballot([keep[lane][r] for lane in L])
+            for lane in L:
+                S[lane] |= seg_bits(bk, lane) << (SEG * r)
+        out = {}
+        for lane in L:
+            row = out.setdefault(half[lane], [popc(S[lane]), {}])
+            for r in range(RS):
+                if keep[lane][r]:
+                    at = popc(S[lane] & ((1 << (sl[lane] + SEG * r)) - 1))
+                    row[1][at] = (key[lane][r] >> 6, total[lane][r])
+        return out
+
+    def match_count(key, v):
+        """match_count: each segment's count, from one register of keys
+        in slot order."""
+        tag = [key[lane][0] >> 6 | half[lane] << 30
+               if key[lane][0] != _NOKEY else 1 << 31 | lane for lane in L]
+        peers = [ballot([tag[o] == tag[lane] for o in L]) for lane in L]
+        head = [key[lane][0] != _NOKEY and
+                (peers[lane] & -peers[lane]).bit_length() - 1 == lane
+                for lane in L]
+        sv = [v[lane][0] if R == 1 else by_slot(v, lane, key[lane][0] & 63)
+              for lane in L]
+        total = list(sv)
+        rest = [peers[lane] & (peers[lane] - 1) if head[lane] else 0
+                for lane in L]
+        for _ in range(max(popc(x) for x in rest)):
+            src = [(rest[lane] & -rest[lane]).bit_length() - 1 if rest[lane]
+                   else lane for lane in L]
+            o = [shfl(sv, lane, src[lane]) for lane in L]
+            for lane in L:
+                if rest[lane]:
+                    total[lane] = total[lane] + o[lane]
+                    rest[lane] &= rest[lane] - 1
+        bk = ballot([head[lane] and mag(total[lane]) > TOL for lane in L])
+        return {half[lane]: popc(seg_bits(bk, lane)) for lane in L}
+
+    def warp(k0):
+        """Rows k0 .. k0 + 32 // SEG - 1: each row's (count, entries)."""
+        k = [k0 + half[lane] for lane in L]
+        key = [[_NOKEY] * R for _ in L]
+        v = [[0.0] * R for _ in L]
+        for lane in L:
+            for r in range(R):
+                e = sl[lane] + SEG * r
+                if k[lane] < n and e < E:
+                    v[lane][r] = vals[k[lane], e]
+                    if mag(v[lane][r]) > TOL:
+                        key[lane][r] = int(cols[k[lane], e]) << 6 | e
+                        assert key[lane][r] < _NOKEY
+        RS = R
+        if R == 2 and compact and sum(kk != _NOKEY for kr in key
+                                      for kk in kr) <= 32:
+            kept = [kk for r in range(2) for kr in key for kk in [kr[r]]
+                    if kk != _NOKEY]
+            assert kept == sorted(kept, key=lambda kk: kk & 63)
+            key = [[kept[lane] if lane < len(kept) else _NOKEY] for lane in L]
+            RS = 1
+        rows = sorted_row(key, v, RS)
+        if RS == 1:                     # the count pass's match
+            counts = match_count(key, v)
+            assert all(counts[h] == rows[h][0] for h in rows)
+        return {k0 + h: row for h, row in rows.items() if k0 + h < n}
+
+    rows = {}
+    for k0 in range(0, n, 32 // SEG):
+        rows.update(warp(k0))
+    W = max((cnt for cnt, _ in rows.values()), default=0)   # the count pass
+    oc = np.zeros((n, W), np.int64)
+    ov = np.zeros((n, W), vals.dtype)
+    rowlen = np.zeros(n, np.int32)
+    for i, (cnt, entries) in rows.items():      # the write pass
+        assert sorted(entries) == list(range(cnt))
+        for at, (c, val) in entries.items():
+            oc[i, at], ov[i, at] = c, val
+        rowlen[i] = cnt
+    return oc, ov, rowlen
+
+
+@pytest.mark.parametrize("complex_vals", [False, True])
+@pytest.mark.parametrize("case", ["runs", "cancel", "at_tol", "all_invalid",
+                                  "empty", "e13", "e24", "e48", "e64"])
+def test_register_stage_matches_numpy(case, complex_vals):
+    """The register row stage of ``csrc/ell_build.cu``, emulated lane by
+    lane (``_register_rows``: two rows a warp at E <= 16, one image a lane
+    at E <= 32, two at E <= 64, compacted into one where the kept images
+    fit or not; the count pass by matches), equals ``_compact_rows_np``
+    exactly on the crafted image sets (runs, exact cancellations, entries
+    at the tolerance, an all-invalid row, E = 0, and random rows at E =
+    13, 24, 48 and 64; odd row counts leave a half-warp empty); each row's
+    length is its count, ``row_lengths``' rule."""
+    from quantum_basis_tpu.ops.sparse import _compact_rows_np
+
+    from quantum_basis_tpu_torch.ops.sparse import row_lengths
+
+    cols, vals = _crafted(case, complex_vals)
+    cn, rn, inn = _compact_rows_np(
+        cols.copy(), vals.real.copy(),
+        vals.imag.copy() if complex_vals else None)
+    want = rn + 1j * inn if complex_vals else rn
+    if case == "e48":
+        kept = (abs(vals.real) + abs(vals.imag) > TOL).sum(axis=1)
+        assert (kept[:-1] <= 32).all() and kept[-1] > 32
+    for compact in (True, False):
+        cr, vr, rowlen = _register_rows(cols, vals, compact)
+        np.testing.assert_array_equal(cr, cn)
+        np.testing.assert_array_equal(vr, want)
+        np.testing.assert_array_equal(
+            rowlen, row_lengths(torch.as_tensor(want)).numpy())
 
 
 @pytest.mark.parametrize("complex_vals", [False, True])

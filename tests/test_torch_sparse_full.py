@@ -7,9 +7,11 @@ over one or several row blocks and in every index mode. Both Hermiticity
 checks pass on H and raise on a deliberately non-Hermitian ELL;
 ``Model.generate_Ham_sparse_full`` / ``generate_Ham_sparse_repr`` switch the
 sector's matvec to the ELL and keep the matrix-free apply. The
-``cuda``-marked test holds the ``ell_rows`` kernel against its plain
-version on the card; the JAX package is imported inside the CPU tests
-only, so this file runs on a machine without JAX.
+``cuda``-marked tests hold the ``ell_rows`` kernel against its plain
+version on the card, on every row stage (in registers two rows a warp at
+E <= 16, a row a warp at 17-32 and 33-64 image columns, the shared stage
+past 64) and with the rows' lengths it writes; the JAX package is imported
+inside the CPU tests only, so this file runs on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch_zoo as tz
 from quantum_basis_tpu_torch.basis.index import BasisIndex
 from quantum_basis_tpu_torch.basis.lin_table import digit_split
 from quantum_basis_tpu_torch.interop import ell_from_numpy
-from quantum_basis_tpu_torch.ops import ell_build
+from quantum_basis_tpu_torch.ops import ell_build, sparse
 from quantum_basis_tpu_torch.ops.apply import DeviceBasis, MatvecFull
 from quantum_basis_tpu_torch.ops.apply_repr import MatvecRepr
 from quantum_basis_tpu_torch.ops.sparse import (
@@ -30,6 +32,7 @@ from quantum_basis_tpu_torch.ops.sparse import (
     build_sparse_full,
     hermiticity_exact,
     hermiticity_probe,
+    row_lengths,
 )
 
 # tests/test_torch_apply.py's MODELS
@@ -80,6 +83,31 @@ def test_build_sparse_full_matches_jax(name):
                                atol=1e-12)
     np.testing.assert_allclose(et(x).numpy(), st.matvec(
         x.to(torch.complex128) if cplx else x).numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_build_rowlen_is_row_lengths(name, monkeypatch):
+    """The rows' lengths the plain ``ell_rows`` returns (each row's count
+    of entries) equal ``row_lengths`` of its values, over one block and
+    over row blocks of 100; ``build_sparse_full``'s matrix carries them, so
+    no ``row_lengths`` pass runs on it."""
+    _, mt, _ = build_both(name)
+    st = mt.sec_full[0]
+    db = DeviceBasis(mt.space, st.labels, st.dbasis.index, block_rows=100,
+                     device="cpu")
+    for mv in (st.matvec, MatvecFull(mt.compiled_Ham, db)):
+        b = mv.basis
+        args = (mv.tables, b.index.tables, b.labels_b.view(-1),
+                b.V_b.view(-1, b.space.n_slots), b.fodd, b.n)
+        cols, vals, rowlen = ell_build.ell_rows(*args, b.block_rows)
+        assert rowlen.dtype == torch.int32 and rowlen.shape == (b.n,)
+        np.testing.assert_array_equal(rowlen.numpy(),
+                                      row_lengths(vals).numpy())
+        assert int(rowlen.max()) == vals.shape[1]
+        with monkeypatch.context() as mp:
+            mp.setattr(sparse, "row_lengths", None)     # not called
+            ell = build_sparse_full(mv)
+            assert torch.equal(ell.rowlen, rowlen)
 
 
 @pytest.mark.parametrize("name", ["chain12_Sz0", "dm_chain10_Sz0"])
@@ -196,15 +224,19 @@ def test_build_sparse_full_without_off_diagonal_columns():
 
 
 @pytest.mark.cuda
-def test_ell_rows_kernel_matches_plain_on_cuda():
-    """The ``ell_rows`` kernel (a warp a row, the row stage fused) on the
-    card against its plain version on the same CUDA tensors: columns and W
-    exactly, values to 1e-14 of max|v|, with a direct, a lin and a
-    binary-search index, on a spin-1/2 chain (bit fields), the spin-1 chain
-    (slot values from V), t-J, Kondo and the honeycomb fermions
-    (Jordan-Wigner signs), the DM chain (complex amplitudes) and the
-    three-site chain (arity 3); two launches a build; and the built ELL's
-    H x against MatvecFull's (1e-12 of max|y|)."""
+def test_ell_rows_kernel_matches_plain_on_cuda(monkeypatch):
+    """The ``ell_rows`` kernel on the card against its plain version on the
+    same CUDA tensors: columns and W exactly, values to 1e-14 of max|v|,
+    the rows' lengths it writes equal to ``row_lengths`` of its values and
+    to the plain version's, with a direct, a lin and a binary-search
+    index, on every register stage: two rows a warp (E <= 16: a spin-1/2
+    chain's bit fields, the spin-1 chain's slot values from V, t-J and
+    Kondo's Jordan-Wigner signs, the DM chain's complex amplitudes), a row
+    a warp (17-32: the honeycomb fermions, the three-site chain's arity 3,
+    the DM chain of 20 sites, complex), two images a lane (33-64: kagome
+    2x3); the path each build takes (``ell_build.trace``); two launches a
+    build; and the built ELL's H x against MatvecFull's (1e-12 of max|y|).
+    The shared stage past 64 columns: ``test_ell_rows_wide_rows_on_cuda``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     dev = "cuda"
@@ -214,8 +246,11 @@ def test_ell_rows_kernel_matches_plain_on_cuda():
              (tz.kondo_chain(4, 1.3, device=dev), ["N", "Sz"], [4.0, 0.0]),
              (tz.spinless_fermion_honeycomb(3, 2, device=dev), ["N"], [4.0]),
              (tz.dm_chain(10, device=dev), ["Sz"], [0.0]),
+             (tz.dm_chain(20, device=dev), ["Sz"], [0.0]),
              (tz.three_spin_chain_with(tz.Lattice, tz.Model, tz.Opr, tz.Mopr,
-                                       12, device=dev), ["Sz"], [0.0])]
+                                       12, device=dev), ["Sz"], [0.0]),
+             (tz.kagome_heisenberg(2, 3, device=dev), ["Sz"], [0.0])]
+    paths = set()
     for (m, ops), names, vals in cases:
         m.enumerate_basis_full([ops[c] for c in names], vals)
         for mode in ("direct", "lin", "bsearch"):
@@ -224,22 +259,30 @@ def test_ell_rows_kernel_matches_plain_on_cuda():
             args = (tabs, db.index.tables, db.labels_b.view(-1),
                     db.V_b.view(-1, db.space.n_slots), db.fodd, db.n)
             before = ell_build.launch_count
-            c, v = ell_build.ell_rows(*args, db.block_rows)
-            c2, v2 = ell_build._ell_rows_plain(*args, db.block_rows)
+            monkeypatch.setattr(ell_build, "trace", [])
+            c, v, rl = ell_build.ell_rows(*args, db.block_rows)
+            c2, v2, rl2 = ell_build._ell_rows_plain(*args, db.block_rows)
             torch.cuda.synchronize()
             assert ell_build.launch_count == before + 2
+            (rec,) = ell_build.trace
+            E = tabs.n_cols
+            assert rec["path"] == ell_build.PATHS[
+                1 if E <= 16 else 2 if E <= 32 else 3]
+            paths.add(rec["path"])
             assert c.shape == c2.shape and torch.equal(c, c2)
             assert v.dtype == v2.dtype
             scale = max(float(v2.abs().max()), 1e-300)
             assert float((v - v2).abs().max()) <= 1e-14 * scale
+            assert torch.equal(rl, row_lengths(v)) and torch.equal(rl, rl2)
             x = torch.randn(db.n, dtype=torch.float64, device=dev)
             if mv.is_complex:
                 x = x.to(torch.complex128)
             y = mv(x)
-            got = EllMatrix(c, v, mv.diag_b.reshape(-1)[:db.n])(x)
+            got = EllMatrix(c, v, mv.diag_b.reshape(-1)[:db.n], rl)(x)
             torch.cuda.synchronize()
             assert float((got - y).abs().max()) <= 1e-12 * float(
                 y.abs().max())
+    assert paths == set(ell_build.PATHS[1:4])
 
 
 @pytest.mark.cuda
@@ -250,8 +293,9 @@ def test_ell_rows_wide_rows_on_cuda(monkeypatch):
     shared memory, so a block runs fewer warps. Then every row's scratch
     in the device buffer (ROW_SHARED_MAX = 0), of one block
     (ROW_SCRATCH_MAX = 1) or of many. Each build against the plain version
-    (columns and W exactly, values to 1e-14 of max|v|) and its H x against
-    MatvecFull's (1e-12 of max|y|)."""
+    (columns and W exactly, values to 1e-14 of max|v|, the rows' lengths
+    against ``row_lengths``) and its H x against MatvecFull's (1e-12 of
+    max|y|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the GPU machine")
     dev = "cuda"
@@ -271,10 +315,14 @@ def test_ell_rows_wide_rows_on_cuda(monkeypatch):
             db, tabs = mv.basis, mv.tables
             args = (tabs, db.index.tables, db.labels_b.view(-1),
                     db.V_b.view(-1, db.space.n_slots), db.fodd, db.n)
-            c, v = ell_build.ell_rows(*args, db.block_rows)
-        c2, v2 = ell_build._ell_rows_plain(*args, db.block_rows)
+            mp.setattr(ell_build, "trace", [])
+            c, v, rl = ell_build.ell_rows(*args, db.block_rows)
+            (rec,) = ell_build.trace
+        c2, v2, _ = ell_build._ell_rows_plain(*args, db.block_rows)
         torch.cuda.synchronize()
+        assert rec["path"] == ("device" if shared == 0 else "shared")
         assert c.shape == c2.shape and torch.equal(c, c2)
+        assert torch.equal(rl, row_lengths(v))
         assert v.dtype == v2.dtype == (torch.complex128 if cplx
                                        else torch.float64)
         scale = float(v2.abs().max())
